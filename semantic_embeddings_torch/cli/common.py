@@ -1,0 +1,212 @@
+"""Shared CLI plumbing: argument groups, device and precision, model
+assembly, feature dumps (the parts of the JAX package's ``cli/common.py``
+that the trainer uses)."""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from semantic_embeddings_tpu.embeddings import save_features
+
+from ..models import EmbeddingModel, build_network
+from ..train import LOSS_OUTPUT, new_train_state
+
+
+def add_lr_schedule_arguments(parser):
+    group = parser.add_argument_group("Parameters for --lr_schedule=SGD")
+    group.add_argument("--sgd_patience", type=int, default=None,
+                       help="Patience of learning rate reduction in epochs.")
+    group.add_argument("--sgd_lr", type=float, default=0.1,
+                       help="Initial learning rate.")
+    group.add_argument("--sgd_min_lr", type=float, default=None,
+                       help="Minimum learning rate.")
+    group.add_argument("--sgd_schedule", type=str, default=None,
+                       help="Comma-separated list of `epoch:lr` pairs, defining "
+                            "a learning rate schedule. The total number of "
+                            "epochs can be appended to this list, separated by "
+                            "a comma as well.")
+    group = parser.add_argument_group("Parameters for --lr_schedule=SGDR")
+    group.add_argument("--sgdr_base_len", type=int, default=None,
+                       help="Length of first cycle in epochs.")
+    group.add_argument("--sgdr_mul", type=int, default=None,
+                       help="Multiplier for cycle length after each cycle.")
+    group.add_argument("--sgdr_max_lr", type=float, default=None,
+                       help="Maximum learning rate.")
+    group = parser.add_argument_group("Parameters for --lr_schedule=CLR")
+    group.add_argument("--clr_step_len", type=int, default=None,
+                       help="Length of each step in epochs.")
+    group.add_argument("--clr_min_lr", type=float, default=None,
+                       help="Minimum learning rate.")
+    group.add_argument("--clr_max_lr", type=float, default=None,
+                       help="Maximum learning rate.")
+
+
+def add_common_train_arguments(group):
+    group.add_argument("--device", type=str, default="cuda",
+                       help="Device to run on (cuda, cuda:N or cpu). A CUDA "
+                            "device that is not present is an error.")
+    group.add_argument("--gpus", type=int, default=1,
+                       help="Number of devices to be used (only 1 is ported).")
+    group.add_argument("--read_workers", type=int, default=8,
+                       help="Number of parallel data pre-processing threads "
+                            "(file datasets; not used by in-memory ones).")
+    group.add_argument("--queue_size", type=int, default=100,
+                       help="Maximum size of data queue (file datasets).")
+    group.add_argument("--gpu_merge", action="store_true", default=False,
+                       help="Accepted for interface parity.")
+    group.add_argument("--bn_per_replica", action="store_true", default=False,
+                       help="Per-replica BatchNorm statistics (not ported yet).")
+    group.add_argument("--spatial", type=int, default=1,
+                       help="Spatial partitioning factor (not ported yet).")
+
+
+def reject_unported(flags):
+    """Raises ``SystemExit`` for a flag whose feature is not ported yet.
+
+    ``flags``: (name, is_set) pairs; a set flag never passes silently."""
+    for name, is_set in flags:
+        if is_set:
+            raise SystemExit(f"{name} is not ported yet to the PyTorch package.")
+
+
+def resolve_device(name):
+    """The ``--device``; a CUDA device that is not present raises instead of
+    running on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {name}: no CUDA device is present (pass --device cpu "
+            "to run on the CPU).")
+    return device
+
+
+def set_float32_precision():
+    """Sets, in this one place, how float32 convolutions and matmuls run on
+    the card, and prints it: full float32, TF32 off for both."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("float32 precision: torch.backends.cudnn.allow_tf32=False, "
+          "torch.backends.cuda.matmul.allow_tf32=False (TF32 off)")
+
+
+def schedule_args_from(args):
+    return {name: value for name, value in vars(args).items() if value is not None}
+
+
+def load_class_embedding(path_or_onehot):
+    """Loads an embedding pickle, or None for 'onehot'."""
+    if path_or_onehot == "onehot":
+        return None, None
+    with open(path_or_onehot, "rb") as f:
+        dump = pickle.load(f)
+    return dump["ind2label"], np.asarray(dump["embedding"], dtype=np.float32)
+
+
+def check_label_range(dataset, n_rows, what="embedding"):
+    """Labels index the embedding/one-hot tables on the device, where an
+    out-of-range gather is an error deep inside the first step; validate on
+    the host up front."""
+    mx = int(max(np.max(dataset.labels_train), np.max(dataset.labels_test)))
+    if mx >= n_rows:
+        raise SystemExit(
+            f"Dataset labels go up to {mx} but the {what} has only "
+            f"{n_rows} rows; pass an embedding matching the dataset's "
+            "class enumeration (e.g. the right class subset).")
+
+
+def build_embedding_model(embed_dim, architecture, loss, cls_classes,
+                          cls_input="output", input_channels=3, seed=0):
+    """Backbone + output transform + optional cls head; the initial weights
+    are drawn on the CPU from a ``torch.Generator`` seeded with ``seed``."""
+    generator = torch.Generator().manual_seed(seed)
+    spec = build_network(embed_dim, architecture,
+                         input_channels=input_channels, generator=generator)
+    model = EmbeddingModel(
+        spec.module, output=LOSS_OUTPUT[loss], cls_classes=cls_classes,
+        cls_input=cls_input, generator=generator)
+    return model, spec
+
+
+def init_model_state(model, device):
+    return new_train_state(model.to(device))
+
+
+def print_model_summary(state, architecture):
+    params = state.params
+    n_params = sum(p.numel() for p in params)
+    n_stats = sum(b.numel() for b in state.model.buffers())
+    print(
+        f"Model: {architecture} — {n_params:,} trainable parameters in "
+        f"{len(params)} tensors (+{n_stats:,} batch-norm statistics)")
+
+
+@torch.no_grad()
+def extract_test_features(model, dataset, device, batch_size=100, pick=None,
+                          autocast_dtype=None):
+    """Predicts the model output for every test image, in dataset order,
+    as masked fixed-size batches fetched from the device once."""
+    prepare = dataset.make_prepare(device)
+    model.eval()
+    outs, valids = [], []
+    for raw in dataset.test_batches(batch_size):
+        images, _ = prepare(raw, None, False)
+        if autocast_dtype is None:
+            out = model(images)
+        else:
+            with torch.autocast(device_type=device.type, dtype=autocast_dtype):
+                out = model(images)
+        outs.append((out[pick] if pick is not None else out).float())
+        valids.append(np.asarray(raw["valid"]) > 0)
+    feats = torch.cat(outs).cpu().numpy()
+    return feats[np.concatenate(valids)]
+
+
+def dump_artifacts(args, state, model, dataset, device, cls_weight=0.0,
+                   meta=None, features=None, autocast_dtype=None):
+    """--model_dump / --weight_dump / --feature_dump handling.  Model dumps
+    carry the model configuration in their metadata."""
+    from ..train.state import save_checkpoint, save_weights
+
+    metadata = {"architecture": getattr(args, "architecture", None)}
+    if meta:
+        metadata.update(meta)
+
+    if getattr(args, "weight_dump", None):
+        try:
+            save_weights(args.weight_dump, state.model)
+        except OSError as e:
+            print(f"An error occurred while saving the model weights: {e}")
+    if getattr(args, "model_dump", None):
+        try:
+            save_checkpoint(args.model_dump, state, metadata)
+        except OSError as e:
+            print(f"An error occurred while saving the model: {e}")
+    if getattr(args, "feature_dump", None):
+        feats = features if features is not None else extract_test_features(
+            model, dataset, device,
+            batch_size=getattr(args, "val_batch_size", 100) or 100,
+            pick=0 if cls_weight > 0 else None, autocast_dtype=autocast_dtype)
+        save_features(args.feature_dump, feats)
+
+
+class MetricsLogger:
+    """Per-epoch metrics log for ``--log_dir``: ``metrics.jsonl``, one JSON
+    object per epoch.  The directory is recreated at start."""
+
+    def __init__(self, log_dir):
+        import shutil
+
+        if os.path.isdir(log_dir):
+            shutil.rmtree(log_dir, ignore_errors=True)
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, "metrics.jsonl")
+
+    def __call__(self, epoch, metrics):
+        vals = {k: float(v) for k, v in metrics.items()}
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"epoch": epoch, **vals}) + "\n")

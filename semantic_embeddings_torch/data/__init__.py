@@ -1,0 +1,45 @@
+"""Dataset registry (counterpart of the JAX package's ``data/__init__.py``).
+
+Ported so far: ``synthetic[-N[-n_train[-n_test]]]``, ``cifar-10`` and
+``cifar-100``.  The file datasets come in later work.
+"""
+
+from __future__ import annotations
+
+from .base import DatasetBase
+from .cifar import CifarDataset, InMemoryDataset, SyntheticDataset
+
+
+def get_data_generator(dataset, data_root=None, classes=None, **extra):
+    """Creates a dataset by name with the original defaults."""
+    dataset = dataset.lower()
+    kwargs = dict(extra)
+
+    if dataset.startswith("synthetic"):
+        # synthetic[-<num_classes>[-<n_train>[-<n_test>]]]: in-memory random
+        # data, CIFAR-shaped.  ``classes`` (the embedding's label order)
+        # takes precedence for the class count.
+        parts = dataset.split("-")
+        n = int(parts[1]) if len(parts) > 1 else 100
+        if len(parts) > 2:
+            kwargs.setdefault("n_train", int(parts[2]))
+        if len(parts) > 3:
+            kwargs.setdefault("n_test", int(parts[3]))
+        return SyntheticDataset(num_classes=n, classes=classes, **kwargs)
+
+    if dataset == "cifar-10":
+        return CifarDataset(
+            data_root, classes, reenumerate=True, cifar10=True, **kwargs)
+    if dataset == "cifar-100":
+        return CifarDataset(data_root, classes, reenumerate=True, **kwargs)
+
+    raise ValueError(f"Unknown or not yet ported dataset: {dataset}")
+
+
+__all__ = [
+    "get_data_generator",
+    "DatasetBase",
+    "InMemoryDataset",
+    "CifarDataset",
+    "SyntheticDataset",
+]

@@ -1,0 +1,319 @@
+"""The training engine: step builders and the epoch-driving fit loop
+(counterpart of the JAX package's ``train/trainer.py``).
+
+One train step runs on the device from end to end: the dataset's
+``prepare`` gathers, augments and normalizes the batch, then the forward
+pass, the loss (with the Keras L2 kernel penalty), the backward pass and the
+Keras-exact SGD update follow.  Only the batch's indices and the scalar
+learning rate come from the host.  Metrics stay on the device and are
+fetched once per epoch, so no step waits for the host.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+import warnings
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..data.cifar import to_device
+from . import losses as L
+from .optimizer import effective_lr, sgd_update
+from .state import TrainState, save_checkpoint
+
+EMB_LOSSES = {
+    "mse": L.squared_distance,
+    "inv_corr": L.inv_correlation,
+    "unnorm_corr": L.inv_correlation,
+    "softmax_corr": L.inv_correlation,
+}
+
+#: output transform the EmbeddingModel applies for each loss
+LOSS_OUTPUT = {
+    "mse": "linear",
+    "inv_corr": "l2norm",
+    "unnorm_corr": "linear",
+    "softmax_corr": "softmax",
+}
+
+
+def _autocast(device, dtype):
+    if dtype is None:
+        return contextlib.nullcontext()
+    return torch.autocast(device_type=device.type, dtype=dtype)
+
+
+def _device_of(model):
+    return next(model.parameters()).device
+
+
+def _class_table(class_embedding, device):
+    if class_embedding is None:
+        return None
+    return torch.as_tensor(
+        np.asarray(class_embedding, dtype=np.float32), device=device)
+
+
+def _apply_metric_fns(metric_fn, targets, emb_out, reduce):
+    """``{name: reduce(fn(targets, emb_out))}`` for a dict of per-sample
+    metric functions (or None)."""
+    return {name: reduce(fn(targets, emb_out))
+            for name, fn in (metric_fn or {}).items()}
+
+
+def make_train_step(
+    model,
+    prepare: Callable,
+    *,
+    loss_name: str = "inv_corr",
+    class_embedding=None,
+    cls_weight: float = 0.0,
+    l2_penalty_fn: Callable | None = None,
+    momentum: float = 0.9,
+    nesterov: bool = False,
+    clipnorm: float = 10.0,
+    metric_fn=None,
+    loss_fn_override: Callable | None = None,
+    num_classes: int | None = None,
+    autocast_dtype=None,
+):
+    """Builds the train step ``step(state, raw_batch, lr, rng)``.
+
+    ``model`` runs the forward pass; it holds the parameters of
+    ``state.model`` (it is that model, or a :meth:`EmbeddingModel.twin` of
+    it).  ``prepare(raw_batch, rng, train)`` returns ``(images, labels)``
+    on the device; ``class_embedding`` (n_classes, d) gives the per-sample
+    targets by a gather on the device.  ``metric_fn``: a dict of per-sample
+    metrics ``(targets, emb_out) -> (B,)``.  ``loss_fn_override``: per-sample
+    loss ``(targets, emb_out) -> (B,)`` replacing the named loss.
+    ``l2_penalty_fn(model)`` adds the kernel penalty to the loss, so its
+    gradient is in ``g`` before the per-tensor clip.  ``autocast_dtype``
+    (``torch.bfloat16`` for ``--bf16``) runs the forward under autocast.
+    """
+    emb_loss = loss_fn_override or EMB_LOSSES[loss_name]
+    device = _device_of(model)
+    table = _class_table(class_embedding, device)
+    if num_classes is None and table is not None:
+        num_classes = table.shape[0]
+
+    def step(state: TrainState, raw_batch, lr, rng):
+        images, labels = prepare(raw_batch, rng, True)
+        targets = table[labels]
+        model.train()
+        with _autocast(device, autocast_dtype):
+            out = model(images)
+        metrics = {}
+        if cls_weight > 0:
+            emb_out, prob = out
+            onehot = F.one_hot(labels, num_classes).float()
+            cls_l = L.categorical_crossentropy(onehot, prob).mean()
+            metrics["cls_loss"] = cls_l.detach()
+            metrics["cls_acc"] = (
+                torch.argmax(prob, -1) == labels).float().mean()
+        else:
+            emb_out, cls_l = out, 0.0
+        e_l = emb_loss(targets, emb_out).mean()
+        total = e_l + cls_weight * cls_l
+        if l2_penalty_fn is not None:
+            total = total + l2_penalty_fn(model)
+        metrics["emb_loss"] = e_l.detach()
+        metrics["loss"] = total.detach()
+        with torch.no_grad():
+            metrics.update(_apply_metric_fns(
+                metric_fn, targets, emb_out.detach(), lambda v: v.mean()))
+
+        params = state.params
+        grads = torch.autograd.grad(total, params)
+        sgd_update(params, state.velocity, list(grads), lr,
+                   momentum=momentum, nesterov=nesterov, clipnorm=clipnorm)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(
+    model,
+    prepare: Callable,
+    *,
+    loss_name: str = "inv_corr",
+    class_embedding=None,
+    cls_weight: float = 0.0,
+    metric_fn=None,
+    loss_fn_override: Callable | None = None,
+    num_classes: int | None = None,
+    l2_penalty_fn: Callable | None = None,
+    autocast_dtype=None,
+):
+    """Validation step ``step(state, raw_batch, rng)``: running BN stats, no
+    update; returns summed metrics and the batch's count of valid rows, so
+    padded final batches average correctly."""
+    emb_loss = loss_fn_override or EMB_LOSSES[loss_name]
+    device = _device_of(model)
+    table = _class_table(class_embedding, device)
+    if num_classes is None and table is not None:
+        num_classes = table.shape[0]
+
+    @torch.no_grad()
+    def step(state: TrainState, raw_batch, rng):
+        images, labels = prepare(raw_batch, rng, False)
+        valid = raw_batch.get("valid")
+        mask = (
+            torch.ones(images.shape[0], device=device) if valid is None
+            else to_device(np.asarray(valid, dtype=np.float32), device)
+        )
+        targets = table[labels]
+        model.eval()
+        with _autocast(device, autocast_dtype):
+            out = model(images)
+        metrics = {}
+        if cls_weight > 0:
+            emb_out, prob = out
+            onehot = F.one_hot(labels, num_classes).float()
+            metrics["cls_loss"] = (
+                L.categorical_crossentropy(onehot, prob) * mask).sum()
+            metrics["cls_correct"] = (
+                (torch.argmax(prob, -1) == labels).float() * mask).sum()
+            metrics["pred"] = torch.argmax(prob, -1)
+        else:
+            emb_out = out
+        metrics["emb_loss"] = (emb_loss(targets, emb_out) * mask).sum()
+        # Monitored total: embedding loss + weighted CE + the L2 penalty
+        # times the count, so that the per-count mean gains it once (Keras
+        # folds model.losses into val_loss).
+        metrics["total_loss"] = metrics["emb_loss"] + cls_weight * metrics.get(
+            "cls_loss", 0.0)
+        if l2_penalty_fn is not None:
+            metrics["total_loss"] = metrics["total_loss"] + (
+                l2_penalty_fn(model) * mask.sum())
+        correct = _apply_metric_fns(
+            metric_fn, targets, emb_out, lambda v: (v * mask).sum())
+        metrics.update({f"{k}_correct": v for k, v in correct.items()})
+        metrics["count"] = mask.sum()
+        return metrics
+
+    return step
+
+
+def run_validation(eval_step, state, batches, rng):
+    """Drives the eval step over an iterator of raw batches; sums on the
+    device and fetches once."""
+    pending = [eval_step(state, raw, rng) for raw in batches]
+    preds = [m.pop("pred") for m in pending if "pred" in m]
+    keys = list(pending[0]) if pending else []
+    sums = torch.stack([
+        torch.stack([torch.as_tensor(m[k], dtype=torch.float32) for m in pending]
+                    ).sum() for k in keys
+    ]).cpu().tolist() if keys else []
+    totals = dict(zip(keys, sums))
+    count = max(totals.pop("count", 1.0), 1.0)
+    out = {}
+    for k, v in totals.items():
+        if k.endswith("_correct"):
+            out[k.replace("_correct", "_acc")] = v / count
+        else:
+            out[k] = v / count
+    out["val_loss"] = out.get("total_loss", out.get("emb_loss", 0.0))
+    out.pop("total_loss", None)
+    if preds:
+        out["predictions"] = torch.cat(preds).cpu().numpy()
+    return out
+
+
+def fit(
+    state: TrainState,
+    train_step,
+    eval_step,
+    dataset,
+    schedule,
+    *,
+    epochs: int,
+    batch_size: int,
+    val_batch_size: int | None = None,
+    initial_epoch: int = 0,
+    decay: float = 0.0,
+    seed: int = 0,
+    snapshot: str | None = None,
+    snapshot_best: str | None = None,
+    verbose: bool = True,
+    log_fn=None,
+    snapshot_meta: dict | None = None,
+):
+    """Epoch loop with schedule driving, validation, and snapshotting.
+
+    ``dataset`` provides ``train_batches(batch_size, epoch, seed)``,
+    ``test_batches(batch_size)`` and ``steps_per_epoch(batch_size)``.  One
+    ``torch.Generator`` on the model's device, seeded from ``seed``, draws
+    the augmentation of every step.
+    """
+    val_batch_size = val_batch_size or batch_size
+    device = _device_of(state.model)
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed)
+    # Keras ModelCheckpoint(mode='auto'): metrics whose name contains 'acc'
+    # or starts with 'fmeasure' are maximized, everything else minimized.
+    maximize = snapshot_best is not None and (
+        "acc" in snapshot_best or snapshot_best.startswith("fmeasure"))
+    best_metric = -np.inf if maximize else np.inf
+    steps_per_epoch = dataset.steps_per_epoch(batch_size)
+    global_step = int(state.step)
+
+    for epoch in range(initial_epoch, epochs):
+        t0 = time.time()
+        epoch_lr = schedule.lr(epoch, global_step)
+        n_batches = 0
+        metric_sums = None
+        for raw in dataset.train_batches(batch_size, epoch, seed):
+            lr = schedule.lr(epoch, global_step) if schedule.per_batch else epoch_lr
+            lr = effective_lr(lr, decay, global_step)
+            state, metrics = train_step(state, raw, lr, rng)
+            # Epoch-mean train metrics, summed on the device and fetched
+            # once per epoch: reading one per step would make every step
+            # wait for the device.
+            if metric_sums is None:
+                metric_sums = dict(metrics)
+            else:
+                metric_sums = {k: metric_sums[k] + v for k, v in metrics.items()}
+            global_step += 1
+            n_batches += 1
+        train_metrics = {}
+        if n_batches:
+            keys = list(metric_sums)
+            values = torch.stack([metric_sums[k] for k in keys]).cpu().tolist()
+            train_metrics = {k: v / n_batches for k, v in zip(keys, values)}
+
+        val_metrics = run_validation(
+            eval_step, state, dataset.test_batches(val_batch_size), rng)
+        val_metrics.pop("predictions", None)
+        schedule.observe(val_metrics)
+        state.epoch = epoch + 1
+
+        if snapshot:
+            meta = {"epoch": epoch + 1, **(snapshot_meta or {})}
+            if snapshot_best:
+                monitored = val_metrics.get(snapshot_best)
+                if monitored is None:
+                    warnings.warn(
+                        f"Can save best model only with {snapshot_best} "
+                        f"available, skipping.", RuntimeWarning)
+                elif (monitored > best_metric if maximize
+                      else monitored < best_metric):
+                    best_metric = monitored
+                    save_checkpoint(snapshot, state, meta)
+            else:
+                save_checkpoint(snapshot, state, meta)
+
+        if verbose:
+            msg = " ".join(
+                f"{k}={v:.4f}" for k, v in {**train_metrics, **val_metrics}.items())
+            print(
+                f"epoch {epoch + 1}/{epochs} lr={epoch_lr:.5f} "
+                f"[{time.time() - t0:.1f}s {steps_per_epoch} steps] {msg}",
+                flush=True)
+        if log_fn is not None:
+            log_fn(epoch, {**train_metrics, **val_metrics, "lr": epoch_lr})
+    return state

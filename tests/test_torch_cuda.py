@@ -1,0 +1,85 @@
+"""The port's CUDA kernels on the card (``cuda`` marker; skipped without a GPU).
+
+This file imports no JAX, so that a GPU machine without JAX runs it with
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
+
+(``tests/conftest.py`` configures JAX, hence ``--noconftest``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from semantic_embeddings_torch.ops import cosine_loss as tc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(device, shape, dtype, zero_rows=0):
+    return tc.check_inputs(shape, dtype, torch.Generator(device=device).manual_seed(0),
+                           zero_rows)
+
+
+@pytest.mark.parametrize("case", tc.CHECK_CASES + [((1, 1), 0), ((1000, 33), 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain(device, case, dtype):
+    shape, zero_rows = case
+    tc.check_against_plain(*_inputs(device, shape, dtype, zero_rows))
+
+
+def test_autograd_through_kernels(device):
+    """``.mean()`` hands the backward a stride-0 g; one launch each way."""
+    z, t, _ = _inputs(device, (100, 100), torch.float32)
+    z.requires_grad_()
+    before = (tc.launches_fwd, tc.launches_bwd)
+    tc.fused_cosine_loss(z, t).mean().backward()
+    torch.cuda.synchronize()
+    assert (tc.launches_fwd, tc.launches_bwd) == (before[0] + 1, before[1] + 1)
+    g = torch.full((100,), 1 / 100, device=device)
+    torch.testing.assert_close(z.grad, tc._plain_backward(z.detach(), t, g),
+                               **tc.CHECK_TOL[torch.float32]["dz"])
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(device):
+    z, t, g = _inputs(device, (8, 6), torch.float32)
+    with pytest.raises(TypeError):
+        tc._launch_forward(z.double(), t)
+    with pytest.raises(ValueError, match="one shape"):
+        tc._launch_forward(z, t[:, :5])
+    with pytest.raises(ValueError, match="contiguous"):
+        tc._launch_forward(z.t(), t.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        tc._launch_forward(z, t.cpu())
+    with pytest.raises(ValueError, match="B, D >= 1"):
+        tc._launch_forward(z[:0], t[:0])
+
+
+def test_cli_trains_through_the_kernels(device, tmp_path):
+    from semantic_embeddings_tpu.embeddings import load_features, save_embeddings
+    from semantic_embeddings_torch.cli import learn_image_embeddings
+
+    rng = np.random.default_rng(0)
+    e = rng.normal(size=(10, 64))
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    save_embeddings(str(tmp_path / "emb.pickle"), list(range(10)), e)
+    before = (tc.launches_fwd, tc.launches_bwd)
+    state = learn_image_embeddings.main([
+        "--dataset", "synthetic-10-64-32", "--data_root", str(tmp_path),
+        "--embedding", str(tmp_path / "emb.pickle"), "--architecture", "resnet-32",
+        "--cls_weight", "0.1", "--fused_loss", "--batch_size", "16",
+        "--epochs", "1", "--feature_dump", str(tmp_path / "f.pickle"),
+        "--device", "cuda"])
+    assert state.step == 4
+    assert (tc.launches_fwd - before[0], tc.launches_bwd - before[1]) == (4, 4)
+    assert all(p.is_cuda for p in state.model.parameters())
+    _, feats = load_features(str(tmp_path / "f.pickle"))
+    assert feats.shape == (32, 64)
+    np.testing.assert_allclose(np.linalg.norm(feats, axis=1), 1.0, atol=1e-5)
