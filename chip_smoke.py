@@ -7,24 +7,49 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. Identify the card (``nvidia-smi`` name and power limit, torch and CUDA
    versions); stop when ``torch.cuda.is_available()`` is false.
-2. Build the CUDA kernels from ``semantic_embeddings_torch/csrc/``.
-3. Hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the training path's shape (100, 100) and at (37, 100),
-   (256, 512) and (4, 16) with two all-zero rows; time both at (100, 100).
-4. The slice: compute a unitsphere class embedding for a generated
-   100-leaf taxonomy (20 superclasses x 5 leaves), then train
-   resnet-110-wfc with ``--fused_loss`` for one epoch of
-   ``synthetic-100-2000-500`` at batch 100 (20 steps), validate and dump
-   test features, through ``learn_image_embeddings.main``.  Checks finite
-   losses, one launch of each kernel per train step, every parameter on the
-   card, and 500 unit-norm feature rows.
-5. One train step through the kernels against one through the plain
-   versions, from one copied state and one batch with fixed augmentation.
-6. Time 20 steady-state train steps (f32, batch 100).  With
+2. Build the CUDA kernels from ``semantic_embeddings_torch/csrc/``, one
+   ``nvcc`` per source, all at once; print each build's time and ptxas's
+   register and spill lines.
+3. Hold the cosine-loss kernels against their plain PyTorch versions on the
+   card, in f32 and bf16, at the training path's shape (100, 100) and at
+   (37, 100), (256, 512) and (4, 16) with two all-zero rows; time both at
+   (100, 100).
+4. Hold the 3x3 conv + BN-statistics kernel and the 3x3 filter-gradient
+   kernel against their plain versions, in f32 and bf16 (TF32 off), at the
+   four ResNet-50 stage shapes at batch 128 and at three ragged shapes;
+   time both at the stage shapes.
+5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
+   taxonomy (20 superclasses x 5 leaves), then train resnet-110-wfc with
+   ``--fused_loss`` for one epoch of ``synthetic-100-2000-500`` at batch
+   100 (20 steps), validate and dump test features, through
+   ``learn_image_embeddings.main``.  Checks finite losses, one launch of
+   each cosine kernel per train step, every parameter on the card, and 500
+   unit-norm feature rows.
+6. One resnet-110-wfc train step through the kernels against one through
+   the plain versions, from one copied state and one batch with fixed
+   augmentation.
+7. Time 20 steady-state resnet-110-wfc train steps (f32, batch 100).  With
    ``--profile DIR`` also profile the step in f32 and bf16 (device time,
    GPU kernels per step, busy share, peak memory; tables into DIR) and time
    the host's issue of each piece of an f32 step.
-7. Check that no JAX module was imported.
+8. Slice 2: ResNet-50 at 224 px, full depth and published widths, batch
+   128, inv_corr through the cosine kernels plus the 0.1 softmax head,
+   clipnorm 10, on ``SyntheticDataset(100, n_train=512, n_test=128,
+   size=224)``, through ``build_network``, ``EmbeddingModel``,
+   ``make_train_step``, ``fit`` (one epoch: 4 steps, then validation) and
+   ``extract_test_features``, in f32.  Checks finite losses, 16 launches of
+   the conv kernel per forward and 16 of the filter-gradient kernel per
+   backward, one launch of each cosine kernel per step, every parameter and
+   buffer on the card, and 128 unit-norm feature rows.
+9. One ResNet-50 train step through the kernels against one through the
+   plain versions and one through the plain versions in f64, from one
+   copied state, TF32 off: the losses agree to 1e-5 relative, and no
+   tensor of the kernel step is farther from the f64 step than twice the
+   plain f32 step's farthest.
+10. ResNet-50 train-step throughput in f32 and bf16, through the kernels
+   and through the plain versions (in turns: kernel, plain, kernel), and
+   their device time, busy share and peak memory (``torch.profiler``).
+11. Check that no JAX module was imported.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -46,6 +71,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -53,6 +79,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 100
 DATASET = "synthetic-100-2000-500"
 N_TRAIN, N_TEST = 2000, 500
+# slice 2: ResNet-50 at 224 px
+RN50_BATCH = 128
+RN50_TRAIN, RN50_TEST = 512, 128
+RN50_CONVS = 16  # bottleneck blocks, each with one 3x3 conv_b feeding bn_b
 
 
 class _Tee(io.TextIOBase):
@@ -118,11 +148,12 @@ def device_ms(fn, iters=50):
     return sum(e.self_device_time_total for e in kernels) / iters / 1e3
 
 
-def profile_step(state, step, batches, label, path, n=10):
+def profile_step(state, step, batches, label, path=None, n=10, batch=BATCH):
     """Wall time per train step without the profiler, then ``torch.profiler``
     over ``n`` steps: the device time of the step's GPU kernels, their count,
     the device's busy share (device time / wall time) and the peak device
-    memory.  The profiler's tables go to ``path``."""
+    memory.  The profiler's tables go to ``path`` when it is given.  Returns
+    the numbers as a dict."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -147,6 +178,14 @@ def profile_step(state, step, batches, label, path, n=10):
     check(kernels, "torch.profiler recorded no GPU kernel")
     device = sum(e.self_device_time_total for e in kernels) / n / 1e3
     launches = sum(e.count for e in kernels) / n
+    result = {"wall_ms": wall, "img_per_s": batch / wall * 1e3, "device_ms": device,
+              "busy": device / wall, "kernels_per_step": launches, "peak_gib": peak}
+    print(f"profile {label}: wall {wall:.2f} ms/step "
+          f"({batch / wall * 1e3:.1f} img/s), device {device:.2f} ms/step, "
+          f"busy share {device / wall:.3f}, {launches:.0f} GPU kernels/step, "
+          f"peak memory {peak:.3f} GiB")
+    if path is None:
+        return result
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         f.write(f"train step, {label}: {n} steps under torch.profiler\n\n"
@@ -159,10 +198,7 @@ def profile_step(state, step, batches, label, path, n=10):
         f.write("\n\nhost ops by calls:\n")
         f.write(events.table(sort_by="count", row_limit=30,
                              max_name_column_width=90))
-    print(f"profile {label}: wall {wall:.2f} ms/step "
-          f"({BATCH / wall * 1e3:.1f} img/s), device {device:.2f} ms/step, "
-          f"busy share {device / wall:.3f}, {launches:.0f} GPU kernels/step, "
-          f"peak memory {peak:.3f} GiB")
+    return result
 
 
 def host_pieces(state, step, prepare, spec, raw, label, n=10):
@@ -244,18 +280,24 @@ def main(argv=None):
 
     sys.path.insert(0, ROOT)
     from semantic_embeddings_torch import _build
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.ops import conv3x3 as CC
     from semantic_embeddings_torch.ops import cosine_loss as C
 
     # -- 2. build ------------------------------------------------------
     phase("2 build")
     t0 = time.perf_counter()
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(_build.build, sources))
     C._kernels()
-    print(f"kernels loaded in {time.perf_counter() - t0:.2f} s")
+    CC._kernels()
+    print(f"kernels {sources} built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, (seconds, log) in _build.build_logs.items():
         print(f"built {name} in {seconds:.2f} s\n{log.strip()}")
 
-    # -- 3. kernels against their plain versions ----------------------
-    phase("3 kernels vs plain")
+    # -- 3. cosine-loss kernels against their plain versions -----------
+    phase("3 cosine-loss kernels vs plain")
     gen = torch.Generator(device=device).manual_seed(0)
     err = {("fwd", torch.float32): 0.0, ("bwd", torch.float32): 0.0,
            ("fwd", torch.bfloat16): 0.0, ("bwd", torch.bfloat16): 0.0}
@@ -294,8 +336,45 @@ def main(argv=None):
                   f"plain {p * 1e3:.2f} us; device time kernel {kd * 1e3:.2f} us, "
                   f"plain {pd * 1e3:.2f} us  [{card}]")
 
-    # -- 4. the slice --------------------------------------------------
-    phase("4 slice: compute_class_embedding + learn_image_embeddings")
+    # -- 4. conv kernels against their plain versions -------------------
+    phase("4 conv3x3 kernels vs plain (TF32 off)")
+    common.set_float32_precision()
+    conv_err = {dtype: {} for dtype in (torch.float32, torch.bfloat16)}
+    conv_times = {}
+    for case in CC.CHECK_CASES:
+        b, h, w, c, f = case
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            x, wt, dy = CC.check_inputs(case, dtype, gen)
+            # raises unless both kernels match the plain versions within
+            # CC.CHECK_TOL and the statistics' bounds (stated there)
+            errs = CC.check_against_plain(x, wt, dy)
+            for key, value in errs.items():
+                conv_err[dtype][key] = max(conv_err[dtype].get(key, 0.0), value)
+            print(f"{case} {name}: max |err| " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()))
+            if case not in CC.STAGE_SHAPES:
+                continue
+            flop = 2 * b * h * w * 9 * c * f
+            calls = {
+                "conv3x3_bn_stats": (lambda: CC._launch_conv_bn_stats(x, wt),
+                                     lambda: CC._plain_conv_bn_stats(x, wt)),
+                "conv3x3_filter_grad": (lambda: CC._launch_filter_grad(x, dy),
+                                        lambda: CC._plain_filter_grad(x, dy)),
+            }
+            for kernel_name, (kernel, plain) in calls.items():
+                t = (time_ms(kernel, 20, 3), time_ms(plain, 20, 3),
+                     device_ms(kernel, 5), device_ms(plain, 5))
+                conv_times[kernel_name, case, dtype] = t
+                print(f"time {case} {name} {kernel_name}: per call kernel "
+                      f"{t[0]:.3f} ms ({flop / t[0] / 1e9:.1f} TFLOP/s), plain "
+                      f"{t[1]:.3f} ms; device time kernel {t[2]:.3f} ms, plain "
+                      f"{t[3]:.3f} ms  [{card}]")
+            del x, wt, dy
+    torch.cuda.empty_cache()
+
+    # -- 5. slice 1 ----------------------------------------------------
+    phase("5 slice 1: compute_class_embedding + learn_image_embeddings")
     from semantic_embeddings_torch.cli import learn_image_embeddings
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -346,9 +425,8 @@ def main(argv=None):
     check(np.isfinite(feats).all() and np.abs(norms - 1.0).max() <= 1e-5, norms)
     print(f"feature dump {feats.shape}, max |norm - 1| {np.abs(norms - 1).max():.3g}")
 
-    # -- 5. one step through the kernels vs the plain versions -----------
-    phase("5 one train step: kernel vs plain")
-    from semantic_embeddings_torch.cli import common
+    # -- 6. one step through the kernels vs the plain versions -----------
+    phase("6 one resnet-110-wfc train step: kernel vs plain")
     from semantic_embeddings_torch.data import augment, get_data_generator
     from semantic_embeddings_torch.ops import fused_cosine_loss
     from semantic_embeddings_torch.train import make_train_step
@@ -399,8 +477,8 @@ def main(argv=None):
     print(f"loss kernel {m_k['loss'].item():.7f} plain {m_p['loss'].item():.7f}; "
           f"max |param/stat diff| {worst:.3g}")
 
-    # -- 6. time steady-state train steps -------------------------------
-    phase("6 steady-state train steps")
+    # -- 7. time steady-state train steps -------------------------------
+    phase("7 steady-state resnet-110-wfc train steps")
     prepare = dataset.make_prepare(device)
     batches = list(dataset.train_batches(BATCH, 0, 0))
     rng = torch.Generator(device=device).manual_seed(0)
@@ -422,7 +500,7 @@ def main(argv=None):
               f"{len(batches) * BATCH / dt:.1f} img/s (f32, batch {BATCH}) [{card}]")
 
     if profile_dir:
-        phase(f"6b profile of the train step -> {profile_dir}")
+        phase(f"7b profile of the train step -> {profile_dir}")
         for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
             profile_step(state_k, step_for(state_k, prepare, kernel_loss, dtype),
                          batches, f"{name}, batch {BATCH}, [{card}]",
@@ -430,19 +508,185 @@ def main(argv=None):
         host_pieces(state_k, step_for(state_k, prepare, kernel_loss), prepare,
                     spec, batches[0], f"f32, batch {BATCH}, [{card}]")
 
-    # -- 7. no JAX -----------------------------------------------------
-    phase("7 no jax")
+    del state, state_k, state_p, dataset, prepare, batches
+    torch.cuda.empty_cache()
+
+    # -- 8. slice 2: ResNet-50 at 224 px --------------------------------
+    phase("8 slice 2: resnet-50 @ 224 px, batch 128, f32")
+    from semantic_embeddings_torch.cli.common import extract_test_features
+    from semantic_embeddings_torch.data import SyntheticDataset
+    from semantic_embeddings_torch.models import EmbeddingModel, build_network
+    from semantic_embeddings_torch.models.resnet import use_plain_conv_bn_stats
+    from semantic_embeddings_torch.train import (
+        fit, get_lr_schedule, make_eval_step, new_train_state)
+
+    def rn50_model(seed=0):
+        """ResNet-50 embedding 100 dims + l2norm output + the 100-way cls
+        head, random weights from ``seed``, on the card; and its spec."""
+        g = torch.Generator().manual_seed(seed)
+        spec = build_network(100, "resnet-50", generator=g)
+        # the CLI's rule for the cls head, before the (empty) backbone list
+        spec.l2_filters = [(r"^cls_top$", 5e-4)] + list(spec.l2_filters)
+        model = EmbeddingModel(spec.module, output="l2norm", cls_classes=100,
+                               generator=g)
+        return new_train_state(model.to(device)), spec
+
+    def rn50_step(state, spec, prepare, plain=False, autocast_dtype=None):
+        """The CLI's --fused_loss train step (inv_corr + 0.1 cls head,
+        clipnorm 10), through the kernels or through the plain versions."""
+        model = state.model.twin("linear", cls_input="l2norm")
+        return make_train_step(
+            model, prepare, loss_name="inv_corr", class_embedding=embedding,
+            num_classes=100, cls_weight=0.1, l2_penalty_fn=spec.l2_penalty,
+            clipnorm=10.0, loss_fn_override=plain_loss if plain else kernel_loss,
+            autocast_dtype=autocast_dtype)
+
+    def reset_counts():
+        C.launches_fwd = C.launches_bwd = 0
+        CC.launches_conv_bn_stats = CC.launches_filter_grad = 0
+
+    def read_counts():
+        return {"cosine_loss_fwd": C.launches_fwd, "cosine_loss_bwd": C.launches_bwd,
+                "conv3x3_bn_stats": CC.launches_conv_bn_stats,
+                "conv3x3_filter_grad": CC.launches_filter_grad}
+
+    state, rn_spec = rn50_model()
+    rn50_data = SyntheticDataset(num_classes=100, n_train=RN50_TRAIN,
+                                 n_test=RN50_TEST, size=rn_spec.input_size,
+                                 classes=labels)
+    rn_prepare = rn50_data.make_prepare(device, augment_train=False)
+    backbone = sum(p.numel() for n, p in state.model.backbone.named_parameters()
+                   if not n.startswith("top."))
+    print(f"resnet-50: {backbone:,} backbone parameters, "
+          f"{sum(p.numel() for p in state.params):,} in all")
+    eval_step = make_eval_step(
+        state.model, rn_prepare, loss_name="inv_corr", class_embedding=embedding,
+        num_classes=100, cls_weight=0.1, l2_penalty_fn=rn_spec.l2_penalty)
+    schedule, _ = get_lr_schedule("SGD", RN50_TRAIN, RN50_BATCH)
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        state = fit(state, rn50_step(state, rn_spec, rn_prepare), eval_step,
+                    rn50_data, schedule, epochs=1, batch_size=RN50_BATCH)
+    torch.cuda.synchronize()
+    fit_counts = read_counts()
+    feats = extract_test_features(state.model, rn50_data, device,
+                                  batch_size=RN50_BATCH, pick=0)
+    torch.cuda.synchronize()
+    rn50_s = time.perf_counter() - t0
+    rn50_launches = read_counts()
+    steps = RN50_TRAIN // RN50_BATCH
+    val_batches = -(-RN50_TEST // RN50_BATCH)
+    print(f"slice 2 ran in {rn50_s:.1f} s; train steps {state.step}; launches "
+          f"in fit {fit_counts}, with the feature extraction {rn50_launches}")
+    check(state.step == steps, (state.step, steps))
+    check(fit_counts == {
+        "cosine_loss_fwd": steps, "cosine_loss_bwd": steps,
+        "conv3x3_bn_stats": RN50_CONVS * (steps + val_batches),
+        "conv3x3_filter_grad": RN50_CONVS * steps}, fit_counts)
+    check(rn50_launches["conv3x3_bn_stats"]
+          == fit_counts["conv3x3_bn_stats"] + RN50_CONVS * val_batches, rn50_launches)
+    printed = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", tee.buf.getvalue())
+    check(len(printed) >= 4, printed)
+    for key, value in printed:
+        check(math.isfinite(float(value)), (key, value))
+    print(f"{len(printed)} printed losses, all finite")
+    off_card = [n for n, p in state.model.named_parameters() if p.device.type != "cuda"]
+    off_card += [n for n, b in state.model.named_buffers() if b.device.type != "cuda"]
+    check(not off_card, off_card)
+    check(feats.shape == (RN50_TEST, 100), feats.shape)
+    norms = np.linalg.norm(feats.astype(np.float64), axis=1)
+    check(np.isfinite(feats).all() and np.abs(norms - 1.0).max() <= 1e-5, norms)
+    print(f"features {feats.shape}, max |norm - 1| {np.abs(norms - 1).max():.3g}")
+    del state, eval_step
+    torch.cuda.empty_cache()
+
+    # -- 9. one ResNet-50 step through the kernels vs the plain versions --
+    phase("9 one resnet-50 train step: kernel vs plain vs f64 (TF32 off)")
+    state_k, rn_spec = rn50_model(seed=1)
+    state_p = copy.deepcopy(state_k)
+    use_plain_conv_bn_stats(state_p.model)
+    state_64 = new_train_state(copy.deepcopy(state_p.model).double())
+    before = copy.deepcopy(state_k.model.state_dict())
+    raw = next(iter(rn50_data.train_batches(RN50_BATCH, 0, 0)))
+
+    def prepare_64(raw, rng, train):
+        images, labels_ = rn_prepare(raw, rng, train)
+        return images.double(), labels_
+
+    _, m_k = rn50_step(state_k, rn_spec, rn_prepare)(state_k, raw, 0.1, None)
+    _, m_p = rn50_step(state_p, rn_spec, rn_prepare, plain=True)(state_p, raw, 0.1, None)
+    _, m_64 = rn50_step(state_64, rn_spec, prepare_64, plain=True)(state_64, raw, 0.1, None)
+    torch.cuda.synchronize()
+    # The kernel and plain f32 steps differ only in the order of the f32
+    # sums inside the 16 conv_b convolutions and filter gradients (and the
+    # cosine loss).  The loss agrees to rounding (1e-5 relative).  The
+    # updates of the early layers are small sums of large terms of both
+    # signs, which amplify any f32 rounding, so they are held to the plain
+    # versions' step in f64 (the same program in another precision): tensor
+    # by tensor, the kernel step may be no farther from it than twice the
+    # plain f32 step's farthest tensor, in units of each tensor's update
+    # (BN running statistics: in absolute terms).
+    loss_64 = m_64["loss"].item()
+    loss_rel = abs(m_k["loss"].item() - m_p["loss"].item()) / abs(m_p["loss"].item())
+    print(f"loss kernel {m_k['loss'].item():.9f} plain {m_p['loss'].item():.9f} "
+          f"f64 {loss_64:.9f}; kernel vs plain {loss_rel:.3g} relative")
+    check(loss_rel <= 1e-5, loss_rel)
+    sd = [st.model.state_dict() for st in (state_k, state_p, state_64)]
+    param_names = {n for n, _ in state_k.model.named_parameters()}
+    dist = {"kernel": {}, "plain": {}}
+    for n, old in before.items():
+        ref = sd[2][n]
+        scale = (ref - old.double()).abs().max().item() if n in param_names else 1.0
+        for path, got in (("kernel", sd[0][n]), ("plain", sd[1][n])):
+            dist[path][n] = (got.double() - ref).abs().max().item() / max(scale, 1e-30)
+    for what, names in (("parameter", param_names), ("BN statistic", set(before) - param_names)):
+        worst = {path: max(d[n] for n in names) for path, d in dist.items()}
+        median = {path: statistics.median(d[n] for n in names) for path, d in dist.items()}
+        far = sorted(names, key=lambda n: -dist["kernel"][n])[:3]
+        print(f"{what} distance from f64 (of the update for parameters): worst "
+              f"kernel {worst['kernel']:.3g}, plain {worst['plain']:.3g}; median kernel "
+              f"{median['kernel']:.3g}, plain {median['plain']:.3g}; farthest "
+              + ", ".join(f"{n} {dist['kernel'][n]:.3g}/{dist['plain'][n]:.3g}"
+                          for n in far))
+        bad = [n for n in names if dist["kernel"][n] > 2 * worst["plain"] + 1e-7]
+        check(not bad, [(n, dist["kernel"][n], worst["plain"]) for n in bad[:10]])
+    del before, state_p, state_64, sd, m_k, m_p, m_64
+    torch.cuda.empty_cache()
+
+    # -- 10. ResNet-50 throughput, kernels and plain, f32 and bf16 --------
+    phase("10 resnet-50 train-step throughput")
+    state_p = copy.deepcopy(state_k)
+    use_plain_conv_bn_stats(state_p.model)
+    batches = list(rn50_data.train_batches(RN50_BATCH, 0, 0)) * 3  # 12 steps
+    rn50_rates = {}
+    for precision, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        for path, st in (("kernel", state_k), ("plain", state_p), ("kernel", state_k)):
+            label = f"resnet-50 {path} {precision}, batch {RN50_BATCH}, [{card}]"
+            table = None  # the profiler's tables of each first run
+            if profile_dir and (path, precision) not in rn50_rates:
+                table = os.path.join(profile_dir, f"rn50_step_{path}_{precision}.txt")
+            result = profile_step(
+                st, rn50_step(st, rn_spec, rn_prepare, path == "plain", dtype),
+                batches, label, table, n=5, batch=RN50_BATCH)
+            rn50_rates.setdefault((path, precision), []).append(result)
+    summary = {f"{path}_{precision}": runs for (path, precision), runs in rn50_rates.items()}
+
+    # -- 11. no JAX ----------------------------------------------------
+    phase("11 no jax")
     check("jax" not in sys.modules, "a JAX module was imported")
     print("jax not imported")
 
+    f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
     for part, line in (("fwd", 40), ("bwd", 48)):
-        f32, bf16 = torch.float32, torch.bfloat16
         kernels.append({
             "name": f"cosine_loss_{part}", "route": "cuda",
             "source": "semantic_embeddings_torch/csrc/cosine_loss.cu",
             "replaces": f"semantic_embeddings_tpu/ops/cosine_loss.py:{line}",
             "launches": launches[part],
+            "launches_resnet50": rn50_launches[f"cosine_loss_{part}"],
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -450,8 +694,27 @@ def main(argv=None):
             "plain_device_ms": dev_times[part, f32][1],
             "ms_bf16": times[part, bf16][0], "plain_ms_bf16": times[part, bf16][1],
         })
+    stage1 = CC.STAGE_SHAPES[0]
+    for name, source, replaces, err_key in (
+            ("conv3x3_bn_stats", "conv3x3_bn_stats.cu",
+             "tools/fused_conv_bn_prototype.py:32", "y"),
+            ("conv3x3_filter_grad", "conv3x3_filter_grad.cu",
+             "tools/conv_filter_grad_prototype.py:50", "dw")):
+        t = conv_times[name, stage1, f32]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"semantic_embeddings_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": rn50_launches[name],
+            "max_abs_err": conv_err[f32][err_key],
+            "max_abs_err_bf16": conv_err[bf16][err_key],
+            "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
+            "shape": "stage1 (128, 56, 56, 64, 64) f32",
+            "by_shape": {f"{case} {str(dtype)[6:]}": conv_times[name, case, dtype]
+                         for case in CC.STAGE_SHAPES for dtype in (f32, bf16)},
+        })
     print(json.dumps({"kernels": kernels, "card": card,
-                      "train_img_per_s_f32": rates}))
+                      "train_img_per_s_f32": rates, "resnet50_steps": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

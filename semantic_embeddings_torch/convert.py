@@ -1,6 +1,8 @@
 """Bridge between the JAX package's Flax variables and the port's ``state_dict``.
 
-The port's module names follow the Flax tree, so leaves map by path:
+The port's module names follow the Flax tree (``conv0``, ``bn0``,
+``stage{s}_block{b}/{conv,bn}_{a,b}``, in the ImageNet ResNets also
+``_c`` and ``_sc``, ``top``), so leaves map by path:
 
 - conv ``kernel`` (H, W, I, O)   <-> ``weight`` (O, I, H, W)
 - dense ``kernel`` (in, out)     <-> ``weight`` (out, in)

@@ -18,9 +18,14 @@ from torch import nn
 from .cifar_resnet import ResidualBlock, SmallResNet
 from .heads import EmbeddingModel, l2norm
 from .layers import KerasBatchNorm
+from .resnet import ResNet
 
+_CIFAR_RESNETS = ["resnet-32", "resnet-110", "resnet-110-fc", "resnet-110-wfc"]
 #: architectures ported so far; the JAX package's others come in later work
-ARCHITECTURES = ["resnet-32", "resnet-110", "resnet-110-fc", "resnet-110-wfc"]
+ARCHITECTURES = _CIFAR_RESNETS + [
+    "resnet-50", "resnet-101", "resnet-152",
+    "rn18", "rn34", "rn50", "rn101", "rn152", "rn200",
+]
 
 
 @dataclass
@@ -33,6 +38,8 @@ class ModelSpec:
     #: added to the loss for every conv/dense kernel whose module path
     #: matches (first match wins).
     l2_filters: list = field(default_factory=list)
+    #: the input resolution the architecture is built for
+    input_size: int = 32
     #: model -> (filters, groups) for :meth:`l2_penalty`
     _groups: weakref.WeakKeyDictionary = field(
         default_factory=weakref.WeakKeyDictionary, repr=False, compare=False)
@@ -75,10 +82,11 @@ def build_network(num_outputs, architecture, input_channels=3, generator=None):
     """Constructs an embedding backbone by architecture name.
 
     resnet-32 and resnet-110 end in global average pooling; the -fc and
-    -wfc variants add a linear top Dense with ``num_outputs`` units.
-    ``generator``: the ``torch.Generator`` that draws the initial weights.
+    -wfc variants and the ImageNet ResNets add a linear top Dense with
+    ``num_outputs`` units.  ``generator``: the ``torch.Generator`` that
+    draws the initial weights.
     """
-    if architecture in ARCHITECTURES:
+    if architecture in _CIFAR_RESNETS:
         n = 5 if architecture == "resnet-32" else 18
         filters = (32, 64, 128) if architecture == "resnet-110-wfc" else (16, 32, 64)
         module = SmallResNet(
@@ -88,6 +96,17 @@ def build_network(num_outputs, architecture, input_channels=3, generator=None):
         )
         # l2(2e-4) on every kernel incl. the top dense
         return ModelSpec(architecture, module, [(r".*", 2e-4)])
+
+    if architecture in ARCHITECTURES:  # resnet-50/101/152, rn18 .. rn200
+        depth = int(architecture.split("-")[-1].removeprefix("rn"))
+        # BN epsilon per reference constructor: resnet-50 is the legacy
+        # keras.applications.ResNet50 (Keras-default 1e-3); resnet-101/152
+        # come from keras_applications.resnet, whose BNs hardcode 1.001e-5;
+        # the rn* constructors keep the default.
+        eps = 1.001e-5 if architecture in ("resnet-101", "resnet-152") else 1e-3
+        module = ResNet(depth, num_outputs, include_top=True, bn_epsilon=eps,
+                        input_channels=input_channels, generator=generator)
+        return ModelSpec(architecture, module, [], 224)  # no regularizer in ref
 
     raise ValueError(
         f"Unknown or not yet ported network architecture: {architecture}")
@@ -100,6 +119,7 @@ __all__ = [
     "EmbeddingModel",
     "KerasBatchNorm",
     "ResidualBlock",
+    "ResNet",
     "SmallResNet",
     "l2norm",
 ]

@@ -1,0 +1,376 @@
+"""3x3 SAME stride-1 convolution with BatchNorm statistics, and its filter
+gradient: two CUDA kernels and their plain versions.
+
+Counterparts of ``tools/fused_conv_bn_prototype.py::conv3x3_bn_stats`` and
+``tools/conv_filter_grad_prototype.py::conv3x3_filter_grad``, in the port's
+NCHW layout with (F, C, 3, 3) weights:
+
+  conv_bn_stats(x, w):  y = conv(x, w) rounded to x's dtype, and the f32
+                        per-channel sums s = sum(y), ss = sum(y * y) of that
+                        rounded y over (N, H, W)
+  filter_grad(x, dy):   dw[f, c, kh, kw] = sum_{n,h,w} x_pad[n, c, h+kh, w+kw]
+                        * dy[n, f, h, w], in f32
+
+:func:`conv3x3_bn_stats` is the autograd op through which every ResNet
+``conv_b`` + ``bn_b`` pair runs.  Its forward is the first kernel; its
+backward adds the statistics' cotangents to y's (``g_y + g_s + 2 y g_ss``),
+computes dx with ``torch.nn.grad.conv2d_input`` (the JAX package leaves dx
+to XLA too) and dw with the second kernel.
+
+For CUDA tensors each kernel is launched (``csrc/conv3x3_bn_stats.cu``,
+``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
+the wrapper raises.  For CPU tensors the plain versions run.  The device of
+the tensor decides, nothing else: there is no fallback from a kernel to its
+plain version.  ``launches_conv_bn_stats`` / ``launches_filter_grad`` count
+kernel launches, so that a run can show that its steps went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+#: kernel launches since the process started (or since a caller reset them)
+launches_conv_bn_stats = 0
+launches_filter_grad = 0
+
+_libs = None
+
+
+def _kernels():
+    """(conv + stats library, filter-gradient library), built and loaded."""
+    global _libs
+    if _libs is None:
+        from .._build import load
+
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fwd = load("conv3x3_bn_stats")
+        fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32, i32, i32]
+        fwd.conv3x3_bn_stats_partial_rows.restype = i32
+        fwd.conv3x3_bn_stats.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        fwd.conv3x3_bn_stats.restype = i32
+        wgrad = load("conv3x3_filter_grad")
+        wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 5 + [
+            ctypes.POINTER(i32)]
+        wgrad.conv3x3_filter_grad_splits.restype = i32
+        wgrad.conv3x3_filter_grad.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        wgrad.conv3x3_filter_grad.restype = i32
+        _libs = (fwd, wgrad)
+    return _libs
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path; the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+
+def _upcast(t):
+    """bf16 -> f32, f32 -> f32, f64 -> f64 (the models' ``upcast32``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _plain_conv_bn_stats(x, w):
+    y = F.conv2d(x, w, padding=1)
+    yf = _upcast(y)
+    return y, yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))
+
+
+def _plain_filter_grad(x, dy):
+    """dw in f32 (or wider), computed in x's dtype as the prototype's
+    reference does."""
+    shape = (dy.shape[1], x.shape[1], 3, 3)
+    return _upcast(torch.nn.grad.conv2d_weight(x, shape, dy.to(x.dtype), padding=1))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(x, other, what):
+    """Raises unless ``x`` (N, C, H, W) and ``other`` are contiguous f32 or
+    bf16 tensors of one dtype on one CUDA device."""
+    if x.device.type != "cuda" or other.device != x.device:
+        raise ValueError(
+            f"{what} kernel needs its operands on one CUDA device; got "
+            f"{x.device} and {other.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or other.dtype != x.dtype:
+        raise TypeError(
+            f"{what} kernel takes f32 or bf16 operands of one dtype, not "
+            f"{x.dtype} and {other.dtype}")
+    if x.ndim != 4 or other.ndim != 4 or min(x.shape) < 1 or min(other.shape) < 1:
+        raise ValueError(
+            f"{what} kernel needs non-empty 4-D operands; got "
+            f"{tuple(x.shape)} and {tuple(other.shape)}")
+    if not (x.is_contiguous() and other.is_contiguous()):
+        raise ValueError(f"{what} kernel needs contiguous NCHW operands")
+    if x.shape[0] * x.shape[2] * x.shape[3] >= 2**31:
+        raise ValueError(f"{what} kernel indexes N*H*W rows with 32-bit ints")
+
+
+def _raise_on(code, what):
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {code}")
+
+
+def _launch_conv_bn_stats(x, w):
+    global launches_conv_bn_stats
+    _check(x, w, "conv3x3_bn_stats")
+    b, c, h, wd = x.shape
+    f = w.shape[0]
+    if tuple(w.shape) != (f, c, 3, 3):
+        raise ValueError(
+            f"conv3x3_bn_stats kernel needs w of shape ({f}, {c}, 3, 3); got "
+            f"{tuple(w.shape)}")
+    lib = _kernels()[0]
+    rows = lib.conv3x3_bn_stats_partial_rows(b, h, wd)
+    y = torch.empty((b, f, h, wd), dtype=x.dtype, device=x.device)
+    part_s, part_ss = torch.empty((2, rows, f), dtype=torch.float32, device=x.device)
+    s = torch.empty(f, dtype=torch.float32, device=x.device)
+    ss = torch.empty(f, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.conv3x3_bn_stats(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), part_s.data_ptr(),
+        part_ss.data_ptr(), s.data_ptr(), ss.data_ptr(), b, c, h, wd, f,
+        int(x.dtype == torch.bfloat16), stream)
+    _raise_on(code, "conv3x3_bn_stats")
+    launches_conv_bn_stats += 1
+    return y, s, ss
+
+
+def _launch_filter_grad(x, dy):
+    global launches_filter_grad
+    _check(x, dy, "conv3x3_filter_grad")
+    n, c, h, wd = x.shape
+    f = dy.shape[1]
+    if tuple(dy.shape) != (n, f, h, wd):
+        raise ValueError(
+            f"conv3x3_filter_grad kernel needs dy of shape ({n}, F, {h}, {wd}); "
+            f"got {tuple(dy.shape)}")
+    lib = _kernels()[1]
+    chunk = ctypes.c_int()
+    splits = lib.conv3x3_filter_grad_splits(n, c, h, wd, f, ctypes.byref(chunk))
+    part = torch.empty((splits, f, c * 9), dtype=torch.float32, device=x.device)
+    dw = torch.empty((f, c, 3, 3), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.conv3x3_filter_grad(
+        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), n, c, h,
+        wd, f, splits, chunk.value, int(x.dtype == torch.bfloat16), stream)
+    _raise_on(code, "conv3x3_filter_grad")
+    launches_filter_grad += 1
+    return dw
+
+
+def _conv_bn_stats(x, w):
+    if x.device.type == "cpu":
+        return _plain_conv_bn_stats(x, w)
+    return _launch_conv_bn_stats(x, w)
+
+
+def _filter_grad(x, dy):
+    if x.device.type == "cpu":
+        return _plain_filter_grad(x, dy)
+    return _launch_filter_grad(x, dy)
+
+
+# ---------------------------------------------------------------------------
+# The autograd op
+# ---------------------------------------------------------------------------
+
+
+def _total_cotangent(y, g_y, g_s, g_ss):
+    """The cotangent of y through all three outputs, in f32 (or wider):
+    ``g_y + g_s + 2 y g_ss`` with ``g_s`` and ``g_ss`` per channel."""
+    yf = _upcast(y)
+    d = _upcast(g_y) if g_y is not None else torch.zeros_like(yf)
+    if g_s is not None:
+        d = d + g_s.view(1, -1, 1, 1)
+    if g_ss is not None:
+        d = d + 2.0 * yf * g_ss.view(1, -1, 1, 1)
+    return d
+
+
+def _backward(ctx, g_y, g_s, g_ss, filter_grad):
+    x, w, y = ctx.saved_tensors
+    dx = dw = None
+    with torch.autocast(x.device.type, enabled=False):
+        # dy in x's dtype, as the prototype's reference takes it
+        dy = _total_cotangent(y, g_y, g_s, g_ss).to(x.dtype)
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1)
+        if ctx.needs_input_grad[1]:
+            dw = filter_grad(x, dy).to(w.dtype)
+    return dx, dw
+
+
+class Conv3x3BNStats(torch.autograd.Function):
+    """``(y, s, ss)`` of a 3x3 SAME conv; gradients to x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.set_materialize_grads(False)
+        y, s, ss = _conv_bn_stats(x, w)
+        ctx.save_for_backward(x, w, y)
+        return y, s, ss
+
+    @staticmethod
+    def backward(ctx, g_y, g_s, g_ss):
+        return _backward(ctx, g_y, g_s, g_ss, _filter_grad)
+
+
+class PlainConv3x3BNStats(torch.autograd.Function):
+    """:class:`Conv3x3BNStats` through the plain versions on any device: the
+    reference that a train step through the kernels is held against.
+    Nothing on the training path uses it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.set_materialize_grads(False)
+        y, s, ss = _plain_conv_bn_stats(x, w)
+        ctx.save_for_backward(x, w, y)
+        return y, s, ss
+
+    @staticmethod
+    def backward(ctx, g_y, g_s, g_ss):
+        return _backward(ctx, g_y, g_s, g_ss, _plain_filter_grad)
+
+
+def _apply(function, x, w):
+    # Under autocast, x and w are cast to the autocast dtype (bf16 for
+    # --bf16) and the op runs with autocast off: both kernels then see bf16
+    # x, w and dy; without autocast they see x's dtype (f32).  y is in that
+    # dtype, the statistics and dw in f32.
+    kind = x.device.type
+    dtype = torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
+    with torch.autocast(kind, enabled=False):
+        return function.apply(x.to(dtype).contiguous(), w.to(dtype).contiguous())
+
+
+def conv3x3_bn_stats(x, w):
+    """3x3 SAME stride-1 conv of NCHW ``x`` with (F, C, 3, 3) ``w``, returning
+    ``(y, s, ss)``: y, and the f32 per-channel sums of y and y**2 over
+    (N, H, W) that BatchNorm's batch statistics need."""
+    return _apply(Conv3x3BNStats, x, w)
+
+
+def plain_conv3x3_bn_stats(x, w):
+    """:func:`conv3x3_bn_stats` through the plain versions (a reference)."""
+    return _apply(PlainConv3x3BNStats, x, w)
+
+
+# ---------------------------------------------------------------------------
+# Holding the kernels against the plain versions (on the card)
+# ---------------------------------------------------------------------------
+
+#: (B, H, W, C, F) at which the kernels are checked: the mid 3x3 conv of
+#: each ResNet-50 stage at 224 px, batch 128 (tools/bench_fused_conv.py),
+#: then ragged shapes (nothing a multiple of a tile; F and 9C past one tile)
+STAGE_SHAPES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
+                (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
+CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
+                              (1, 5, 3, 70, 130)]
+
+#: Tolerances of each kernel's result against its plain version on the same
+#: inputs (check_inputs: x and dy of N(0, 1), He-scaled w, so y is O(1)).
+#: f32 y: each y sums 9C <= 4608 products; the kernel adds them in order,
+#: cuDNN may take a Winograd or FFT algorithm, whose f32 error is about
+#: 1e-5 of the output's scale.  bf16 y: both round f32 sums that agree to
+#: about 1e-5, so they differ by at most one bf16 ulp (2**-7 relative) where
+#: the sums straddle a rounding boundary.  dw is held to an f64 reference
+#: computed from the same inputs: it sums N*H*W <= 401,408 products, each
+#: block of the kernel at most a few thousand of them in order and the
+#: splits in order, whose rounding errors, adding as a random walk, stay
+#: near 1e-6 of max |dw|; 1e-5 of it is the bound.  Against the plain
+#: version, dw may differ by the plain version's own distance from f64
+#: (cuDNN's f32 algorithm, or the rounding of dw to bf16) plus that bound.
+#: The statistics are held to bounds derived from the measured y
+#: difference in :func:`check_against_plain`.
+CHECK_TOL = {
+    torch.float32: dict(y=dict(rtol=1e-4, atol=1e-4)),
+    torch.bfloat16: dict(y=dict(rtol=2**-7, atol=1e-3)),
+}
+DW_OF_MAX = 1e-5
+
+
+def check_inputs(case, dtype, generator):
+    """``(x, w, dy)`` on ``generator``'s device in ``dtype``: x (B, C, H, W)
+    and dy (B, F, H, W) of N(0, 1), w (F, C, 3, 3) of N(0, 2 / 9C)."""
+    b, h, wd, c, f = case
+    device = generator.device
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+    return (normal(b, c, h, wd), normal(f, c, 3, 3, std=math.sqrt(2.0 / (9 * c))),
+            normal(b, f, h, wd))
+
+
+def _sum_depth(rows):
+    """The most additions any y term passes through in the kernel's sums: 3
+    within a thread, 4 across a half-warp, ceil(rows / 32) per phase and 32
+    phases in the second pass."""
+    return 3 + 4 + -(-rows // 32) + 32
+
+
+def check_against_plain(x, w, dy):
+    """Launches both kernels on CUDA tensors, synchronizing after each, and
+    asserts their results equal the plain versions' within
+    :data:`CHECK_TOL` (dw: :data:`DW_OF_MAX`, against an f64 reference);
+    returns the max |error| against the plain version of y, of s / n and
+    ss / n (the mean and mean square BN reads) and of dw, and the distance
+    of the kernel's and the plain version's dw from f64, in units of
+    max |dw|."""
+    y, s, ss = _launch_conv_bn_stats(x, w)
+    torch.cuda.synchronize()
+    dw = _launch_filter_grad(x, dy)
+    torch.cuda.synchronize()
+    if y.dtype != x.dtype or dw.dtype != torch.float32:
+        raise AssertionError(f"y is {y.dtype}, dw {dw.dtype} for {x.dtype} x")
+    y_p, s_p, ss_p = _plain_conv_bn_stats(x, w)
+    dw_p = _plain_filter_grad(x, dy)
+    tol = CHECK_TOL[x.dtype]
+    torch.testing.assert_close(y.float(), y_p.float(), **tol["y"])
+
+    # The statistics: against f64 sums of the kernel's own y, within the f32
+    # rounding bound of its summation tree (depth * 2**-24 of sum |terms|);
+    # against f64 sums of the plain version's y, within that bound plus the
+    # difference of the two y's (|sum a - sum b| <= sum |a - b|).
+    y64, yp64 = y.double(), y_p.double()
+    n = y.numel() // y.shape[1]
+    rows = _kernels()[0].conv3x3_bn_stats_partial_rows(
+        x.shape[0], x.shape[2], x.shape[3])
+    u = _sum_depth(rows) * 2.0**-24
+    dims = (0, 2, 3)
+    for got, terms, terms_p in ((s, y64, yp64), (ss, y64 * y64, yp64 * yp64)):
+        err = (got.double() - terms.sum(dims)).abs()
+        bound = u * terms.abs().sum(dims)
+        if (err > bound).any():
+            raise AssertionError(
+                f"kernel statistics differ from f64 sums of its y by "
+                f"{err.max().item():.3g} (bound {bound.min().item():.3g})")
+        if ((got.double() - terms_p.sum(dims)).abs()
+                > bound + (terms - terms_p).abs().sum(dims)).any():
+            raise AssertionError("kernel statistics differ from the plain version's")
+
+    dw64 = _plain_filter_grad(x.double(), dy.double())
+    bound = DW_OF_MAX * dw64.abs().max().item()
+    err64 = (dw.double() - dw64).abs()
+    if (err64 > bound).any():
+        raise AssertionError(f"kernel dw differs from f64 by {err64.max().item():.3g} "
+                             f"(bound {bound:.3g})")
+    err_p = (dw - dw_p).double().abs()
+    if (err_p > (dw_p.double() - dw64).abs() + bound).any():
+        raise AssertionError(f"kernel dw differs from the plain version's by "
+                             f"{err_p.max().item():.3g}")
+    return {
+        "y": (y.float() - y_p.float()).abs().max().item(),
+        "mean": ((s - s_p).abs().max() / n).item(),
+        "mean_square": ((ss - ss_p).abs().max() / n).item(),
+        "dw": err_p.max().item(),
+        "dw_vs_f64_of_max": err64.max().item() / dw64.abs().max().item(),
+        "plain_dw_vs_f64_of_max": ((dw_p.double() - dw64).abs().max()
+                                   / dw64.abs().max()).item(),
+    }

@@ -52,21 +52,26 @@ def _kernels():
 # ---------------------------------------------------------------------------
 
 
+def _upcast(z):
+    """bf16 -> f32, f32 -> f32, f64 -> f64."""
+    return z.to(torch.promote_types(z.dtype, torch.float32))
+
+
 def _plain_forward(z, t):
-    zf = z.float()
-    tf = t.float()
+    zf = _upcast(z)
+    tf = t.to(zf.dtype)
     nsq = torch.clamp_min(torch.sum(zf * zf, dim=1), _EPS)
     dot = torch.sum(tf * zf, dim=1)
     return 1.0 - dot * torch.rsqrt(nsq)
 
 
 def _plain_backward(z, t, g):
-    zf = z.float()
-    tf = t.float()
+    zf = _upcast(z)
+    tf = t.to(zf.dtype)
     nsq = torch.clamp_min(torch.sum(zf * zf, dim=1), _EPS)
     dot = torch.sum(tf * zf, dim=1)
     inv_n = torch.rsqrt(nsq)
-    dz = (-g.float() * inv_n)[:, None] * (tf - (dot / nsq)[:, None] * zf)
+    dz = (-g.to(zf.dtype) * inv_n)[:, None] * (tf - (dot / nsq)[:, None] * zf)
     return dz.to(z.dtype)
 
 

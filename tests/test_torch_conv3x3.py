@@ -1,0 +1,258 @@
+"""The port's fused 3x3 conv + BN statistics op and its filter gradient
+against the JAX package's prototypes and BatchNorm.
+
+On the CPU the port runs the plain versions; they are held against the
+Pallas kernels of ``tools/fused_conv_bn_prototype.py`` and
+``tools/conv_filter_grad_prototype.py`` run in interpret mode.  The
+autograd op (conv + statistics -> ``KerasBatchNorm.forward_from_stats``)
+is held against autograd through a plain conv + BN and against ``jax.grad``
+of the JAX conv + ``KerasBatchNorm``.  The CUDA kernels are held against
+the plain versions on the card in ``test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from semantic_embeddings_tpu.models.layers import KerasBatchNorm as JKerasBatchNorm
+from semantic_embeddings_torch.models.layers import KerasBatchNorm
+from semantic_embeddings_torch.ops import conv3x3 as tc
+from tools.conv_filter_grad_prototype import conv3x3_filter_grad as j_filter_grad
+from tools.fused_conv_bn_prototype import conv3x3_bn_stats as j_conv_bn_stats
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+
+
+def _oihw(a):
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+
+
+def _nhwc(t):
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+def _conv_inputs(b, h, w, c, f, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    k = rng.normal(0, 0.1, (3, 3, c, f)).astype(np.float32)
+    return x, k
+
+
+# bf16: both sides round f32 sums of exact bf16 products to bf16; sums a
+# few f32 ulp apart round apart where they straddle a rounding boundary, so
+# y agrees to one bf16 ulp (2**-7 relative) and the statistics of y by the
+# effect of such ulps on a sum of 2-3 hundred terms.
+CONV_TOL = {
+    "f32": dict(y=dict(rtol=0, atol=5e-6), s=dict(rtol=1e-5, atol=1e-4),
+                ss=dict(rtol=1e-5, atol=1e-3)),
+    "bf16": dict(y=dict(rtol=2**-7, atol=1e-6), s=dict(rtol=1e-3, atol=3e-2),
+                 ss=dict(rtol=1e-3, atol=3e-2)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16, 8), (3, 7, 7, 5, 10)])
+def test_plain_conv_bn_stats_matches_pallas_prototype(shape, dtype):
+    """The shape of tests/test_ops.py's prototype test, and a ragged one."""
+    x, k = _conv_inputs(*shape)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    y_r, s_r, ss_r = j_conv_bn_stats(jnp.asarray(x, jdt), jnp.asarray(k, jdt),
+                                     interpret=True)
+    y, s, ss = tc._plain_conv_bn_stats(_nchw(x).to(tdt), _oihw(k).to(tdt))
+    assert y.dtype == tdt and s.dtype == ss.dtype == torch.float32
+    tol = CONV_TOL[dtype]
+    np.testing.assert_allclose(_nhwc(y), np.asarray(y_r, np.float32), **tol["y"])
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), **tol["s"])
+    np.testing.assert_allclose(ss.numpy(), np.asarray(ss_r), **tol["ss"])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_filter_grad_matches_pallas_prototype(dtype):
+    """N = 8 divides the prototype's batch tile (4); the port needs no such
+    divisibility.  f32: sums of 512 products in two orders.  bf16: the
+    prototype keeps dw in f32, the plain version rounds it to bf16 as the
+    prototype's own reference does (2**-8 relative)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 8, 8, 4)).astype(np.float32)
+    dy = rng.normal(size=(8, 8, 8, 6)).astype(np.float32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    ref = j_filter_grad(jnp.asarray(x, jdt), jnp.asarray(dy, jdt), batch_tile=4,
+                        interpret=True)
+    got = tc._plain_filter_grad(_nchw(x).to(tdt), _nchw(dy).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (6, 4, 3, 3)
+    tol = dict(rtol=0, atol=1e-4) if dtype == "f32" else dict(rtol=2**-8, atol=1e-3)
+    np.testing.assert_allclose(got.permute(2, 3, 1, 0).numpy(), np.asarray(ref), **tol)
+
+
+def _bn_params(f, seed=4):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.5, 1.5, f).astype(np.float32),
+            (rng.normal(size=f) * 0.1).astype(np.float32))
+
+
+def _torch_bn(scale, bias):
+    bn = KerasBatchNorm(len(scale))
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+    return bn
+
+
+@pytest.fixture(scope="module")
+def conv_bn_case():
+    """x (3, 6, 5, 8) NHWC, w (3, 3, 8, 12), BN scale/bias, a random
+    cotangent R; the JAX loss sum(BN(conv(x, w)) * R), its gradients to x,
+    w, scale and bias, and the new running statistics."""
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(3, 6, 5, 8)) + 0.3).astype(np.float32)
+    k = rng.normal(0, 0.2, (3, 3, 8, 12)).astype(np.float32)
+    scale, bias = _bn_params(12)
+    r = rng.normal(size=(3, 6, 5, 12)).astype(np.float32)
+    jbn = JKerasBatchNorm()
+    stats = jbn.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 1, 12)))["batch_stats"]
+
+    def loss(x, k, scale, bias):
+        y = jax.lax.conv_general_dilated(
+            x, k, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        out, new = jbn.apply(
+            {"params": {"BatchNorm_0": {"scale": scale, "bias": bias}},
+             "batch_stats": stats}, y, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * r), new["batch_stats"]["BatchNorm_0"]
+
+    (value, new), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(k), jnp.asarray(scale), jnp.asarray(bias))
+    return dict(x=x, k=k, scale=scale, bias=bias, r=r, value=float(value),
+                grads=[np.asarray(g) for g in grads],
+                mean=np.asarray(new["mean"]), var=np.asarray(new["var"]))
+
+
+def _torch_loss(case, fused):
+    """(loss, [x, w, scale, bias] leaves, bn) through the fused op, or
+    through a plain conv + the F.batch_norm form of KerasBatchNorm."""
+    x = _nchw(case["x"]).requires_grad_()
+    w = _oihw(case["k"]).requires_grad_()
+    bn = _torch_bn(case["scale"], case["bias"])
+    out = (bn.forward_from_stats(*tc.conv3x3_bn_stats(x, w)) if fused
+           else bn(F.conv2d(x, w, padding=1)))
+    loss = (out * _nchw(case["r"])).sum()
+    loss.backward()
+    return loss, [x, w, bn.weight, bn.bias], bn
+
+
+# f32 sums over 90 elements per channel and up to 108 products per output:
+# values and gradients agree to a few ulp of their size.
+GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def test_conv_bn_stats_gradients_match_plain_autograd_and_jax(conv_bn_case):
+    """Catches a missing g_s / g_ss term: BN's batch mean and variance feed
+    the loss, so their cotangents reach x and w only through them."""
+    loss, leaves, bn = _torch_loss(conv_bn_case, fused=True)
+    loss_p, leaves_p, bn_p = _torch_loss(conv_bn_case, fused=False)
+    np.testing.assert_allclose(loss.item(), conv_bn_case["value"], rtol=1e-5)
+    np.testing.assert_allclose(loss_p.item(), loss.item(), rtol=1e-5)
+    for name, a, b in zip(("x", "w", "scale", "bias"), leaves, leaves_p):
+        torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL, msg=name)
+    x_g, k_g, scale_g, bias_g = conv_bn_case["grads"]
+    np.testing.assert_allclose(_nhwc(leaves[0].grad), x_g, **GRAD_TOL)
+    np.testing.assert_allclose(leaves[1].grad.permute(2, 3, 1, 0).numpy(), k_g,
+                               **GRAD_TOL)
+    np.testing.assert_allclose(leaves[2].grad.numpy(), scale_g, **GRAD_TOL)
+    np.testing.assert_allclose(leaves[3].grad.numpy(), bias_g, **GRAD_TOL)
+    for got in (bn, bn_p):
+        np.testing.assert_allclose(got.running_mean.numpy(), conv_bn_case["mean"],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got.running_var.numpy(), conv_bn_case["var"],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_eval_mode_uses_running_statistics(conv_bn_case):
+    x = _nchw(conv_bn_case["x"])
+    w = _oihw(conv_bn_case["k"])
+    bn = _torch_bn(conv_bn_case["scale"], conv_bn_case["bias"])
+    with torch.no_grad():
+        bn.running_mean.uniform_(-0.5, 0.5, generator=torch.Generator().manual_seed(0))
+        bn.running_var.uniform_(0.5, 2.0, generator=torch.Generator().manual_seed(1))
+    bn.eval()
+    before = (bn.running_mean.clone(), bn.running_var.clone())
+    with torch.no_grad():
+        got = bn.forward_from_stats(*tc.conv3x3_bn_stats(x, w))
+        ref = bn(F.conv2d(x, w, padding=1))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close((bn.running_mean, bn.running_var), before)
+
+
+def test_plain_op_equals_the_cpu_path(conv_bn_case):
+    """On the CPU the kernel op runs the plain versions: the reference op
+    gives the same bits."""
+    x = _nchw(conv_bn_case["x"]).requires_grad_()
+    w = _oihw(conv_bn_case["k"]).requires_grad_()
+    outs = tc.conv3x3_bn_stats(x, w)
+    outs_p = tc.plain_conv3x3_bn_stats(x, w)
+    for a, b in zip(outs, outs_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    g = torch.autograd.grad(sum(o.sum() for o in outs), (x, w))
+    g_p = torch.autograd.grad(sum(o.sum() for o in outs_p), (x, w))
+    torch.testing.assert_close(g, g_p, rtol=0, atol=0)
+
+
+def test_autocast_casts_to_bf16_and_keeps_stats_f32():
+    """Under autocast the op sees bf16 x and w; y is bf16, the statistics
+    and the weight's gradient f32 (the parameter's dtype)."""
+    x, k = _conv_inputs(2, 6, 6, 8, 16)
+    xt = _nchw(x).requires_grad_()
+    wt = _oihw(k).requires_grad_()
+    bn = _torch_bn(*_bn_params(16))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        y, s, ss = tc.conv3x3_bn_stats(xt, wt)
+        out = bn.forward_from_stats(y, s, ss)
+    assert y.dtype == out.dtype == torch.bfloat16
+    assert s.dtype == ss.dtype == torch.float32
+    y_r, s_r, ss_r = tc._plain_conv_bn_stats(xt.detach().bfloat16(),
+                                             wt.detach().bfloat16())
+    torch.testing.assert_close((y, s, ss), (y_r, s_r, ss_r), rtol=0, atol=0)
+    out.float().sum().backward()
+    assert xt.grad.dtype == wt.grad.dtype == torch.float32
+    assert torch.isfinite(wt.grad).all() and wt.grad.abs().sum() > 0
+
+
+def test_total_cotangent_terms():
+    """g_y + g_s + 2 y g_ss, each term present or absent."""
+    y = torch.randn(2, 3, 4, 5)
+    g_y, g_s, g_ss = torch.randn(2, 3, 4, 5), torch.randn(3), torch.randn(3)
+    full = tc._total_cotangent(y, g_y, g_s, g_ss)
+    torch.testing.assert_close(
+        full, g_y + g_s.view(1, 3, 1, 1) + 2 * y * g_ss.view(1, 3, 1, 1))
+    torch.testing.assert_close(tc._total_cotangent(y, None, g_s, None),
+                               g_s.view(1, 3, 1, 1).expand(2, 3, 4, 5))
+
+
+def test_cpu_tensors_launch_no_kernel(conv_bn_case):
+    before = (tc.launches_conv_bn_stats, tc.launches_filter_grad)
+    _torch_loss(conv_bn_case, fused=True)
+    assert (tc.launches_conv_bn_stats, tc.launches_filter_grad) == before == (0, 0)
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    x = torch.zeros(1, 2, 3, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tc._launch_conv_bn_stats(x, torch.zeros(4, 2, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        tc._launch_filter_grad(x, torch.zeros(1, 4, 3, 3))
+
+
+@pytest.mark.parametrize("case", tc.CHECK_CASES[4:])
+def test_check_inputs_are_he_scaled(case):
+    """The kernels' check inputs (ragged cases here; the stage shapes are
+    the same draw at batch 128): shapes and the weights' He scale."""
+    b, h, w, c, f = case
+    x, wt, dy = tc.check_inputs(case, torch.float32, torch.Generator().manual_seed(0))
+    assert (x.shape, wt.shape, dy.shape) == ((b, c, h, w), (f, c, 3, 3), (b, f, h, w))
+    np.testing.assert_allclose(wt.std().item(), np.sqrt(2 / (9 * c)), rtol=0.2)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from semantic_embeddings_torch.ops import conv3x3 as cc
 from semantic_embeddings_torch.ops import cosine_loss as tc
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +84,59 @@ def test_cli_trains_through_the_kernels(device, tmp_path):
     _, feats = load_features(str(tmp_path / "f.pickle"))
     assert feats.shape == (32, 64)
     np.testing.assert_allclose(np.linalg.norm(feats, axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", cc.CHECK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_match_plain(device, case, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    cc.check_against_plain(*cc.check_inputs(
+        case, dtype, torch.Generator(device=device).manual_seed(0)))
+
+
+def test_conv_kernels_are_deterministic(device):
+    x, w, dy = cc.check_inputs((8, 14, 14, 64, 64), torch.float32,
+                               torch.Generator(device=device).manual_seed(1))
+    first = (*cc._launch_conv_bn_stats(x, w), cc._launch_filter_grad(x, dy))
+    again = (*cc._launch_conv_bn_stats(x, w), cc._launch_filter_grad(x, dy))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_conv_autograd_through_kernels(device):
+    """One launch of each kernel per forward + backward; gradients equal
+    the plain op's within the kernels' own tolerances."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, _ = cc.check_inputs((4, 14, 14, 32, 48), torch.float32,
+                              torch.Generator(device=device).manual_seed(2))
+    grads, launches = [], []
+    for op in (cc.conv3x3_bn_stats, cc.plain_conv3x3_bn_stats):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
+        y, s, ss = op(xg, wg)
+        (y.sin().sum() + s.sum() * 0.5 + ss.sum() * 0.01).backward()
+        grads.append((xg.grad, wg.grad))
+        launches.append((cc.launches_conv_bn_stats - before[0],
+                         cc.launches_filter_grad - before[1]))
+    torch.cuda.synchronize()
+    assert launches == [(1, 1), (0, 0)]
+    (dx, dw), (dx_p, dw_p) = grads
+    torch.testing.assert_close(dx, dx_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw, dw_p, rtol=0, atol=1e-4 * dw_p.abs().max().item())
+
+
+def test_conv_wrappers_reject_what_the_kernels_do_not_take(device):
+    x, w, dy = cc.check_inputs((2, 5, 5, 4, 6), torch.float32,
+                               torch.Generator(device=device).manual_seed(0))
+    with pytest.raises(TypeError):
+        cc._launch_conv_bn_stats(x.double(), w.double())
+    with pytest.raises(TypeError):
+        cc._launch_conv_bn_stats(x, w.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        cc._launch_conv_bn_stats(x, w[:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cc._launch_conv_bn_stats(x.transpose(2, 3), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        cc._launch_filter_grad(x, dy.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        cc._launch_filter_grad(x, dy[:1])
