@@ -13,13 +13,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 3. Hold the cosine-loss kernels against their plain PyTorch versions on the
    card, in f32 and bf16, at the training path's shape (100, 100) and at
    (37, 100), (256, 512) and (4, 16) with two all-zero rows; time both at
-   (100, 100).
+   (100, 100), beside their bound.
 4. Hold the 3x3 conv + BN-statistics kernel and the 3x3 filter-gradient
-   kernel against their plain versions, in f32 and bf16 (TF32 off), at the
-   four ResNet-50 stage shapes at batch 128 and at three ragged shapes;
-   time both at the stage shapes.
+   kernel (bf16: tensor cores; f32: SIMT) against their plain versions and
+   dw against f64, in f32 and bf16 (TF32 off), at the four ResNet-50 stage
+   shapes at batch 128, four ragged shapes and three shapes that take each
+   copy path of the bf16 filter gradient; at the stage shapes time both
+   kernels, their plain versions and cuDNN's wgrad, and print each
+   kernel's bound (the larger of operations over the dtype's peak and
+   bytes over 3.35 TB/s) and its share of it.
 5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
-   taxonomy (20 superclasses x 5 leaves), then train resnet-110-wfc with
+   taxonomy (20 superclasses x 5 leaves) with ``python -m
+   semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
+   equal 1 - lcs_height to 1e-12), then train resnet-110-wfc with
    ``--fused_loss`` for one epoch of ``synthetic-100-2000-500`` at batch
    100 (20 steps), validate and dump test features, through
    ``learn_image_embeddings.main``.  Checks finite losses, one launch of
@@ -49,7 +55,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 10. ResNet-50 train-step throughput in f32 and bf16, through the kernels
    and through the plain versions (in turns: kernel, plain, kernel), and
    their device time, busy share and peak memory (``torch.profiler``).
-11. Check that no JAX module was imported.
+11. Check that neither JAX nor any module of the JAX package
+   (``semantic_embeddings_tpu``) was imported.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -83,6 +90,19 @@ N_TRAIN, N_TEST = 2000, 500
 RN50_BATCH = 128
 RN50_TRAIN, RN50_TEST = 512, 128
 RN50_CONVS = 16  # bottleneck blocks, each with one 3x3 conv_b feeding bn_b
+# Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 FMA
+# outside the tensor cores (TF32 stays off), and device memory.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(flop, nbytes, dtype_name):
+    """The least time in ms the card could take: the larger of the
+    operations over the dtype's peak and the bytes over the memory rate;
+    and which of the two it is."""
+    ops_ms = flop / PEAK_FLOPS[dtype_name] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 class _Tee(io.TextIOBase):
@@ -128,24 +148,39 @@ def time_ms(fn, iters=200, warmup=20):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def device_ms(fn, iters=50):
+def device_ms(fn, iters=50, attempts=4):
     """Device time of one call of ``fn``: the summed duration of the GPU
     kernels it launches, from ``torch.profiler``, without the gaps in which
-    the device waits for the host."""
+    the device waits for the host.
+
+    The profiler now and then loses some or all of a window's kernel
+    records, and the time then reads low.  Every call of ``fn`` launches
+    the same kernels, so a reading takes two windows of ``iters`` calls and
+    is kept only when both recorded the same number of kernels, a non-zero
+    multiple of ``iters``; otherwise both are taken again, and after
+    ``attempts`` the run fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def window():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return (sum(e.count for e in kernels),
+                sum(e.self_device_time_total for e in kernels) / iters / 1e3)
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no GPU kernel")
-    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+    for attempt in range(attempts):
+        (n1, t1), (n2, t2) = window(), window()
+        if n1 == n2 and n1 > 0 and n1 % iters == 0:
+            return (t1 + t2) / 2
+        print(f"torch.profiler recorded {n1} and {n2} GPU kernels for twice "
+              f"{iters} calls (attempt {attempt + 1}); taken again")
+    raise RuntimeError("torch.profiler lost kernel records in every attempt")
 
 
 def profile_step(state, step, batches, label, path=None, n=10, batch=BATCH):
@@ -318,9 +353,14 @@ def main(argv=None):
     # Per call, CUDA events around it (what a caller waits: at this size
     # the device mostly waits for the host's launch), and the device time
     # of its kernels alone (torch.profiler).
-    times, dev_times = {}, {}
+    times, dev_times, cos_bound = {}, {}, {}
     for dtype, (z, t, g) in path_inputs.items():
         name = str(dtype)[6:]
+        # each input read once, each output written once; ~4 operations an
+        # element forward (|z|^2 and <z, t>), ~6 backward
+        zb, b_rows = z.numel() * z.element_size(), z.shape[0]
+        cos_bound["fwd", dtype] = bound(4 * z.numel(), 2 * zb + 4 * b_rows, "float32")
+        cos_bound["bwd", dtype] = bound(6 * z.numel(), 3 * zb + 4 * b_rows, "float32")
         calls = {
             "fwd": (lambda: C._launch_forward(z, t), lambda: C._plain_forward(z, t)),
             "bwd": (lambda: C._launch_backward(z, t, g),
@@ -334,7 +374,10 @@ def main(argv=None):
             (k, p), (kd, pd) = times[part, dtype], dev_times[part, dtype]
             print(f"time (100, 100) {name} {part}: per call kernel {k * 1e3:.2f} us, "
                   f"plain {p * 1e3:.2f} us; device time kernel {kd * 1e3:.2f} us, "
-                  f"plain {pd * 1e3:.2f} us  [{card}]")
+                  f"plain {pd * 1e3:.2f} us" + (
+                      f"; bound {cos_bound[part, dtype][0] * 1e3:.4f} us "
+                      f"({cos_bound[part, dtype][1]})" if (part, dtype) in cos_bound
+                      else "") + f"  [{card}]")
 
     # -- 4. conv kernels against their plain versions -------------------
     phase("4 conv3x3 kernels vs plain (TF32 off)")
@@ -356,20 +399,40 @@ def main(argv=None):
             if case not in CC.STAGE_SHAPES:
                 continue
             flop = 2 * b * h * w * 9 * c * f
+            item = x.element_size()
+            # each input read once, each output written once: x and w in,
+            # y and the two f32 sums out; x and dy in, f32 dw out
+            stats_bytes = (x.numel() + wt.numel() + b * f * h * w) * item + 2 * f * 4
+            wgrad_bytes = (x.numel() + dy.numel()) * item + wt.numel() * 4
+            wshape = tuple(wt.shape)
             calls = {
                 "conv3x3_bn_stats": (lambda: CC._launch_conv_bn_stats(x, wt),
-                                     lambda: CC._plain_conv_bn_stats(x, wt)),
+                                     lambda: CC._plain_conv_bn_stats(x, wt),
+                                     None, stats_bytes),
+                # library: cuDNN's wgrad, one PyTorch call of the same function
                 "conv3x3_filter_grad": (lambda: CC._launch_filter_grad(x, dy),
-                                        lambda: CC._plain_filter_grad(x, dy)),
+                                        lambda: CC._plain_filter_grad(x, dy),
+                                        lambda: torch.nn.grad.conv2d_weight(
+                                            x, wshape, dy, padding=1),
+                                        wgrad_bytes),
             }
-            for kernel_name, (kernel, plain) in calls.items():
-                t = (time_ms(kernel, 20, 3), time_ms(plain, 20, 3),
-                     device_ms(kernel, 5), device_ms(plain, 5))
-                conv_times[kernel_name, case, dtype] = t
+            for kernel_name, (kernel, plain, library, nbytes) in calls.items():
+                ms, plain_ms = time_ms(kernel, 20, 3), time_ms(plain, 20, 3)
+                lib_ms = time_ms(library, 20, 3) if library else None
+                dev, plain_dev = device_ms(kernel, 5), device_ms(plain, 5)
+                bound_ms, bound_by = bound(flop, nbytes, name)
+                conv_times[kernel_name, case, dtype] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "device_ms": dev, "plain_device_ms": plain_dev,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share_of_bound": bound_ms / ms}
                 print(f"time {case} {name} {kernel_name}: per call kernel "
-                      f"{t[0]:.3f} ms ({flop / t[0] / 1e9:.1f} TFLOP/s), plain "
-                      f"{t[1]:.3f} ms; device time kernel {t[2]:.3f} ms, plain "
-                      f"{t[3]:.3f} ms  [{card}]")
+                      f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
+                      f"{plain_ms:.4f} ms, library "
+                      + (f"{lib_ms:.4f} ms" if lib_ms else "none")
+                      + f"; device time kernel {dev:.4f} ms, plain {plain_dev:.4f} ms; "
+                      f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+                      f"{bound_ms / ms:.3f} of it  [{card}]")
             del x, wt, dy
     torch.cuda.empty_cache()
 
@@ -382,11 +445,21 @@ def main(argv=None):
     emb_path = os.path.join(tmp, "embedding.pickle")
     feat_path = os.path.join(tmp, "feat.pickle")
     write_taxonomy(hierarchy)
-    # the repo's numpy-only compute_class_embedding.py, in its own process
+    # the port's compute_class_embedding CLI, in its own process
     sys.stdout.flush()
-    subprocess.run([sys.executable, os.path.join(ROOT, "compute_class_embedding.py"),
+    subprocess.run([sys.executable, "-m", "semantic_embeddings_torch.cli.compute_class_embedding",
                     "--hierarchy", hierarchy, "--out", emb_path,
-                    "--method", "unitsphere"], check=True)
+                    "--method", "unitsphere"], check=True, cwd=ROOT)
+    from semantic_embeddings_torch.embeddings import load_embeddings
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy, semantic_distance_matrix
+
+    emb_labels, emb = load_embeddings(emb_path)
+    target = 1.0 - semantic_distance_matrix(
+        ClassHierarchy.from_file(hierarchy, id_type=int), emb_labels)
+    emb_err = np.abs(emb @ emb.T - target).max()
+    check(emb_labels == list(range(100)) and emb.shape == (100, 100) and emb_err <= 1e-12,
+          (emb.shape, emb_err))
+    print(f"class embedding {emb.shape}: max |E E^T - (1 - lcs_height)| {emb_err:.3g}")
 
     argv = [
         "--dataset", DATASET, "--data_root", tmp, "--embedding", emb_path,
@@ -674,9 +747,11 @@ def main(argv=None):
     summary = {f"{path}_{precision}": runs for (path, precision), runs in rn50_rates.items()}
 
     # -- 11. no JAX ----------------------------------------------------
-    phase("11 no jax")
+    phase("11 no jax, no JAX package")
     check("jax" not in sys.modules, "a JAX module was imported")
-    print("jax not imported")
+    tpu = [m for m in sys.modules if m.startswith("semantic_embeddings_tpu")]
+    check(not tpu, f"modules of the JAX package were imported: {tpu}")
+    print("neither jax nor semantic_embeddings_tpu imported")
 
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
@@ -686,13 +761,17 @@ def main(argv=None):
             "source": "semantic_embeddings_torch/csrc/cosine_loss.cu",
             "replaces": f"semantic_embeddings_tpu/ops/cosine_loss.py:{line}",
             "launches": launches[part],
+            "launches_per_step": 1,
             "launches_resnet50": rn50_launches[f"cosine_loss_{part}"],
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
+            "bound_ms": cos_bound[part, f32][0], "bound_by": cos_bound[part, f32][1],
+            "library_ms": None,
             "device_ms": dev_times[part, f32][0],
             "plain_device_ms": dev_times[part, f32][1],
             "ms_bf16": times[part, bf16][0], "plain_ms_bf16": times[part, bf16][1],
+            "bound_ms_bf16": cos_bound[part, bf16][0],
         })
     stage1 = CC.STAGE_SHAPES[0]
     for name, source, replaces, err_key in (
@@ -700,16 +779,21 @@ def main(argv=None):
              "tools/fused_conv_bn_prototype.py:32", "y"),
             ("conv3x3_filter_grad", "conv3x3_filter_grad.cu",
              "tools/conv_filter_grad_prototype.py:50", "dw")):
-        t = conv_times[name, stage1, f32]
+        t, t16 = conv_times[name, stage1, f32], conv_times[name, stage1, bf16]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"semantic_embeddings_torch/csrc/{source}",
             "replaces": replaces,
             "launches": rn50_launches[name],
+            "launches_per_step": RN50_CONVS,
             "max_abs_err": conv_err[f32][err_key],
             "max_abs_err_bf16": conv_err[bf16][err_key],
-            "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
             "shape": "stage1 (128, 56, 56, 64, 64) f32",
+            "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound_ms"],
+            "library_ms_bf16": t16["library_ms"],
             "by_shape": {f"{case} {str(dtype)[6:]}": conv_times[name, case, dtype]
                          for case in CC.STAGE_SHAPES for dtype in (f32, bf16)},
         })

@@ -6,17 +6,22 @@ reference the port is tested against.  This package imports ``torch`` and
 never ``jax``.
 
 - ``ops``     — hand-written CUDA kernels (``csrc/``) with their plain
-                PyTorch versions: the fused L2-norm + dot cosine loss.
+                PyTorch versions: the fused L2-norm + dot cosine loss, the
+                3x3 conv + BN statistics and its filter gradient.
 - ``models``  — CIFAR ResNets and the embedding/classification heads.
 - ``train``   — losses, metrics, Keras-exact SGD, schedules, the train step.
 - ``data``    — device-resident in-memory datasets and on-device augmentation.
+- ``hierarchy``, ``embeddings``, ``evaluation`` — taxonomy math, the
+                class-embedding solvers, their pickle I/O and hierarchical
+                precision: host numpy, the port's own copies of the JAX
+                package's numpy-only modules.
 - ``cli``     — command-line entry points (``python -m
-                semantic_embeddings_torch.cli.learn_image_embeddings``).
+                semantic_embeddings_torch.cli.compute_class_embedding``,
+                ``python -m semantic_embeddings_torch.cli.learn_image_embeddings``).
 - ``convert`` — Flax variable tree <-> ``state_dict`` bridge.
 
-Taxonomy math, the class-embedding solvers and their pickle I/O are
-imported from the JAX package's numpy-only modules
-(``semantic_embeddings_tpu.hierarchy``, ``.embeddings``).
+The port imports nothing of the JAX package, not even its numpy-only
+modules: it keeps its own copies of them.
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,7 @@ import pickle
 import numpy as np
 import torch
 
-from semantic_embeddings_tpu.embeddings import save_features
-
+from ..embeddings import save_features
 from ..models import EmbeddingModel, build_network
 from ..train import LOSS_OUTPUT, new_train_state
 

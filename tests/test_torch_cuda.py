@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from semantic_embeddings_torch.embeddings import load_features, save_embeddings
 from semantic_embeddings_torch.ops import conv3x3 as cc
 from semantic_embeddings_torch.ops import cosine_loss as tc
 
@@ -64,7 +65,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
 
 
 def test_cli_trains_through_the_kernels(device, tmp_path):
-    from semantic_embeddings_tpu.embeddings import load_features, save_embeddings
     from semantic_embeddings_torch.cli import learn_image_embeddings
 
     rng = np.random.default_rng(0)
@@ -94,13 +94,67 @@ def test_conv_kernels_match_plain(device, case, dtype):
         case, dtype, torch.Generator(device=device).manual_seed(0)))
 
 
-def test_conv_kernels_are_deterministic(device):
-    x, w, dy = cc.check_inputs((8, 14, 14, 64, 64), torch.float32,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_are_deterministic(device, dtype):
+    x, w, dy = cc.check_inputs((8, 14, 14, 64, 64), dtype,
                                torch.Generator(device=device).manual_seed(1))
     first = (*cc._launch_conv_bn_stats(x, w), cc._launch_filter_grad(x, dy))
     again = (*cc._launch_conv_bn_stats(x, w), cc._launch_filter_grad(x, dy))
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+def test_filter_grad_copy_widths(device):
+    """ALIGN_CASES give the bf16 kernel each of its copy widths: 8, 4, and 1
+    (the repack)."""
+    widths = []
+    for case in cc.ALIGN_CASES:
+        x, _, dy = cc.check_inputs(case, torch.bfloat16,
+                                   torch.Generator(device=device).manual_seed(0))
+        widths.append(cc.filter_grad_copy_width(x, dy))
+    assert widths == [8, 4, 1]
+
+
+def test_filter_grad_bf16_misaligned_pointers(device):
+    """Operands that start 2 bytes past an aligned address fit no copy
+    width even where H*W % 8 == 0: the kernel repacks them, and dw is the
+    same bits as from aligned operands."""
+    torch.backends.cudnn.allow_tf32 = False
+    case = (4, 8, 8, 24, 80)
+    x, w, dy = cc.check_inputs(case, torch.bfloat16,
+                               torch.Generator(device=device).manual_seed(3))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xs, dys = shifted(x), shifted(dy)
+    assert cc.filter_grad_copy_width(xs, dys) == 1
+    assert torch.equal(cc._launch_filter_grad(xs, dys), cc._launch_filter_grad(x, dy))
+    cc.check_against_plain(xs, w, dys)
+
+
+def test_conv_autograd_bf16_through_the_tensor_core_kernel(device):
+    """Under bf16 autocast one backward launches the filter-gradient kernel
+    once, on bf16 operands; w's gradient is the kernel's dw on the op's own
+    bf16 x and dy, rounded to the bf16 weight the op saw."""
+    x, w, _ = cc.check_inputs((4, 14, 14, 32, 48), torch.float32,
+                              torch.Generator(device=device).manual_seed(4))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    g = torch.randn((4, 48, 14, 14), device=device,
+                    generator=torch.Generator(device=device).manual_seed(5))
+    before = cc.launches_filter_grad
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y, _, _ = cc.conv3x3_bn_stats(xg, wg)
+    assert y.dtype == torch.bfloat16
+    (y.float() * g).sum().backward()
+    torch.cuda.synchronize()
+    assert cc.launches_filter_grad - before == 1
+    direct = cc._launch_filter_grad(x.bfloat16(), g.bfloat16())
+    assert wg.grad.dtype == torch.float32
+    assert torch.equal(wg.grad, direct.bfloat16().float())
 
 
 def test_conv_autograd_through_kernels(device):
