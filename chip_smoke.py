@@ -14,14 +14,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    card, in f32 and bf16, at the training path's shape (100, 100) and at
    (37, 100), (256, 512) and (4, 16) with two all-zero rows; time both at
    (100, 100), beside their bound.
-4. Hold the 3x3 conv + BN-statistics kernel and the 3x3 filter-gradient
-   kernel (bf16: tensor cores; f32: SIMT) against their plain versions and
-   dw against f64, in f32 and bf16 (TF32 off), at the four ResNet-50 stage
-   shapes at batch 128, four ragged shapes and three shapes that take each
-   copy path of the bf16 filter gradient; at the stage shapes time both
+4. Hold the 3x3 conv + BN-statistics kernel (bf16: tensor cores, f32:
+   SIMT) and the 3x3 filter-gradient kernel (bf16: tensor cores; f32:
+   tensor cores as 3xTF32) against their plain versions and dw against f64,
+   in f32 and bf16 (TF32 off), at the four ResNet-50 stage shapes at batch
+   128, four ragged shapes and three shapes that take each copy path (16-
+   or 8-byte copies, or the repack); print the instance each dtype runs
+   and the copy width each shape takes.  At the stage shapes time both
    kernels, their plain versions and cuDNN's wgrad, and print each
-   kernel's bound (the larger of operations over the dtype's peak and
-   bytes over 3.35 TB/s) and its share of it.
+   kernel's bound (the larger of operations over the peak and bytes over
+   3.35 TB/s; the peak is bf16's 989 TFLOP/s, and for f32 that of f32-exact
+   products on the tensor cores, 3xTF32 at 495 / 3 TFLOP/s, with the f32
+   FMA units' 67 TFLOP/s beside it) and its share of it.
 5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
    taxonomy (20 superclasses x 5 leaves) with ``python -m
    semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
@@ -91,8 +95,10 @@ RN50_BATCH = 128
 RN50_TRAIN, RN50_TEST = 512, 128
 RN50_CONVS = 16  # bottleneck blocks, each with one 3x3 conv_b feeding bn_b
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 FMA
-# outside the tensor cores (TF32 stays off), and device memory.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# outside the tensor cores (TF32 stays off), f32-exact products on the
+# tensor cores as 3xTF32 (three TF32 products at 495 TFLOP/s each), and
+# device memory.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 
@@ -384,6 +390,12 @@ def main(argv=None):
     common.set_float32_precision()
     conv_err = {dtype: {} for dtype in (torch.float32, torch.bfloat16)}
     conv_times = {}
+    instances = {f"{kernel} {str(dtype)[6:]}": CC.instance(kernel, dtype)
+                 for kernel in ("conv3x3_bn_stats", "conv3x3_filter_grad")
+                 for dtype in (torch.float32, torch.bfloat16)}
+    for key, value in instances.items():
+        print(f"instance {key}: {value}")
+    f32 = torch.float32
     for case in CC.CHECK_CASES:
         b, h, w, c, f = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -405,6 +417,10 @@ def main(argv=None):
             stats_bytes = (x.numel() + wt.numel() + b * f * h * w) * item + 2 * f * 4
             wgrad_bytes = (x.numel() + dy.numel()) * item + wt.numel() * 4
             wshape = tuple(wt.shape)
+            print(f"{case} {name}: copy width (elements) filter gradient "
+                  f"{CC.filter_grad_copy_width(x, dy)}" + (
+                      f", conv + statistics {CC.conv_bn_stats_copy_width(x)}"
+                      if dtype == torch.bfloat16 else ""))
             calls = {
                 "conv3x3_bn_stats": (lambda: CC._launch_conv_bn_stats(x, wt),
                                      lambda: CC._plain_conv_bn_stats(x, wt),
@@ -420,19 +436,25 @@ def main(argv=None):
                 ms, plain_ms = time_ms(kernel, 20, 3), time_ms(plain, 20, 3)
                 lib_ms = time_ms(library, 20, 3) if library else None
                 dev, plain_dev = device_ms(kernel, 5), device_ms(plain, 5)
-                bound_ms, bound_by = bound(flop, nbytes, name)
+                # f32: the least time for f32-exact products is 3xTF32 on
+                # the tensor cores; the f32 FMA units' time stands beside it
+                bound_ms, bound_by = bound(flop, nbytes, "3xtf32" if dtype == f32 else name)
+                fma_ms = bound(flop, nbytes, "float32")[0] if dtype == f32 else None
                 conv_times[kernel_name, case, dtype] = {
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "device_ms": dev, "plain_device_ms": plain_dev,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "share_of_bound": bound_ms / ms}
+                    "fma_bound_ms": fma_ms, "share_of_bound": bound_ms / ms,
+                    "instance": instances[f"{kernel_name} {name}"]}
                 print(f"time {case} {name} {kernel_name}: per call kernel "
                       f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
                       f"{plain_ms:.4f} ms, library "
                       + (f"{lib_ms:.4f} ms" if lib_ms else "none")
                       + f"; device time kernel {dev:.4f} ms, plain {plain_dev:.4f} ms; "
-                      f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
-                      f"{bound_ms / ms:.3f} of it  [{card}]")
+                      f"bound {bound_ms:.4f} ms ({bound_by}"
+                      + (", 3xTF32 on the tensor cores; f32 FMA "
+                         f"{fma_ms:.4f} ms" if fma_ms else "")
+                      + f"), kernel at {bound_ms / ms:.3f} of it  [{card}]")
             del x, wt, dy
     torch.cuda.empty_cache()
 
@@ -792,6 +814,8 @@ def main(argv=None):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
             "shape": "stage1 (128, 56, 56, 64, 64) f32",
+            "fma_bound_ms": t["fma_bound_ms"],
+            "instance": t["instance"], "instance_bf16": t16["instance"],
             "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound_ms"],
             "library_ms_bf16": t16["library_ms"],
             "by_shape": {f"{case} {str(dtype)[6:]}": conv_times[name, case, dtype]

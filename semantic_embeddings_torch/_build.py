@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
 Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>/lib<name>.so`` at the
-repository root, keyed by a hash of the source and the compiler flags, so an
-edited source rebuilds and an unchanged one loads the library built before.
+repository root, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+rebuilds and an unchanged one loads the library built before.
 The library is loaded with ``ctypes``; the caller declares its functions'
 ``argtypes``.  Nothing is prebuilt or downloaded: a missing ``nvcc`` or a
 failed compile raises with the compiler's output.
@@ -48,8 +49,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}" / f"lib{name}.so"
 
 

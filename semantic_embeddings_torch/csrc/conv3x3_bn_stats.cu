@@ -11,35 +11,76 @@
 //
 // y is stored in x's dtype and the sums are taken, in f32, over that rounded
 // y: the statistics are those of the tensor BatchNorm reads, as in the
-// prototype (:48-54).
-//
-// Layout: NCHW x and y, (F, C, 3, 3) weights, as the port's layers hold
-// them, so the caller transposes nothing.
+// prototype (:48-54).  Layout: NCHW x and y, (F, C, 3, 3) weights, as the
+// port's layers hold them.  The dtype selects one of two instances; neither
+// stands in for the other.
 //
 // What bounds it: 2 * B*H*W * 9*C * F operations on (B*H*W) * (C + F)
-// elements.  At the ResNet-50 shapes (C = F = 64 .. 512) that is over 100
-// operations per byte of f32, so the kernel is bound by arithmetic, and
-// without tensor cores (this kernel uses none) by the f32 FMA rate and by
-// how many shared-memory reads feed each FMA.
+// elements.  At the ResNet-50 stage shapes (batch 128, 56x56x64 ...
+// 7x7x512) that is 29.6 GFLOP each: in bf16 on an H100 (989 TFLOP/s tensor
+// cores, 3.35 TB/s) about 0.030 ms, bound about equally by arithmetic and by
+// bytes; in f32 0.179 ms as 3xTF32 on the tensor cores (0.442 ms on the FMA
+// units, which the f32 instance uses).
 //
-// Design: an implicit GEMM with M = B*H*W pixels, N = F channels and
-// K = 9*C taps, k = c*9 + kh*3 + kw, the weight's own row-major order, so a
-// weight row is one K-vector.  A 256-thread block owns a 64 x 64 tile of
-// (pixels x channels).  For each step of 16 taps it stages the im2col tile of
-// x (16 x 64, zero where a tap falls outside the image, past M or past K) and
-// the weight tile (16 x 64) in shared memory as f32; each thread then
-// accumulates a 4 x 4 sub-tile in f32 registers: pixels tx + 16 i and
-// channels ty + 16 j, so that 16 neighbouring threads read neighbouring
-// shared words and write neighbouring pixels of y.  Each thread's im2col
-// pixel is fixed for the whole K loop, so its (b, h, w) is computed once.
+// bf16 instance: a warp-level tensor-core GEMM (mma.sync m16n8k16, bf16 in,
+// f32 accumulate), M = output channels f, N = pixels, K = 9C, fed by a
+// 2-stage cp.async ring (3 blocks an SM cover one another's waits).
+//   - A block owns 64 f x one pipeline step of conv3x3_common.cuh (64
+//     pixels of one image; a step never straddles two images) and runs the
+//     whole K = 9C itself, in chunks of 16 input channels x 9 taps: no
+//     split-K, so y and the block's partial statistics come out of its
+//     registers.  4 warps, 2 (32 f) x 2 (32 pixels): 2 x 4 m16n8 tiles, 32
+//     accumulators a thread.  The grid is ceil(F / 64) x B * ceil(H*W / 64)
+//     blocks (6,272 at the 56x56x64 stage, 1,024 at 7x7x512).
+//   - A: the weight, permuted once a call by a small kernel into
+//     wp[f][c / 16][kh, kw][c % 16] (zero past C), so that a chunk's 144
+//     K values of one f are 288 contiguous bytes, staged with 16-byte
+//     cp.async and read with ldmatrix (304-byte rows, conflict-free).
+//   - B: the x windows of the chunk (16 c x 3 kh, from pixel p0 + (kh-1)*W
+//     - 1 on, zero outside the plane), staged with cp.async in NCHW order
+//     and transposed once a chunk in shared memory to [kh][pixel][c]
+//     (48-byte rows).  An n8 x k16 B fragment is then 8 pixels x 16
+//     channels at a fixed tap, and ldmatrix takes one row address per
+//     pixel: the shift by kw and the window's remainder below the copy
+//     width cost nothing, and a tap that wraps across the image's left or
+//     right edge points its row at a row of zeros.  Chosen over the two
+//     alternatives by counting, not by building them: three shifted copies
+//     of each window cannot be aligned by cp.async (the shift is any pixel),
+//     and 16-bit loads in pairs take 12 shared loads for 3 taps of one n8
+//     tile, where the transposed window takes one ldmatrix for 2 tiles of
+//     one tap plus a transpose (8 32-bit loads, 2 16-byte stores for 16
+//     values) once a chunk.  Measured: 0.21-0.27 ms a call at the stage
+//     shapes (chip_smoke.py phase 4), 5.5-7x the SIMT kernel it replaced.
+//   - Copies: x as in the filter gradient: 16-byte cp.async where H*W % 8
+//     == 0, 8-byte where % 4 == 0, each also limited by the x pointer's
+//     alignment, else a first kernel repacks x into planes padded to a
+//     multiple of 8 elements (stage 4's 7x7 = 49).
+//   - Epilogue: round the accumulators to bf16, store y (32-bit stores of
+//     pixel pairs where the plane's parity allows, else 16-bit), and sum
+//     the rounded values and their squares per channel: 8 a thread in
+//     order, then across the 4 lanes of a row (__shfl_xor_sync 1, 2), then
+//     the block's two pixel halves through shared memory, into per-block
+//     partials of shape (B * ceil(H*W / 64), F).
 //
-// Epilogue: round the accumulator to y's dtype, store it, and sum the rounded
-// values and their squares per channel over the block's 64 pixels (a shuffle
-// tree within each half-warp, whose 16 threads share a channel set) into
-// per-block partials of shape (ceil(M / 64), F).  A second kernel adds each
-// channel's partials in a fixed order.  No atomics: the result is the same on
-// every run.  Pixels past M, channels past F and taps past K are masked, so
-// any B, C, H, W, F >= 1 work.
+// f32 instance: a SIMT implicit GEMM with M = B*H*W pixels, N = F channels
+// and K = 9C taps, k = c*9 + kh*3 + kw, the weight's own row-major order.  A
+// 256-thread block owns a 64 x 64 tile of (pixels x channels); for each step
+// of 16 taps it stages the im2col tile of x and the weight tile in shared
+// memory, and each thread accumulates a 4 x 4 sub-tile with f32 FMAs
+// (pixels tx + 16 i, channels ty + 16 j).  Epilogue: store y, sum y and y^2
+// per channel over the block's 64 pixels (a shuffle tree within each
+// half-warp) into per-block partials of shape (ceil(B*H*W / 64), F).
+//
+// Both: a second kernel adds each channel's partials in a fixed order.  No
+// atomics: y, s and ss are the same on every run.  Pixels, channels and
+// taps past their ends are masked, so any B, C, H, W, F >= 1 work.
+//
+// ptxas (sm_90a, CUDA 12.9): no spills anywhere; the bf16 kernel 120
+// registers for each copy width, 66,864 bytes of dynamic shared memory (2
+// stages of 27,136, the transposed windows and a zero row, the halves'
+// sums), so shared memory holds it to 3 blocks an SM; the f32 kernel 52
+// registers and 8,256 bytes; the weight permutation, the repack 16; the
+// second pass 32 registers and 8,448 bytes.
 //
 // The kernels launch on the caller's stream and allocate nothing; the C
 // entry point returns the first launch error (cudaGetLastError).
@@ -47,7 +88,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "conv3x3_common.cuh"
+
 namespace {
+
+using namespace conv3x3;
+
+// ---------------------------------------------------------------------------
+// f32 instance (SIMT)
+// ---------------------------------------------------------------------------
 
 constexpr int kTileM = 64;    // pixels per block
 constexpr int kTileN = 64;    // output channels per block
@@ -56,24 +107,10 @@ constexpr int kThreads = 256;
 constexpr int kReduceChannels = 32;  // channels per block of the second pass
 constexpr int kReduceRows = 32;      // row phases per block of the second pass
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                         T* __restrict__ y, float* __restrict__ part_s,
-                         float* __restrict__ part_ss, int B, int C, int H,
-                         int W, int F) {
+    conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                             float* __restrict__ y, float* __restrict__ part_s,
+                             float* __restrict__ part_ss, int B, int C, int H, int W, int F) {
   __shared__ float a_tile[kTileK][kTileM];       // im2col of x: [tap][pixel]
   __shared__ float b_tile[kTileK][kTileN + 1];   // weights: [tap][channel]
 
@@ -92,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long a_pix = m0 + a_m;
   const bool a_valid = a_pix < M;
   int a_h = 0, a_w = 0;
-  const T* x_img = x;
+  const float* x_img = x;
   if (a_valid) {
     const int b = static_cast<int>(a_pix / HW);
     const int r = static_cast<int>(a_pix - static_cast<long long>(b) * HW);
@@ -123,7 +160,7 @@ __global__ void __launch_bounds__(kThreads)
         const int hh = a_h + kh - 1;
         const int ww = a_w + (tap - kh * 3) - 1;
         if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-          v = to_f32(x_img[static_cast<size_t>(c) * HW + hh * W + ww]);
+          v = x_img[static_cast<size_t>(c) * HW + hh * W + ww];
       }
       a_tile[kk][a_m] = v;
     }
@@ -132,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
       const int n = b_n0 + 16 * r;
       const int k = k0 + b_k;
       float v = 0.f;
-      if (n0 + n < F && k < K) v = to_f32(wt[static_cast<size_t>(n0 + n) * K + k]);
+      if (n0 + n < F && k < K) v = wt[static_cast<size_t>(n0 + n) * K + k];
       b_tile[b_k][n] = v;
     }
     __syncthreads();
@@ -151,7 +188,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // Epilogue: store the rounded y; per-channel sums of what was stored.
+  // Epilogue: store y; per-channel sums of what was stored.
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   float ss[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -164,11 +201,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + ty + 16 * j;
       if (n >= F) continue;
-      const T v = from_f32<T>(acc[i][j]);
+      const float v = acc[i][j];
       y[(static_cast<size_t>(b) * F + n) * HW + r] = v;
-      const float f = to_f32(v);
-      s[j] += f;
-      ss[j] = fmaf(f, f, ss[j]);
+      s[j] += v;
+      ss[j] = fmaf(v, v, ss[j]);
     }
   }
   // The 16 threads of a half-warp share ty: reduce over their tx.
@@ -191,6 +227,289 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 instance (tensor cores)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcF = 64;            // output channels per block
+constexpr int kTcC = 16;            // input channels per K chunk (x 9 taps)
+constexpr int kTcK = kTcC * 9;      // K values per chunk
+constexpr int kTcStages = 2;        // depth of the cp.async ring
+constexpr int kTcThreads = 128;     // 4 warps: 2 (32 f each) x 2 (32 pixels each)
+constexpr int kWPitch = kTcK + 8;   // 304-byte rows: ldmatrix conflict-free
+constexpr int kXWin = window_len<8>();  // 80: the window of the widest copy
+constexpr int kRawPitch = kXWin;    // raw x rows [c * 3 + kh][pixel], 160 bytes
+constexpr int kTPitch = kTcC + 8;   // transposed rows [kh][pixel][c], 48 bytes
+constexpr int kWElems = kTcF * kWPitch;
+constexpr int kRawElems = kTcC * 3 * kRawPitch;
+constexpr int kStageBytes = (kWElems + kRawElems) * 2;
+constexpr int kTElems = 3 * kXWin * kTPitch;
+constexpr int kTcSmem = kTcStages * kStageBytes + (kTElems + kTPitch) * 2 +  // + a zero row
+                        2 * 2 * kTcF * 4;  // the two pixel halves' sums
+static_assert(kStageBytes % 16 == 0 && (kTElems * 2) % 16 == 0, "16-byte alignment");
+static_assert(window_len<4>() <= kXWin, "x window exceeds its row");
+
+// wp[f][ch][tap][cl] = wt[f][ch * 16 + cl][tap], 0 past C: the A operand's
+// K order, (c / 16, kh, kw, c % 16).
+__global__ void __launch_bounds__(256)
+    permute_weights_kernel(const uint16_t* __restrict__ wt, uint16_t* __restrict__ wp, int C,
+                           int F, int chunks) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long per_f = static_cast<long long>(chunks) * kTcK;
+  if (i >= per_f * F) return;
+  const int f = static_cast<int>(i / per_f);
+  const int rem = static_cast<int>(i - f * per_f);
+  const int ch = rem / kTcK;
+  const int k = rem - ch * kTcK;
+  const int tap = k / kTcC;
+  const int c = ch * kTcC + k - tap * kTcC;
+  wp[i] = c < C ? wt[(static_cast<size_t>(f) * C + c) * 9 + tap] : static_cast<uint16_t>(0);
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi, float& rlo, float& rhi) {
+  const __nv_bfloat16 a = __float2bfloat16(lo), b = __float2bfloat16(hi);
+  rlo = __bfloat162float(a);
+  rhi = __bfloat162float(b);
+  return static_cast<unsigned>(__bfloat16_as_ushort(a)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// Block (f tile, step t) of a 1-D grid: f tile = blockIdx.x % ceil(F / 64),
+// t = blockIdx.x / ceil(F / 64), so the blocks of one step are neighbours
+// and share its x windows in L2.  x planes lie `pitch` elements apart (H*W,
+// or more in a repacked copy).
+template <int VEC>
+__global__ void __launch_bounds__(kTcThreads, 3)
+    conv3x3_stats_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wp,
+                              uint16_t* __restrict__ y, float* __restrict__ part_s,
+                              float* __restrict__ part_ss, int C, int H, int W, int F,
+                              int pitch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* xt = reinterpret_cast<uint16_t*>(smem + kTcStages * kStageBytes);
+  uint16_t* zero_row = xt + kTElems;
+  float* half_sums = reinterpret_cast<float*>(zero_row + kTPitch);  // [2][2][kTcF]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int wf = warp & 1;    // this warp's 32 f: wf * 32 ..
+  const int wpx = warp >> 1;  // this warp's 32 pixels: wpx * 32 ..
+  const int HW = H * W;
+  const int per_image = (HW + kStep - 1) / kStep;
+  const int f_tiles = (F + kTcF - 1) / kTcF;
+  const int f0 = (blockIdx.x % f_tiles) * kTcF;
+  const int t = blockIdx.x / f_tiles;
+  const int n = t / per_image;
+  const int p0 = (t - n * per_image) * kStep;
+  const int chunks = (C + kTcC - 1) / kTcC;
+
+  auto stage_w = [&](int slot) { return reinterpret_cast<uint16_t*>(smem + slot * kStageBytes); };
+
+  // Stages chunk ch (channels ch * 16 .. + 15, all taps) into ring slot `slot`.
+  auto load_chunk = [&](int ch, int slot) {
+    uint16_t* ws = stage_w(slot);
+    uint16_t* raw = ws + kWElems;
+    constexpr int w_row_chunks = kTcK / 8;
+    for (int i = tid; i < kTcF * w_row_chunks; i += kTcThreads) {
+      const int r = i / w_row_chunks;
+      const int q = (i - r * w_row_chunks) * 8;
+      const int f = f0 + r;
+      const bool ok = f < F;
+      const uint16_t* src = ok ? wp + (static_cast<size_t>(f) * chunks + ch) * kTcK + q : wp;
+      copy_chunk<16>(ws + r * kWPitch + q, src, ok);
+    }
+    constexpr int x_row_chunks = window_len<VEC>() / VEC;
+    for (int i = tid; i < kTcC * 3 * x_row_chunks; i += kTcThreads) {
+      const int row = i / x_row_chunks;  // cl * 3 + kh
+      const int q = (i - row * x_row_chunks) * VEC;
+      const int cl = row / 3;
+      const int kh = row - cl * 3;
+      const int c = ch * kTcC + cl;
+      const int pix = ((p0 + (kh - 1) * W - 1) & ~(VEC - 1)) + q;
+      const bool ok = c < C && pix >= 0 && pix < HW;
+      const uint16_t* src = ok ? x + (static_cast<size_t>(n) * C + c) * pitch + pix : x;
+      copy_chunk<VEC * 2>(raw + row * kRawPitch + q, src, ok);
+    }
+  };
+
+  // raw[cl * 3 + kh][q] -> xt[kh][q][cl]: a unit is 8 channels at 2 pixels,
+  // 8 32-bit loads and 2 16-byte stores.
+  auto transpose = [&](const uint16_t* raw) {
+    constexpr int pairs = kXWin / 2;
+    for (int u = tid; u < 3 * 2 * pairs; u += kTcThreads) {
+      const int qp = u % pairs;
+      const int rest = u / pairs;
+      const int kh = rest % 3;
+      const int half = rest / 3;  // channels half * 8 ..
+      unsigned w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        w[j] = *reinterpret_cast<const unsigned*>(raw + ((half * 8 + j) * 3 + kh) * kRawPitch +
+                                                  qp * 2);
+      uint4 lo, hi;  // pixel 2 qp, pixel 2 qp + 1
+      lo.x = __byte_perm(w[0], w[1], 0x5410);
+      lo.y = __byte_perm(w[2], w[3], 0x5410);
+      lo.z = __byte_perm(w[4], w[5], 0x5410);
+      lo.w = __byte_perm(w[6], w[7], 0x5410);
+      hi.x = __byte_perm(w[0], w[1], 0x7632);
+      hi.y = __byte_perm(w[2], w[3], 0x7632);
+      hi.z = __byte_perm(w[4], w[5], 0x7632);
+      hi.w = __byte_perm(w[6], w[7], 0x7632);
+      uint16_t* dst = xt + (kh * kXWin + qp * 2) * kTPitch + half * 8;
+      *reinterpret_cast<uint4*>(dst) = lo;
+      *reinterpret_cast<uint4*>(dst + kTPitch) = hi;
+    }
+  };
+
+  // This lane's ldmatrix rows of B: pixel op[np] of the warp's n8 tiles
+  // 2 np, 2 np + 1 (row lane & 7 of matrix lane >> 3), channels c_off ..
+  // + 7; whether the pixel has a left and a right neighbour in its row.
+  const int mat = lane >> 3;  // the 8 x 8 matrix whose row this lane addresses
+  const int c_off = (mat & 1) * 8;
+  int op[2];
+  bool has_left[2], has_right[2];
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    op[np] = wpx * 32 + np * 16 + (mat >> 1) * 8 + (lane & 7);
+    const int w = (p0 + op[np]) % W;
+    has_left[np] = w >= 1;
+    has_right[np] = w <= W - 2;
+  }
+  int shift[3];
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) shift[kh] = (p0 + (kh - 1) * W - 1) & (VEC - 1);
+
+  if (tid < kTPitch / 8) reinterpret_cast<uint4*>(zero_row)[tid] = make_uint4(0, 0, 0, 0);
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < chunks) load_chunk(s, s);
+    cp_async_commit();
+  }
+
+  for (int i = 0; i < chunks; ++i) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // chunk i has landed; xt and slot (i - 1) % kTcStages are free
+    {
+      const int next = i + kTcStages - 1;
+      if (next < chunks) load_chunk(next, next % kTcStages);
+      cp_async_commit();
+    }
+    const uint16_t* ws = stage_w(i % kTcStages);
+    transpose(ws + kWElems);
+    __syncthreads();
+
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int tap = kh * 3 + kw;
+        unsigned a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(a[mt], ws + (wf * 32 + mt * 16 + (lane & 15)) * kWPitch + tap * kTcC +
+                                 (lane >> 4) * 8);
+        unsigned b[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const bool ok = kw == 1 || (kw == 0 ? has_left[np] : has_right[np]);
+          const uint16_t* rowp =
+              ok ? xt + (kh * kXWin + op[np] + kw + shift[kh]) * kTPitch + c_off
+                 : zero_row + c_off;
+          ldmatrix_x4(b[np], rowp);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: y rounded to bf16; per-channel sums of the rounded values.
+  const bool pairs_aligned = (HW % 2 == 0) && (reinterpret_cast<uintptr_t>(y) % 4 == 0);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int fl = wf * 32 + mt * 16 + g + r * 8;  // f - f0
+      const int f = f0 + fl;
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int p = p0 + wpx * 32 + nt * 8 + tig * 2;
+        float v0, v1;
+        const unsigned packed = pack_bf16(acc[mt][nt][r * 2], acc[mt][nt][r * 2 + 1], v0, v1);
+        const bool ok0 = f < F && p < HW, ok1 = f < F && p + 1 < HW;
+        if (ok0) {
+          uint16_t* dst = y + (static_cast<size_t>(n) * F + f) * HW + p;
+          if (ok1 && pairs_aligned) {
+            *reinterpret_cast<unsigned*>(dst) = packed;
+          } else {
+            dst[0] = static_cast<uint16_t>(packed & 0xffffu);
+            if (ok1) dst[1] = static_cast<uint16_t>(packed >> 16);
+          }
+        }
+        if (ok0) {
+          s += v0;
+          ss = fmaf(v0, v0, ss);
+        }
+        if (ok1) {
+          s += v1;
+          ss = fmaf(v1, v1, ss);
+        }
+      }
+      // the 4 lanes of a row (tig) hold its pixels
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      }
+      if (tig == 0) {
+        half_sums[(wpx * 2 + 0) * kTcF + fl] = s;
+        half_sums[(wpx * 2 + 1) * kTcF + fl] = ss;
+      }
+    }
+  __syncthreads();
+  if (tid < kTcF && f0 + tid < F) {
+    const size_t at = static_cast<size_t>(t) * F + f0 + tid;
+    part_s[at] = half_sums[0 * kTcF + tid] + half_sums[2 * kTcF + tid];
+    part_ss[at] = half_sums[1 * kTcF + tid] + half_sums[3 * kTcF + tid];
+  }
+}
+
+template <int VEC>
+int launch_bf16(const void* x, const void* wp, void* y, void* part_s, void* part_ss, int B,
+                int C, int H, int W, int F, int pitch, cudaStream_t stream) {
+  const auto kernel = conv3x3_stats_bf16_kernel<VEC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long steps = static_cast<long long>(B) * ((H * W + kStep - 1) / kStep);
+  const long long blocks = steps * ((F + kTcF - 1) / kTcF);
+  kernel<<<static_cast<unsigned>(blocks), kTcThreads, kTcSmem, stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(wp),
+      static_cast<uint16_t*>(y), static_cast<float*>(part_s), static_cast<float*>(part_ss), C,
+      H, W, F, pitch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The second pass (both instances)
+// ---------------------------------------------------------------------------
 
 // s[f] = sum over rows of part_s[row, f] (and ss likewise), in a fixed
 // order: thread (lane, phase) adds rows phase, phase + 32, ... of channel
@@ -227,45 +546,92 @@ __global__ void __launch_bounds__(kReduceChannels * kReduceRows)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* wt, void* y, void* part_s, void* part_ss,
-           void* s, void* ss, int B, int C, int H, int W, int F,
-           cudaStream_t stream) {
-  const long long M = static_cast<long long>(B) * H * W;
-  const int m_blocks = static_cast<int>((M + kTileM - 1) / kTileM);
-  const dim3 grid(m_blocks, (F + kTileN - 1) / kTileN);
-  conv3x3_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wt), static_cast<T*>(y),
-      static_cast<float*>(part_s), static_cast<float*>(part_ss), B, C, H, W, F);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+int reduce_partials(void* part_s, void* part_ss, void* s, void* ss, int rows, int F,
+                    cudaStream_t stream) {
   reduce_partials_kernel<<<(F + kReduceChannels - 1) / kReduceChannels,
                            dim3(kReduceChannels, kReduceRows), 0, stream>>>(
       static_cast<const float*>(part_s), static_cast<const float*>(part_ss),
-      static_cast<float*>(s), static_cast<float*>(ss), m_blocks, F);
+      static_cast<float*>(s), static_cast<float*>(ss), rows, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+long long permuted_weight_elems(int C, int F) {
+  return static_cast<long long>(F) * ((C + kTcC - 1) / kTcC) * kTcK;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of the partial sums the caller allocates: ceil(B*H*W / 64).
-int conv3x3_bn_stats_partial_rows(int B, int H, int W) {
-  const long long M = static_cast<long long>(B) * H * W;
-  return static_cast<int>((M + kTileM - 1) / kTileM);
+// Rows of the partial sums the caller allocates: one per block of pixels,
+// ceil(B*H*W / 64) for f32, B * ceil(H*W / 64) (steps never straddle two
+// images) for bf16.
+int conv3x3_bn_stats_partial_rows(int B, int H, int W, int is_bf16) {
+  const long long HW = static_cast<long long>(H) * W;
+  if (is_bf16) return static_cast<int>(B * ((HW + kStep - 1) / kStep));
+  return static_cast<int>((B * HW + kTileM - 1) / kTileM);
 }
+
+// Bytes of scratch the bf16 instance needs: the permuted weight, and x
+// repacked into planes padded to 8 elements where no copy width fits; 0
+// for f32.
+long long conv3x3_bn_stats_scratch(const void* x, int B, int C, int H, int W, int F,
+                                   int is_bf16) {
+  if (!is_bf16) return 0;
+  long long bytes = permuted_weight_elems(C, F) * 2;
+  if (copy_width<2>(H * W, x) == 1)
+    bytes += static_cast<long long>(B) * C * padded_pitch(H * W) * 2;
+  return bytes;
+}
+
+// The copy width, in bf16 elements, that the bf16 instance takes for x (8,
+// 4, or 1 for the repack), so that a caller can see which path ran.
+int conv3x3_bn_stats_copy_width(const void* x, int H, int W) { return copy_width<2>(H * W, x); }
 
 // y[B, F, H, W] (x's dtype), s[F], ss[F] (f32) from x[B, C, H, W] and
 // wt[F, C, 3, 3], both bf16 when is_bf16, else f32.  part_s and part_ss are
-// f32 scratch of conv3x3_bn_stats_partial_rows(B, H, W) x F each.
-int conv3x3_bn_stats(const void* x, const void* wt, void* y, void* part_s,
-                     void* part_ss, void* s, void* ss, int B, int C, int H,
-                     int W, int F, int is_bf16, void* stream) {
+// f32 scratch of conv3x3_bn_stats_partial_rows(B, H, W, is_bf16) x F each;
+// scratch holds the bytes conv3x3_bn_stats_scratch asks for (or is null
+// when it asks for none).
+int conv3x3_bn_stats(const void* x, const void* wt, void* y, void* part_s, void* part_ss,
+                     void* s, void* ss, int B, int C, int H, int W, int F, int is_bf16,
+                     void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, wt, y, part_s, part_ss, s, ss, B, C, H, W, F, st);
-  return launch<float>(x, wt, y, part_s, part_ss, s, ss, B, C, H, W, F, st);
+  const int rows = conv3x3_bn_stats_partial_rows(B, H, W, is_bf16);
+  int err;
+  if (is_bf16) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    uint16_t* wp = static_cast<uint16_t*>(scratch);
+    const long long w_elems = permuted_weight_elems(C, F);
+    permute_weights_kernel<<<static_cast<unsigned>((w_elems + 255) / 256), 256, 0, st>>>(
+        static_cast<const uint16_t*>(wt), wp, C, F, (C + kTcC - 1) / kTcC);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    const int HW = H * W;
+    switch (copy_width<2>(HW, x)) {
+      case 8: err = launch_bf16<8>(x, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
+      case 4: err = launch_bf16<4>(x, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
+      default: {
+        const int pitch = padded_pitch(HW);
+        uint16_t* xp = wp + w_elems;
+        err = pad_planes<uint16_t>(x, xp, static_cast<long long>(B) * C, HW, pitch, st);
+        if (err == 0) err = launch_bf16<8>(xp, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
+      }
+    }
+  } else {
+    const dim3 grid(rows, (F + kTileN - 1) / kTileN);
+    conv3x3_stats_f32_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<float*>(y),
+        static_cast<float*>(part_s), static_cast<float*>(part_ss), B, C, H, W, F);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err != 0) return err;
+  return reduce_partials(part_s, part_ss, s, ss, rows, F, st);
+}
+
+// Which instance conv3x3_bn_stats runs for a dtype, for a caller to report.
+const char* conv3x3_bn_stats_instance(int is_bf16) {
+  return is_bf16 ? "tensor cores: mma.sync m16n8k16 bf16" : "SIMT: f32 FMA";
 }
 
 }  // extern "C"

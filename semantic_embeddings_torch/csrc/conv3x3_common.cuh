@@ -1,0 +1,130 @@
+// Pieces shared by the 3x3 conv kernels (conv3x3_bn_stats.cu,
+// conv3x3_filter_grad.cu): the pipeline step, the x window, cp.async and
+// the warp-level tensor-core instructions, the choice of copy width, the
+// repack into padded planes for operands no copy width fits, and the
+// occupancy query the split rules read.
+//
+// The x window: one pipeline step covers kStep pixels p0 .. p0 + kStep - 1
+// of one image plane.  For each input channel and each kh, the step stages
+// a window of x from plane pixel p0 + (kh - 1) * W - 1 on, so that output
+// pixel p and tap (kh, kw) read window element p + kw (before the window
+// start is rounded down to the copy width, which the reads then add back).
+// Elements outside the plane are zero; taps that wrap across the left or
+// right edge of the image are masked by the reader.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace conv3x3 {
+
+constexpr int kStep = 64;  // pixels of one image per pipeline step
+
+// Window length for a copy width of VEC elements: element p + 2 for the
+// last pixel p = kStep - 1 past a start rounded down by up to VEC - 1,
+// rounded up to whole chunks.
+template <int VEC>
+__host__ __device__ constexpr int window_len() {
+  return (kStep + VEC + 1 + VEC - 1) / VEC * VEC;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// BYTES (4, 8 or 16) from src to the shared dst, or zeros when !ok (src is
+// then not read).
+template <int BYTES>
+__device__ __forceinline__ void copy_chunk(void* dst, const void* src, bool ok) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(BYTES), "r"(ok ? BYTES : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out[plane, p] = in[plane, p] for p < HW, 0 up to pitch: planes padded to
+// a multiple of the widest copy, for operands no cp.async width fits.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    pad_planes_kernel(const T* __restrict__ in, T* __restrict__ out, long long planes, int HW,
+                      int pitch) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= planes * pitch) return;
+  const long long plane = i / pitch;
+  const int p = static_cast<int>(i - plane * pitch);
+  out[i] = p < HW ? in[plane * HW + p] : T(0);
+}
+
+template <typename T>
+int pad_planes(const void* in, void* out, long long planes, int HW, int pitch,
+               cudaStream_t stream) {
+  const long long total = planes * pitch;
+  pad_planes_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), planes, HW, pitch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The widest 16- or 8-byte copy, in elements of ELEM bytes, that keeps
+// every chunk of a plane of HW elements inside the plane and aligned: HW
+// and each pointer must be multiples of it.  1 where neither fits.
+template <int ELEM>
+int copy_width(int HW, const void* a, const void* b = nullptr) {
+  const auto pa = reinterpret_cast<uintptr_t>(a);
+  const auto pb = reinterpret_cast<uintptr_t>(b);
+  for (int bytes = 16; bytes >= 8; bytes /= 2) {
+    const int vec = bytes / ELEM;
+    if (HW % vec == 0 && pa % bytes == 0 && pb % bytes == 0) return vec;
+  }
+  return 1;
+}
+
+// HW rounded up to a multiple of 8 elements: the pitch of repacked planes.
+inline int padded_pitch(int HW) { return (HW + 7) / 8 * 8; }
+
+// Blocks of `kernel` resident at once on the current device (SMs x blocks
+// an SM at this block size and dynamic shared memory), or 0 if the device
+// cannot be queried; read once a device into `cache`.
+template <typename Kernel>
+long long resident_blocks(Kernel kernel, int threads, int smem, long long (&cache)[64]) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] > 0) return cache[dev];
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess)
+    return 0;
+  cache[dev] = static_cast<long long>(sms) * per_sm;
+  return cache[dev];
+}
+
+}  // namespace conv3x3

@@ -19,10 +19,13 @@ to XLA too) and dw with the second kernel.
 
 For CUDA tensors each kernel is launched (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
-the wrapper raises.  The filter gradient has two instances, chosen by the
-dtype: bf16 on the tensor cores (``mma.sync``), f32 a SIMT kernel.  For
-CPU tensors the plain versions run.  The device of the tensor decides,
-nothing else: there is no fallback from a kernel to its plain version.
+the wrapper raises.  Each has two instances, chosen by the dtype: the
+filter gradient runs on the tensor cores (``mma.sync``) in both, bf16
+products in bf16 and f32 ones as 3xTF32; the conv + statistics runs on the
+tensor cores in bf16 and is a SIMT kernel in f32.  :func:`instance` names
+what a dtype runs.  For CPU tensors the plain versions run.  The device of
+the tensor decides, nothing else: there is no fallback from a kernel to its
+plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
 launches, so that a run can show that its steps went through them.
 """
@@ -50,9 +53,13 @@ def _kernels():
 
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fwd = load("conv3x3_bn_stats")
-        fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32, i32, i32]
+        fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32] * 4
         fwd.conv3x3_bn_stats_partial_rows.restype = i32
-        fwd.conv3x3_bn_stats.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        fwd.conv3x3_bn_stats_scratch.argtypes = [ptr] + [i32] * 6
+        fwd.conv3x3_bn_stats_scratch.restype = ctypes.c_longlong
+        fwd.conv3x3_bn_stats_copy_width.argtypes = [ptr, i32, i32]
+        fwd.conv3x3_bn_stats_copy_width.restype = i32
+        fwd.conv3x3_bn_stats.argtypes = [ptr] * 7 + [i32] * 6 + [ptr, ptr]
         fwd.conv3x3_bn_stats.restype = i32
         wgrad = load("conv3x3_filter_grad")
         wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 6 + [
@@ -60,10 +67,13 @@ def _kernels():
         wgrad.conv3x3_filter_grad_splits.restype = i32
         wgrad.conv3x3_filter_grad.argtypes = [ptr] * 4 + [i32] * 8 + [ptr, ptr]
         wgrad.conv3x3_filter_grad.restype = i32
-        wgrad.conv3x3_filter_grad_copy_width.argtypes = [ptr, ptr, i32, i32]
+        wgrad.conv3x3_filter_grad_copy_width.argtypes = [ptr, ptr, i32, i32, i32]
         wgrad.conv3x3_filter_grad_copy_width.restype = i32
-        wgrad.conv3x3_filter_grad_scratch.argtypes = [ptr, ptr] + [i32] * 5
+        wgrad.conv3x3_filter_grad_scratch.argtypes = [ptr, ptr] + [i32] * 6
         wgrad.conv3x3_filter_grad_scratch.restype = ctypes.c_longlong
+        for lib, name in ((fwd, "conv3x3_bn_stats"), (wgrad, "conv3x3_filter_grad")):
+            query = getattr(lib, f"{name}_instance")
+            query.argtypes, query.restype = [i32], ctypes.c_char_p
         _libs = (fwd, wgrad)
     return _libs
 
@@ -132,16 +142,21 @@ def _launch_conv_bn_stats(x, w):
             f"conv3x3_bn_stats kernel needs w of shape ({f}, {c}, 3, 3); got "
             f"{tuple(w.shape)}")
     lib = _kernels()[0]
-    rows = lib.conv3x3_bn_stats_partial_rows(b, h, wd)
+    bf16 = int(x.dtype == torch.bfloat16)
+    rows = lib.conv3x3_bn_stats_partial_rows(b, h, wd, bf16)
     y = torch.empty((b, f, h, wd), dtype=x.dtype, device=x.device)
     part_s, part_ss = torch.empty((2, rows, f), dtype=torch.float32, device=x.device)
     s = torch.empty(f, dtype=torch.float32, device=x.device)
     ss = torch.empty(f, dtype=torch.float32, device=x.device)
+    # bf16: the weight permuted into the kernel's K order, and x repacked
+    # into padded planes where no cp.async width fits
+    nbytes = lib.conv3x3_bn_stats_scratch(x.data_ptr(), b, c, h, wd, f, bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.conv3x3_bn_stats(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), part_s.data_ptr(),
-        part_ss.data_ptr(), s.data_ptr(), ss.data_ptr(), b, c, h, wd, f,
-        int(x.dtype == torch.bfloat16), stream)
+        part_ss.data_ptr(), s.data_ptr(), ss.data_ptr(), b, c, h, wd, f, bf16,
+        None if scratch is None else scratch.data_ptr(), stream)
     _raise_on(code, "conv3x3_bn_stats")
     launches_conv_bn_stats += 1
     return y, s, ss
@@ -164,12 +179,9 @@ def _launch_filter_grad(x, dy):
         raise RuntimeError("conv3x3_filter_grad could not query the CUDA device")
     part = torch.empty((splits, f, c * 9), dtype=torch.float32, device=x.device)
     dw = torch.empty((f, c, 3, 3), dtype=torch.float32, device=x.device)
-    # bf16 operands that no cp.async width fits are repacked into padded planes
-    scratch = None
-    if bf16:
-        elems = lib.conv3x3_filter_grad_scratch(x.data_ptr(), dy.data_ptr(), n, c, h, wd, f)
-        if elems:
-            scratch = torch.empty(elems, dtype=torch.bfloat16, device=x.device)
+    # operands that no cp.async width fits are repacked into padded planes
+    nbytes = lib.conv3x3_filter_grad_scratch(x.data_ptr(), dy.data_ptr(), n, c, h, wd, f, bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.conv3x3_filter_grad(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), n, c, h,
@@ -181,12 +193,30 @@ def _launch_filter_grad(x, dy):
 
 
 def filter_grad_copy_width(x, dy):
-    """The copy width, in elements, that the bf16 filter-gradient kernel
-    takes for these CUDA operands: 8 or 4 (H*W and both pointers must be
-    multiples of it), or 1 where neither fits and the kernel first repacks
-    both into planes padded to a multiple of 8 elements."""
+    """The copy width, in elements, that the filter-gradient kernel of x's
+    dtype takes for these CUDA operands (H*W and both pointers must be
+    multiples of it).  bf16: 8 or 4 (16- or 8-byte ``cp.async``), or 1 where
+    neither fits and the kernel first repacks both into planes padded to a
+    multiple of 8 elements.  f32: 4 (16-byte ``cp.async``), or 1 (the
+    repack)."""
     return _kernels()[1].conv3x3_filter_grad_copy_width(
-        x.data_ptr(), dy.data_ptr(), x.shape[2], x.shape[3])
+        x.data_ptr(), dy.data_ptr(), x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
+
+
+def conv_bn_stats_copy_width(x):
+    """The copy width, in elements, that the bf16 conv + statistics kernel
+    takes for the CUDA tensor x: 8 or 4 (16- or 8-byte ``cp.async``), or 1
+    where neither fits and the kernel first repacks x into planes padded to
+    a multiple of 8 elements."""
+    return _kernels()[0].conv3x3_bn_stats_copy_width(x.data_ptr(), x.shape[2], x.shape[3])
+
+
+def instance(kernel, dtype):
+    """What ``kernel`` ("conv3x3_bn_stats" or "conv3x3_filter_grad") runs on
+    operands of ``dtype``, as its library reports it (tensor cores or SIMT,
+    and which ``mma``)."""
+    lib = _kernels()[0 if kernel == "conv3x3_bn_stats" else 1]
+    return getattr(lib, f"{kernel}_instance")(int(dtype == torch.bfloat16)).decode()
 
 
 def _conv_bn_stats(x, w):
@@ -303,22 +333,25 @@ CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
 
 #: Tolerances of each kernel's result against its plain version on the same
 #: inputs (check_inputs: x and dy of N(0, 1), He-scaled w, so y is O(1)).
-#: f32 y: each y sums 9C <= 4608 products; the kernel adds them in order,
-#: cuDNN may take a Winograd or FFT algorithm, whose f32 error is about
-#: 1e-5 of the output's scale.  bf16 y: both round f32 sums that agree to
-#: about 1e-5, so they differ by at most one bf16 ulp (2**-7 relative) where
-#: the sums straddle a rounding boundary.  dw is held to an f64 reference
-#: computed from the same inputs: it sums N*H*W <= 401,408 products, each
-#: block of the kernel at most a few thousand of them in order and the
-#: splits in order, whose rounding errors, adding as a random walk, stay
-#: near 1e-6 of max |dw|; 1e-5 of it is the bound.  The bf16 instance
-#: multiplies exactly and adds in the tensor cores' f32 accumulators, whose
-#: additions round a little more coarsely: on an H100 it measured 2.4-5.2e-6
-#: of max |dw| from f64 at the ResNet-50 stage shapes, inside the same bound.  Against the plain
-#: version, dw may differ by the plain version's own distance from f64
-#: (cuDNN's f32 algorithm, or the rounding of dw to bf16) plus that bound.
-#: The statistics are held to bounds derived from the measured y
-#: difference in :func:`check_against_plain`.
+#: f32 y: each y sums 9C <= 4608 products; the SIMT kernel adds them in
+#: order, cuDNN may take a Winograd or FFT algorithm, whose f32 error is
+#: about 1e-5 of the output's scale (on an H100 they differed by 1.3-1.7e-5
+#: at the ResNet-50 stage shapes).  bf16 y: both round f32 sums that agree
+#: to about 1e-5, so they differ by at most one bf16 ulp (2**-7 relative)
+#: where the sums straddle a rounding boundary (the tensor-core kernel
+#: measured one ulp, 0.0156 at |y| in [2, 4), at every stage shape).  dw is
+#: held to an f64 reference computed from the same inputs: it sums N*H*W <=
+#: 401,408 products, each block of the kernel at most a few thousand of them
+#: and the splits in order, whose rounding errors, adding as a random walk,
+#: stay near 1e-6 of max |dw|; 1e-5 of it is the bound.  Measured on an
+#: H100 at the stage shapes: the f32 instance (3xTF32, each two k8 slices'
+#: products summed from zero in the tensor cores and added to the running
+#: sums with rounded f32 adds) 0.3-1.0e-6 of max |dw|; the bf16 instance
+#: (exact products, f32 accumulation in the tensor cores) 2.4-5.2e-6.
+#: Against the plain version, dw may differ by the plain version's own
+#: distance from f64 (cuDNN's f32 algorithm, or the rounding of dw to bf16)
+#: plus that bound.  The statistics are held to bounds derived from the
+#: measured y difference in :func:`check_against_plain`.
 CHECK_TOL = {
     torch.float32: dict(y=dict(rtol=1e-4, atol=1e-4)),
     torch.bfloat16: dict(y=dict(rtol=2**-7, atol=1e-3)),
@@ -339,11 +372,14 @@ def check_inputs(case, dtype, generator):
             normal(b, f, h, wd))
 
 
-def _sum_depth(rows):
-    """The most additions any y term passes through in the kernel's sums: 3
-    within a thread, 4 across a half-warp, ceil(rows / 32) per phase and 32
-    phases in the second pass."""
-    return 3 + 4 + -(-rows // 32) + 32
+def _sum_depth(rows, dtype):
+    """The most additions any y term passes through in the kernel's sums,
+    for the instance of ``dtype``: within a thread (f32: 4 terms, 3
+    additions; bf16: 8 terms, 7), across lanes (f32: a half-warp, 4 levels;
+    bf16: the 4 lanes of a row, 2 levels, then the block's two pixel halves,
+    1), then ceil(rows / 32) per phase and 32 phases in the second pass."""
+    block = 3 + 4 if dtype == torch.float32 else 7 + 2 + 1
+    return block + -(-rows // 32) + 32
 
 
 def check_against_plain(x, w, dy):
@@ -372,8 +408,8 @@ def check_against_plain(x, w, dy):
     y64, yp64 = y.double(), y_p.double()
     n = y.numel() // y.shape[1]
     rows = _kernels()[0].conv3x3_bn_stats_partial_rows(
-        x.shape[0], x.shape[2], x.shape[3])
-    u = _sum_depth(rows) * 2.0**-24
+        x.shape[0], x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
+    u = _sum_depth(rows, x.dtype) * 2.0**-24
     dims = (0, 2, 3)
     for got, terms, terms_p in ((s, y64, yp64), (ss, y64 * y64, yp64 * yp64)):
         err = (got.double() - terms.sum(dims)).abs()

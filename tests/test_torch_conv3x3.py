@@ -91,6 +91,49 @@ def test_plain_filter_grad_matches_pallas_prototype(dtype):
     np.testing.assert_allclose(got.permute(2, 3, 1, 0).numpy(), np.asarray(ref), **tol)
 
 
+def _tf32(t):
+    """f32 -> TF32 (10 mantissa bits), round to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits to
+    the magnitude, then clear them."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(t):
+    """f32 -> TF32 by clearing the 13 low mantissa bits."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _filter_grad_in_tf32(x, dy, products):
+    """dw from TF32 operands, summed in f64: ``products`` 3 is the f32
+    kernel's 3xTF32 (a_big * b_big + a_big * b_small + a_small * b_big with
+    a_big = tf32(a) rounded, a_small = a - a_big truncated to TF32); 1 is a
+    single TF32 product.  The kernel's f32 accumulation is held on the
+    card."""
+    xb, db = _tf32(x), _tf32(dy)
+    pairs = [(xb, db), (xb, _tf32_truncated(dy - db)),
+             (_tf32_truncated(x - xb), db)][:products]
+    return sum(tc._plain_filter_grad(a.double(), b.double()) for a, b in pairs)
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("case", [(4, 8, 8, 8, 16), (2, 13, 9, 5, 10)])
+def test_3xtf32_filter_grad_within_dw_of_max(case, products):
+    """The f32 filter-gradient kernel's split: 3xTF32 keeps dw within
+    ``DW_OF_MAX`` of max |dw| of the f64 reference; one TF32 product (2**-11
+    relative) misses that bound."""
+    b, h, w, c, f = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(b, f, h, w)).astype(np.float32))
+    ref = tc._plain_filter_grad(x.double(), dy.double())
+    err = (_filter_grad_in_tf32(x, dy, products) - ref).abs().max().item()
+    of_max = err / ref.abs().max().item()
+    if products == 3:
+        assert of_max <= tc.DW_OF_MAX
+    else:
+        assert of_max > tc.DW_OF_MAX
+
+
 def _bn_params(f, seed=4):
     rng = np.random.default_rng(seed)
     return (rng.uniform(0.5, 1.5, f).astype(np.float32),

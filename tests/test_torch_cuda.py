@@ -124,16 +124,96 @@ def test_filter_grad_bf16_misaligned_pointers(device):
     x, w, dy = cc.check_inputs(case, torch.bfloat16,
                                torch.Generator(device=device).manual_seed(3))
 
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    xs, dys = shifted(x), shifted(dy)
+    xs, dys = _shifted(x, 1), _shifted(dy, 1)
     assert cc.filter_grad_copy_width(xs, dys) == 1
     assert torch.equal(cc._launch_filter_grad(xs, dys), cc._launch_filter_grad(x, dy))
     cc.check_against_plain(xs, w, dys)
+
+
+def _shifted(t, elements):
+    """A copy of ``t`` that starts ``elements`` past an aligned address."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = buf[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((4, 7, 7, 40, 72), 1),
+                                         ((2, 13, 9, 16, 24), 1)])
+def test_filter_grad_f32_copy_paths(device, case, width):
+    """f32 planes take 16-byte copies where H*W % 4 == 0, else a repack into
+    planes padded to 8 floats (H*W = 49, an odd ragged plane); dw holds
+    against f64 on either path."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, dy = cc.check_inputs(case, torch.float32,
+                               torch.Generator(device=device).manual_seed(6))
+    assert cc.filter_grad_copy_width(x, dy) == width
+    cc.check_against_plain(x, w, dy)
+
+
+def test_filter_grad_f32_misaligned_pointers(device):
+    """f32 operands 4 bytes past a 16-byte boundary are repacked even where
+    H*W % 4 == 0, and give the same bits as aligned ones."""
+    x, _, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.float32,
+                               torch.Generator(device=device).manual_seed(7))
+    xs, dys = _shifted(x, 1), _shifted(dy, 1)
+    assert cc.filter_grad_copy_width(xs, dys) == 1
+    assert torch.equal(cc._launch_filter_grad(xs, dys), cc._launch_filter_grad(x, dy))
+
+
+def test_conv_kernels_run_on_the_tensor_cores(device):
+    """The f32 filter gradient is the 3xTF32 instance, bf16 the m16n8k16
+    one; the conv + statistics kernel says what each dtype runs."""
+    assert cc.instance("conv3x3_filter_grad", torch.float32) == (
+        "tensor cores: mma.sync m16n8k8 3xTF32")
+    assert cc.instance("conv3x3_filter_grad", torch.bfloat16) == (
+        "tensor cores: mma.sync m16n8k16 bf16")
+    assert cc.instance("conv3x3_bn_stats", torch.bfloat16) == (
+        "tensor cores: mma.sync m16n8k16 bf16")
+    assert cc.instance("conv3x3_bn_stats", torch.float32) == "SIMT: f32 FMA"
+
+
+def test_conv_bn_stats_copy_widths(device):
+    """ALIGN_CASES give the bf16 conv + statistics kernel each of its x
+    paths: 16-byte copies, 8-byte copies, and the repack."""
+    widths = []
+    for case in cc.ALIGN_CASES:
+        x, _, _ = cc.check_inputs(case, torch.bfloat16,
+                                  torch.Generator(device=device).manual_seed(0))
+        widths.append(cc.conv_bn_stats_copy_width(x))
+    assert widths == [8, 4, 1]
+
+
+@pytest.mark.parametrize("offset, width", [(4, 4), (1, 1)])
+def test_conv_bn_stats_bf16_misaligned_pointers(device, offset, width):
+    """x that starts 8 bytes past a 16-byte boundary takes 8-byte copies, 2
+    bytes past it the repack, where H*W % 8 == 0; y, s and ss are the same
+    bits as from aligned x, and hold against the plain version."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.bfloat16,
+                               torch.Generator(device=device).manual_seed(9))
+    xs = _shifted(x, offset)
+    assert cc.conv_bn_stats_copy_width(xs) == width
+    for a, b in zip(cc._launch_conv_bn_stats(xs, w), cc._launch_conv_bn_stats(x, w)):
+        assert torch.equal(a, b)
+    cc.check_against_plain(xs, w, dy)
+
+
+@pytest.mark.parametrize("autocast", [False, True])
+def test_conv_autograd_launches_each_kernel_once(device, autocast):
+    """One forward + backward through the op, in f32 and under bf16
+    autocast: one launch of each kernel, on operands of that dtype."""
+    x, w, _ = cc.check_inputs((2, 14, 14, 32, 64), torch.float32,
+                              torch.Generator(device=device).manual_seed(8))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+        y, s, ss = cc.conv3x3_bn_stats(xg, wg)
+    (y.float().sum() + s.sum() + ss.sum() * 0.01).backward()
+    torch.cuda.synchronize()
+    assert y.dtype == (torch.bfloat16 if autocast else torch.float32)
+    assert (cc.launches_conv_bn_stats - before[0], cc.launches_filter_grad - before[1]) == (1, 1)
+    assert torch.isfinite(wg.grad).all() and torch.isfinite(xg.grad).all()
 
 
 def test_conv_autograd_bf16_through_the_tensor_core_kernel(device):
