@@ -14,18 +14,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    card, in f32 and bf16, at the training path's shape (100, 100) and at
    (37, 100), (256, 512) and (4, 16) with two all-zero rows; time both at
    (100, 100), beside their bound.
-4. Hold the 3x3 conv + BN-statistics kernel (bf16: tensor cores, f32:
-   SIMT) and the 3x3 filter-gradient kernel (bf16: tensor cores; f32:
-   tensor cores as 3xTF32) against their plain versions and dw against f64,
-   in f32 and bf16 (TF32 off), at the four ResNet-50 stage shapes at batch
-   128, four ragged shapes and three shapes that take each copy path (16-
-   or 8-byte copies, or the repack); print the instance each dtype runs
-   and the copy width each shape takes.  At the stage shapes time both
-   kernels, their plain versions and cuDNN's wgrad, and print each
-   kernel's bound (the larger of operations over the peak and bytes over
-   3.35 TB/s; the peak is bf16's 989 TFLOP/s, and for f32 that of f32-exact
-   products on the tensor cores, 3xTF32 at 495 / 3 TFLOP/s, with the f32
-   FMA units' 67 TFLOP/s beside it) and its share of it.
+4. Hold the 3x3 conv + BN-statistics kernel and the 3x3 filter-gradient
+   kernel (both on the tensor cores: bf16 as bf16, f32 as 3xTF32) against
+   their plain versions, and f32 y and dw against f64, in f32 and bf16
+   (TF32 off), at the four ResNet-50 stage shapes at batch 128, four ragged
+   shapes and three shapes that take each copy path (16- or 8-byte copies,
+   or the repack); print the instance each dtype runs, the copy width each
+   shape takes and the distance of y from f64 (the kernel's and cuDNN's).
+   At the stage shapes time both kernels, their plain versions and cuDNN's
+   wgrad, and print each kernel's bound (the larger of operations over the
+   peak and bytes over 3.35 TB/s; the peak is bf16's 989 TFLOP/s, and for
+   f32 that of f32-exact products on the tensor cores, 3xTF32 at 495 / 3
+   TFLOP/s, with the f32 FMA units' 67 TFLOP/s beside it) and its share of
+   it.
 5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
    taxonomy (20 superclasses x 5 leaves) with ``python -m
    semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
@@ -418,9 +419,8 @@ def main(argv=None):
             wgrad_bytes = (x.numel() + dy.numel()) * item + wt.numel() * 4
             wshape = tuple(wt.shape)
             print(f"{case} {name}: copy width (elements) filter gradient "
-                  f"{CC.filter_grad_copy_width(x, dy)}" + (
-                      f", conv + statistics {CC.conv_bn_stats_copy_width(x)}"
-                      if dtype == torch.bfloat16 else ""))
+                  f"{CC.filter_grad_copy_width(x, dy)}, conv + statistics "
+                  f"{CC.conv_bn_stats_copy_width(x)}")
             calls = {
                 "conv3x3_bn_stats": (lambda: CC._launch_conv_bn_stats(x, wt),
                                      lambda: CC._plain_conv_bn_stats(x, wt),
@@ -809,6 +809,8 @@ def main(argv=None):
             "launches": rn50_launches[name],
             "launches_per_step": RN50_CONVS,
             "max_abs_err": conv_err[f32][err_key],
+            "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
+            "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
             "max_abs_err_bf16": conv_err[bf16][err_key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -1,8 +1,9 @@
 // Pieces shared by the 3x3 conv kernels (conv3x3_bn_stats.cu,
 // conv3x3_filter_grad.cu): the pipeline step, the x window, cp.async and
-// the warp-level tensor-core instructions, the choice of copy width, the
-// repack into padded planes for operands no copy width fits, and the
-// occupancy query the split rules read.
+// the warp-level tensor-core instructions, the split of f32 operands for
+// 3xTF32, the choice of copy width, the repack into padded planes for
+// operands no copy width fits, and the occupancy query the split rules
+// read.
 //
 // The x window: one pipeline step covers kStep pixels p0 .. p0 + kStep - 1
 // of one image plane.  For each input channel and each kh, the step stages
@@ -68,6 +69,38 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: the tensor cores take f32 only as TF32 (10 mantissa bits), so an
+// f32-exact product of a and b costs three TF32 products,
+// a_small*b_big + a_big*b_small + a_big*b_big (a_small*b_small, 2^-22 of
+// it, is dropped), f32-exact to about 2^-20 relative at worst.
+
+// tf32(v): round to nearest, ties away from zero, to 10 mantissa bits (what
+// cvt.rna.tf32.f32 gives), with integer operations, which run at the full
+// rate where a conversion does not: add half of the 13 dropped bits to the
+// magnitude, then clear them.
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = big + small to 2^-21 relative, both TF32: big rounded, small (the
+// exact remainder v - big) truncated, one integer operation.
+__device__ __forceinline__ void split_tf32(float v, unsigned& big, unsigned& small) {
+  big = to_tf32(v);
+  small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// d = a (16 x 8, row-major) * b (8 x 8, column-major) + c, TF32 in, f32
+// sums.  Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1, const float (&c)[4]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
 // out[plane, p] = in[plane, p] for p < HW, 0 up to pitch: planes padded to

@@ -69,13 +69,15 @@
 // through registers left every step waiting on some 57 round trips to
 // memory (1.15 ms at stage 4).
 //
-// f32 instance: 3xTF32 on mma.sync m16n8k8.  Each f32 operand a is split in
-// registers, as it is loaded, into a_big = tf32(a), rounded to nearest
-// with ties away (as cvt.rna.tf32.f32 rounds, but by an integer add and
-// mask), and a_small = a - a_big (exact in f32) truncated to tf32 by a mask,
-// so a_big + a_small is a to 2^-21; the product is a_small*b_big +
-// a_big*b_small + a_big*b_big (a_small*b_small, 2^-22 of it, is dropped),
-// f32-exact to about 2^-20 relative at worst.  This is not "TF32 on": one
+// f32 instance: 3xTF32 on mma.sync m16n8k8 (the split and the mma in
+// conv3x3_common.cuh, shared with the conv + statistics kernel).  Each f32
+// operand a is split in registers, as it is loaded, into a_big = tf32(a),
+// rounded to nearest with ties away (as cvt.rna.tf32.f32 rounds, but by an
+// integer add and mask), and a_small = a - a_big (exact in f32) truncated
+// to tf32 by a mask, so a_big + a_small is a to 2^-21; the product is
+// a_small*b_big + a_big*b_small + a_big*b_big (a_small*b_small, 2^-22 of
+// it, is dropped), f32-exact to about 2^-20 relative at worst.  This is
+// not "TF32 on": one
 // TF32 product is 2^-11 off.  Integer operations, because conversions run
 // at a fraction of the rate: with cvt.rna for both parts every call took
 // 9% longer, and rounding a_small too 7% (each pair timed in turns on an
@@ -340,33 +342,6 @@ constexpr int kF32Smem = kStages * kF32StageBytes;
 static_assert(kF32StageBytes % 16 == 0, "stages must stay 16-byte aligned");
 constexpr int kF32Vec = 4;             // floats a 16-byte cp.async copies
 static_assert(window_len<kF32Vec>() <= kF32XPitch, "x window exceeds its row");
-
-// tf32(v): round to nearest, ties away from zero, to 10 mantissa bits (what
-// cvt.rna.tf32.f32 gives), with integer operations, which run at the full
-// rate where a conversion does not: add half of the 13 dropped bits to the
-// magnitude, then clear them.
-__device__ __forceinline__ unsigned to_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = big + small to 2^-21 relative, both TF32: big rounded, small (the
-// exact remainder v - big) truncated, one integer operation.
-__device__ __forceinline__ void split_tf32(float v, unsigned& big, unsigned& small) {
-  big = to_tf32(v);
-  small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
-}
-
-// d = a (16 x 8, row-major) * b (8 x 8, column-major) + c, TF32 in, f32
-// sums.  Not volatile: the compiler may interleave independent products.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1, const float (&c)[4]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
 
 // As filter_grad_bf16_kernel, on f32 operands with 16-byte copies and planes
 // `pitch` floats apart (H*W, or more in a repacked copy).

@@ -19,13 +19,12 @@ to XLA too) and dw with the second kernel.
 
 For CUDA tensors each kernel is launched (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
-the wrapper raises.  Each has two instances, chosen by the dtype: the
-filter gradient runs on the tensor cores (``mma.sync``) in both, bf16
-products in bf16 and f32 ones as 3xTF32; the conv + statistics runs on the
-tensor cores in bf16 and is a SIMT kernel in f32.  :func:`instance` names
-what a dtype runs.  For CPU tensors the plain versions run.  The device of
-the tensor decides, nothing else: there is no fallback from a kernel to its
-plain version.
+the wrapper raises.  Each has two instances, chosen by the dtype, and all
+four run on the tensor cores (``mma.sync``): bf16 products in bf16, f32
+ones as 3xTF32 (three TF32 products for each f32-exact one).
+:func:`instance` names what a dtype runs.  For CPU tensors the plain
+versions run.  The device of the tensor decides, nothing else: there is no
+fallback from a kernel to its plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
 launches, so that a run can show that its steps went through them.
 """
@@ -53,11 +52,11 @@ def _kernels():
 
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fwd = load("conv3x3_bn_stats")
-        fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32] * 4
+        fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32] * 3
         fwd.conv3x3_bn_stats_partial_rows.restype = i32
         fwd.conv3x3_bn_stats_scratch.argtypes = [ptr] + [i32] * 6
         fwd.conv3x3_bn_stats_scratch.restype = ctypes.c_longlong
-        fwd.conv3x3_bn_stats_copy_width.argtypes = [ptr, i32, i32]
+        fwd.conv3x3_bn_stats_copy_width.argtypes = [ptr, i32, i32, i32]
         fwd.conv3x3_bn_stats_copy_width.restype = i32
         fwd.conv3x3_bn_stats.argtypes = [ptr] * 7 + [i32] * 6 + [ptr, ptr]
         fwd.conv3x3_bn_stats.restype = i32
@@ -143,20 +142,20 @@ def _launch_conv_bn_stats(x, w):
             f"{tuple(w.shape)}")
     lib = _kernels()[0]
     bf16 = int(x.dtype == torch.bfloat16)
-    rows = lib.conv3x3_bn_stats_partial_rows(b, h, wd, bf16)
+    rows = lib.conv3x3_bn_stats_partial_rows(b, h, wd)
     y = torch.empty((b, f, h, wd), dtype=x.dtype, device=x.device)
     part_s, part_ss = torch.empty((2, rows, f), dtype=torch.float32, device=x.device)
     s = torch.empty(f, dtype=torch.float32, device=x.device)
     ss = torch.empty(f, dtype=torch.float32, device=x.device)
-    # bf16: the weight permuted into the kernel's K order, and x repacked
-    # into padded planes where no cp.async width fits
+    # the weight permuted into the kernel's K order, and x repacked into
+    # padded planes where no cp.async width fits
     nbytes = lib.conv3x3_bn_stats_scratch(x.data_ptr(), b, c, h, wd, f, bf16)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.conv3x3_bn_stats(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), part_s.data_ptr(),
         part_ss.data_ptr(), s.data_ptr(), ss.data_ptr(), b, c, h, wd, f, bf16,
-        None if scratch is None else scratch.data_ptr(), stream)
+        scratch.data_ptr(), stream)
     _raise_on(code, "conv3x3_bn_stats")
     launches_conv_bn_stats += 1
     return y, s, ss
@@ -204,17 +203,18 @@ def filter_grad_copy_width(x, dy):
 
 
 def conv_bn_stats_copy_width(x):
-    """The copy width, in elements, that the bf16 conv + statistics kernel
-    takes for the CUDA tensor x: 8 or 4 (16- or 8-byte ``cp.async``), or 1
+    """The copy width, in elements, that the conv + statistics kernel of x's
+    dtype takes for the CUDA tensor x (H*W and the pointer must be multiples
+    of it): bf16 8 or 4, f32 4 or 2 (16- or 8-byte ``cp.async``), or 1
     where neither fits and the kernel first repacks x into planes padded to
     a multiple of 8 elements."""
-    return _kernels()[0].conv3x3_bn_stats_copy_width(x.data_ptr(), x.shape[2], x.shape[3])
+    return _kernels()[0].conv3x3_bn_stats_copy_width(
+        x.data_ptr(), x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
 
 
 def instance(kernel, dtype):
     """What ``kernel`` ("conv3x3_bn_stats" or "conv3x3_filter_grad") runs on
-    operands of ``dtype``, as its library reports it (tensor cores or SIMT,
-    and which ``mma``)."""
+    operands of ``dtype``, as its library reports it (which ``mma``)."""
     lib = _kernels()[0 if kernel == "conv3x3_bn_stats" else 1]
     return getattr(lib, f"{kernel}_instance")(int(dtype == torch.bfloat16)).decode()
 
@@ -333,10 +333,17 @@ CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
 
 #: Tolerances of each kernel's result against its plain version on the same
 #: inputs (check_inputs: x and dy of N(0, 1), He-scaled w, so y is O(1)).
-#: f32 y: each y sums 9C <= 4608 products; the SIMT kernel adds them in
-#: order, cuDNN may take a Winograd or FFT algorithm, whose f32 error is
-#: about 1e-5 of the output's scale (on an H100 they differed by 1.3-1.7e-5
-#: at the ResNet-50 stage shapes).  bf16 y: both round f32 sums that agree
+#: f32 y: each y sums 9C <= 4608 products.  The kernel takes each as 3xTF32
+#: (f32-exact to about 2**-20 relative), sums the 24 products of one kh (8
+#: channels x 3 kw) in the tensor cores from zero and adds the 3C / 8 such
+#: sums with rounded f32 adds, whose errors, adding as a random walk, stay
+#: near 1e-7 of max |y|; it is held to an f64 conv of the same inputs
+#: within Y_OF_MAX of max |y| (one TF32 product, 2**-11 relative, would
+#: miss that).  cuDNN may take a Winograd or FFT algorithm, whose f32 error
+#: is about 1e-5 of the output's scale (on an H100 an in-order f32 sum and
+#: cuDNN's differed by 1.3-1.7e-5 at the ResNet-50 stage shapes): its
+#: distance from f64 is reported beside the kernel's, and y is held to it
+#: within CHECK_TOL.  bf16 y: both round f32 sums that agree
 #: to about 1e-5, so they differ by at most one bf16 ulp (2**-7 relative)
 #: where the sums straddle a rounding boundary (the tensor-core kernel
 #: measured one ulp, 0.0156 at |y| in [2, 4), at every stage shape).  dw is
@@ -357,6 +364,7 @@ CHECK_TOL = {
     torch.bfloat16: dict(y=dict(rtol=2**-7, atol=1e-3)),
 }
 DW_OF_MAX = 1e-5
+Y_OF_MAX = 1e-5
 
 
 def check_inputs(case, dtype, generator):
@@ -372,24 +380,23 @@ def check_inputs(case, dtype, generator):
             normal(b, f, h, wd))
 
 
-def _sum_depth(rows, dtype):
+def _sum_depth(rows):
     """The most additions any y term passes through in the kernel's sums,
-    for the instance of ``dtype``: within a thread (f32: 4 terms, 3
-    additions; bf16: 8 terms, 7), across lanes (f32: a half-warp, 4 levels;
-    bf16: the 4 lanes of a row, 2 levels, then the block's two pixel halves,
-    1), then ceil(rows / 32) per phase and 32 phases in the second pass."""
-    block = 3 + 4 if dtype == torch.float32 else 7 + 2 + 1
-    return block + -(-rows // 32) + 32
+    one tree in both instances: 8 terms in order within a thread (7
+    additions), the 4 lanes of a row (2 levels), the block's two pixel
+    halves (1), then ceil(rows / 32) per phase and 32 phases in the second
+    pass."""
+    return 7 + 2 + 1 + -(-rows // 32) + 32
 
 
 def check_against_plain(x, w, dy):
     """Launches both kernels on CUDA tensors, synchronizing after each, and
     asserts their results equal the plain versions' within
-    :data:`CHECK_TOL` (dw: :data:`DW_OF_MAX`, against an f64 reference);
-    returns the max |error| against the plain version of y, of s / n and
-    ss / n (the mean and mean square BN reads) and of dw, and the distance
-    of the kernel's and the plain version's dw from f64, in units of
-    max |dw|."""
+    :data:`CHECK_TOL` (dw: :data:`DW_OF_MAX`, against an f64 reference; f32
+    y also within :data:`Y_OF_MAX` of an f64 conv); returns the max |error|
+    against the plain version of y, of s / n and ss / n (the mean and mean
+    square BN reads) and of dw, and the distance of the kernel's and the
+    plain version's y and dw from f64, in units of max |y| and max |dw|."""
     y, s, ss = _launch_conv_bn_stats(x, w)
     torch.cuda.synchronize()
     dw = _launch_filter_grad(x, dy)
@@ -400,6 +407,12 @@ def check_against_plain(x, w, dy):
     dw_p = _plain_filter_grad(x, dy)
     tol = CHECK_TOL[x.dtype]
     torch.testing.assert_close(y.float(), y_p.float(), **tol["y"])
+    y_f64 = F.conv2d(x.double(), w.double(), padding=1)
+    y_scale = y_f64.abs().max().item()
+    y_of_max = (y.double() - y_f64).abs().max().item() / y_scale
+    if x.dtype == torch.float32 and y_of_max > Y_OF_MAX:
+        raise AssertionError(f"kernel y differs from f64 by {y_of_max:.3g} of max |y| "
+                             f"(bound {Y_OF_MAX:.3g})")
 
     # The statistics: against f64 sums of the kernel's own y, within the f32
     # rounding bound of its summation tree (depth * 2**-24 of sum |terms|);
@@ -407,9 +420,8 @@ def check_against_plain(x, w, dy):
     # difference of the two y's (|sum a - sum b| <= sum |a - b|).
     y64, yp64 = y.double(), y_p.double()
     n = y.numel() // y.shape[1]
-    rows = _kernels()[0].conv3x3_bn_stats_partial_rows(
-        x.shape[0], x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
-    u = _sum_depth(rows, x.dtype) * 2.0**-24
+    rows = _kernels()[0].conv3x3_bn_stats_partial_rows(x.shape[0], x.shape[2], x.shape[3])
+    u = _sum_depth(rows) * 2.0**-24
     dims = (0, 2, 3)
     for got, terms, terms_p in ((s, y64, yp64), (ss, y64 * y64, yp64 * yp64)):
         err = (got.double() - terms.sum(dims)).abs()
@@ -436,6 +448,8 @@ def check_against_plain(x, w, dy):
         "y": (y.float() - y_p.float()).abs().max().item(),
         "mean": ((s - s_p).abs().max() / n).item(),
         "mean_square": ((ss - ss_p).abs().max() / n).item(),
+        "y_vs_f64_of_max": y_of_max,
+        "plain_y_vs_f64_of_max": (y_p.double() - y_f64).abs().max().item() / y_scale,
         "dw": err_p.max().item(),
         "dw_vs_f64_of_max": err64.max().item() / dw64.abs().max().item(),
         "plain_dw_vs_f64_of_max": ((dw_p.double() - dw64).abs().max()

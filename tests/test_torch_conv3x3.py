@@ -134,6 +134,37 @@ def test_3xtf32_filter_grad_within_dw_of_max(case, products):
         assert of_max > tc.DW_OF_MAX
 
 
+def _conv_in_tf32(x, w, products):
+    """y from TF32 operands, summed in f64: ``products`` 3 is the f32 conv
+    kernel's 3xTF32 (x_big * w_big + x_big * w_small + x_small * w_big, the
+    split as in :func:`_filter_grad_in_tf32`); 1 is a single TF32 product.
+    The kernel's f32 sums are held on the card."""
+    xb, wb = _tf32(x), _tf32(w)
+    pairs = [(xb, wb), (xb, _tf32_truncated(w - wb)),
+             (_tf32_truncated(x - xb), wb)][:products]
+    return sum(tc._plain_conv_bn_stats(a.double(), b.double())[0] for a, b in pairs)
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("case", [(2, 8, 8, 16, 8), (3, 7, 7, 5, 10)])
+def test_3xtf32_conv_within_y_of_max(case, products):
+    """The f32 conv + statistics kernel's split: 3xTF32 keeps y within
+    ``Y_OF_MAX`` of max |y| of the f64 conv; one TF32 product (2**-11
+    relative) misses that bound."""
+    b, h, w, c, f = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(np.float32))
+    wt = torch.from_numpy(
+        (rng.normal(size=(f, c, 3, 3)) * np.sqrt(2 / (9 * c))).astype(np.float32))
+    ref = tc._plain_conv_bn_stats(x.double(), wt.double())[0]
+    err = (_conv_in_tf32(x, wt, products) - ref).abs().max().item()
+    of_max = err / ref.abs().max().item()
+    if products == 3:
+        assert of_max <= tc.Y_OF_MAX
+    else:
+        assert of_max > tc.Y_OF_MAX
+
+
 def _bn_params(f, seed=4):
     rng = np.random.default_rng(seed)
     return (rng.uniform(0.5, 1.5, f).astype(np.float32),

@@ -162,15 +162,56 @@ def test_filter_grad_f32_misaligned_pointers(device):
 
 
 def test_conv_kernels_run_on_the_tensor_cores(device):
-    """The f32 filter gradient is the 3xTF32 instance, bf16 the m16n8k16
-    one; the conv + statistics kernel says what each dtype runs."""
+    """Both kernels run f32 as the 3xTF32 instance and bf16 as the m16n8k16
+    one."""
     assert cc.instance("conv3x3_filter_grad", torch.float32) == (
         "tensor cores: mma.sync m16n8k8 3xTF32")
     assert cc.instance("conv3x3_filter_grad", torch.bfloat16) == (
         "tensor cores: mma.sync m16n8k16 bf16")
     assert cc.instance("conv3x3_bn_stats", torch.bfloat16) == (
         "tensor cores: mma.sync m16n8k16 bf16")
-    assert cc.instance("conv3x3_bn_stats", torch.float32) == "SIMT: f32 FMA"
+    assert cc.instance("conv3x3_bn_stats", torch.float32) == (
+        "tensor cores: mma.sync m16n8k8 3xTF32")
+
+
+@pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((3, 5, 10, 16, 40), 2),
+                                         ((4, 7, 7, 40, 72), 1), ((2, 13, 9, 16, 24), 1)])
+def test_conv_bn_stats_f32_copy_paths(device, case, width):
+    """f32 x takes 16-byte copies where H*W % 4 == 0, 8-byte ones where
+    H*W % 4 == 2, else a repack into planes padded to 8 floats (H*W = 49,
+    an odd ragged plane); y holds against cuDNN and f64 on every path, and
+    the statistics against their rounding bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, dy = cc.check_inputs(case, torch.float32,
+                               torch.Generator(device=device).manual_seed(10))
+    assert cc.conv_bn_stats_copy_width(x) == width
+    cc.check_against_plain(x, w, dy)
+
+
+@pytest.mark.parametrize("offset, width", [(2, 2), (1, 1)])
+def test_conv_bn_stats_f32_misaligned_pointers(device, offset, width):
+    """f32 x that starts 8 bytes past a 16-byte boundary takes 8-byte
+    copies, 4 bytes past it the repack, where H*W % 4 == 0; y, s and ss are
+    the same bits as from aligned x, and hold against the plain version."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.float32,
+                               torch.Generator(device=device).manual_seed(11))
+    xs = _shifted(x, offset)
+    assert cc.conv_bn_stats_copy_width(xs) == width
+    for a, b in zip(cc._launch_conv_bn_stats(xs, w), cc._launch_conv_bn_stats(x, w)):
+        assert torch.equal(a, b)
+    cc.check_against_plain(xs, w, dy)
+
+
+@pytest.mark.parametrize("case", [(4, 7, 7, 40, 72), (3, 5, 10, 16, 40), (2, 28, 28, 128, 136)])
+def test_conv_bn_stats_f32_is_deterministic(device, case):
+    """Two launches give the same bits of y, s and ss on the repack, the
+    8-byte path and F past one block."""
+    x, w, _ = cc.check_inputs(case, torch.float32,
+                              torch.Generator(device=device).manual_seed(12))
+    first, again = cc._launch_conv_bn_stats(x, w), cc._launch_conv_bn_stats(x, w)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_conv_bn_stats_copy_widths(device):
