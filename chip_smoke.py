@@ -13,7 +13,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 3. Hold the cosine-loss kernels against their plain PyTorch versions on the
    card, in f32 and bf16, at the training path's shape (100, 100) and at
    (37, 100), (256, 512) and (4, 16) with two all-zero rows; time both at
-   (100, 100), beside their bound.
+   (100, 100), beside their bound, the library call of the same function
+   (``cosine_embedding_loss``, forward and forward + backward) and the
+   launch floor (an empty kernel's time).
 4. Hold the 3x3 conv + BN-statistics kernel and the 3x3 filter-gradient
    kernel (both on the tensor cores: bf16 as bf16, f32 as 3xTF32) against
    their plain versions, and f32 y and dw against f64, in f32 and bf16
@@ -32,10 +34,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
    equal 1 - lcs_height to 1e-12), then train resnet-110-wfc with
    ``--fused_loss`` for one epoch of ``synthetic-100-2000-500`` at batch
-   100 (20 steps), validate and dump test features, through
+   100 (20 steps), validate and dump test features and the model, through
    ``learn_image_embeddings.main``.  Checks finite losses, one launch of
    each cosine kernel per train step, every parameter on the card, and 500
    unit-norm feature rows.
+5b. Stage 3 on those dumps: ``python -m
+   semantic_embeddings_torch.cli.evaluate_retrieval --device cuda`` in its
+   own process on the feature dump and on a centered copy of it (every
+   metric finite and in [0, 1]; its table and CSV equal this process's card
+   run), and the port's CPU run of ``evaluate_retrieval_features`` on both:
+   on the centered copy, per-query values within 1e-5 for 99% of the
+   queries, and the card's means and the CLI's CSV within 1e-3 of the
+   CPU's (on the dump as it is, whose features have nearly collapsed after
+   20 steps, the disagreement is printed); the features' spread before
+   training and after; then ``evaluate_classification_accuracy`` with
+   ``--centroids`` (the class embedding; its accuracy equals a host argsort
+   of the feature dump's) and ``--prob_features --layer prob``.
+5c. The exact top-k (tie-heavy rows and rows of +-inf) and the ranked class
+   ids of both ranking paths on the card, bitwise equal to the CPU's.
+5d. Retrieval queries per second, ``bench_retrieval.py``'s two protocols on
+   synthetic features: CIFAR-100 test size (10,000 x 100, full sort with
+   AP) and ILSVRC val size (50,000 x 1,000, 1,000 leaves, the top-k
+   prefix); median, min and max of 5 runs and the device busy share.
 6. One resnet-110-wfc train step through the kernels against one through
    the plain versions, from one copied state and one batch with fixed
    augmentation.
@@ -60,6 +80,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 10. ResNet-50 train-step throughput in f32 and bf16, through the kernels
    and through the plain versions (in turns: kernel, plain, kernel), and
    their device time, busy share and peak memory (``torch.profiler``).
+10b. Serve phase 8's trained ResNet-50 through ``serve_model.make_server``
+   and drive it over HTTP from 16 threads of another process (f32 npy
+   wire, uint8 wire with ``--device_preproc``, bf16), and once more under
+   ``torch.profiler``: see :func:`serve_resnet50`.
 11. Check that neither JAX nor any module of the JAX package
    (``semantic_embeddings_tpu``) was imported.
 
@@ -127,8 +151,12 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Prints the phase's name and the seconds since the script started."""
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def check(condition, detail="check failed"):
@@ -296,6 +324,523 @@ def write_taxonomy(path):
                 f.write(f"{100 + s} {5 * s + leaf}\n")
 
 
+def write_taxonomy_1000(path):
+    """A 1,000-leaf tree, 10 x 10 x 10: root 3000, nodes 2000 + i and
+    1000 + 10 i + j, leaves 0..999."""
+    with open(path, "w") as f:
+        for i in range(10):
+            f.write(f"3000 {2000 + i}\n")
+            for j in range(10):
+                f.write(f"{2000 + i} {1000 + 10 * i + j}\n")
+                for k in range(10):
+                    f.write(f"{1000 + 10 * i + j} {100 * i + 10 * j + k}\n")
+
+
+def run_cli(module, *argv):
+    """Runs a CLI of the port in its own process; returns its stdout."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"semantic_embeddings_torch.cli.{module}", *argv],
+        cwd=ROOT, capture_output=True, text=True)
+    print(f"{module} ran in {time.perf_counter() - t0:.1f} s (exit {proc.returncode})")
+    print(proc.stdout.strip())
+    if proc.returncode:
+        print(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"{module} failed")
+    return proc.stdout
+
+
+def parse_table(text):
+    """``{row: {metric: value}}`` from a CLI's printed performance table
+    (a "--" cell is left out)."""
+    lines = [line for line in text.splitlines() if " | " in line]
+    header = [cell.strip() for cell in lines[0].split(" | ")][1:]
+    rows = {}
+    for line in lines[1:]:
+        cells = [cell.strip() for cell in line.split(" | ")]
+        rows[cells[0]] = {m: float(v) for m, v in zip(header, cells[1:]) if v != "--"}
+    return rows
+
+
+def retrieval_protocol(n, d, n_classes, hierarchy, full_ap, device, card, runs=5,
+                       block_size=2048, budget_s=60.0):
+    """One protocol of ``bench_retrieval.py:20-71`` through the port's
+    ``evaluate_retrieval_features`` on the card: synthetic unit features
+    (class i's rows shifted by 2 along axis i), P@k and AHP@250, and AP when
+    ``full_ap`` (the full sort; else the top-k prefix).  Queries per second
+    of ``runs`` timed runs after one warm-up, and the device busy share of
+    one profiled run.  Rows are cut where the whole would take more than
+    ``budget_s``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_embeddings_torch.evaluation.retrieval import evaluate_retrieval_features
+
+    def data(n):
+        rng = np.random.default_rng(0)
+        labels = [i % n_classes for i in range(n)]
+        feats = rng.normal(size=(n, d)).astype(np.float32)
+        feats[np.arange(n), labels] += 2.0
+        feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+        return feats, labels
+
+    kwargs = dict(ks=[1, 10, 50, 100], compute_ahp=250, compute_ap=full_ap,
+                  normalize=True, block_size=block_size, device=device)
+    feats, labels = data(n)
+    t0 = time.perf_counter()
+    evaluate_retrieval_features(feats, labels, hierarchy, **kwargs)  # warm-up
+    warm_s = time.perf_counter() - t0
+    cut = None
+    if warm_s * (runs + 2) > budget_s:
+        cut_n = max(n_classes, int(n * budget_s / (warm_s * (runs + 2))) // n_classes * n_classes)
+        cut = f"rows cut from {n} to {cut_n}: the warm-up took {warm_s:.1f} s"
+        print(cut)
+        n = cut_n
+        feats, labels = data(n)
+        evaluate_retrieval_features(feats, labels, hierarchy, **kwargs)
+    torch.cuda.reset_peak_memory_stats()
+    rates, walls = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        means, _ = evaluate_retrieval_features(feats, labels, hierarchy, **kwargs)
+        walls.append(time.perf_counter() - t0)
+        rates.append(n / walls[-1])
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        evaluate_retrieval_features(feats, labels, hierarchy, **kwargs)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(kernels, "torch.profiler recorded no GPU kernel")
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    wall = statistics.median(walls)
+    # device bytes: the database, one similarity block, the (C, k) optimal
+    # curves (k = N - 1 for the full sort) and the (C, C) similarity tables
+    k = n - 1 if full_ap else 250
+    nbytes = 4 * (n * d + block_size * n + 2 * n_classes * k + 2 * n_classes ** 2)
+    total = torch.cuda.get_device_properties(device).total_memory
+    check(nbytes < total and peak < total, (nbytes, peak, total))
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in means.values()), means)
+    result = {"n": n, "d": d, "classes": n_classes, "full_ap": full_ap,
+              "block_size": block_size, "qps_median": statistics.median(rates),
+              "qps_min": min(rates), "qps_max": max(rates), "runs": runs,
+              "busy": device_s / wall, "device_s": device_s, "wall_s": wall,
+              "device_bytes_counted": nbytes, "peak_bytes": peak,
+              "mAHP@250 (LCS_HEIGHT)": means["AHP@250 (LCS_HEIGHT)"], "cut": cut,
+              "card": card}
+    print(f"retrieval {n} x {d}, {n_classes} classes, "
+          + ("P@k + AHP@250 + AP (full sort)" if full_ap else "P@k + AHP@250 (top-k)")
+          + f": median {result['qps_median']:.1f} q/s (min {min(rates):.1f}, max "
+          f"{max(rates):.1f}, {runs} runs), busy share {result['busy']:.3f} "
+          f"({device_s:.3f} s device of {wall:.3f} s); device bytes counted "
+          f"{nbytes / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB of "
+          f"{total / 2**30:.1f}; mAHP@250 {result['mAHP@250 (LCS_HEIGHT)']:.4f}  [{card}]")
+    return result
+
+
+SERVE_IMAGES, SERVE_THREADS, SERVE_SIZE = 256, 16, 224
+#: bf16 against f32 serving: the unit-norm 100-d outputs within 0.05 of each
+#: other elementwise and at cosine >= 0.99 (bf16 keeps 8 significant bits;
+#: ResNet-50's 53 layers add up a few 2**-8 relative errors)
+BF16_ATOL, BF16_MIN_COS = 0.05, 0.99
+
+
+def serve_traffic():
+    """The served images (uint8, 224 px, from a seed) and the requests as
+    (first image, size) pairs of 1-8 images."""
+    rng = np.random.default_rng(7)
+    pixels = rng.integers(0, 256, (SERVE_IMAGES, SERVE_SIZE, SERVE_SIZE, 3)).astype(np.uint8)
+    sizes = []
+    while sum(sizes) < SERVE_IMAGES:
+        sizes.append(int(min(rng.integers(1, 9), SERVE_IMAGES - sum(sizes))))
+    return pixels, list(zip(np.cumsum([0] + sizes[:-1]).tolist(), sizes))
+
+
+def drive_clients(url, wire, commands, results):
+    """Runs in a process of its own, so that the clients' host work does not
+    share the server's interpreter: on each "run" from ``commands`` sends
+    every request of :func:`serve_traffic` from 16 threads through the
+    port's client over the ``wire`` dtype, and puts (predictions, errors,
+    seconds from the first request to the last answer) on ``results``."""
+    import threading
+
+    from semantic_embeddings_torch.serving import ServingClient
+
+    pixels, requests = serve_traffic()
+    wire_dtype = np.dtype(wire)
+    images = pixels if wire_dtype == np.uint8 else pixels.astype(wire_dtype)
+    client = ServingClient(url)
+    results.put("ready")
+    while commands.get() == "run":
+        preds = np.full((SERVE_IMAGES, 100), np.nan, np.float32)
+        errors = []
+
+        def worker(mine):
+            try:
+                for start, size in mine:
+                    preds[start:start + size] = client.predict(
+                        images[start:start + size], wire_dtype=wire_dtype)
+            except Exception as e:  # noqa: BLE001 - reported to the parent
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(requests[i::SERVE_THREADS],))
+                   for i in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads):
+            errors.append("a client thread did not finish in 300 s")
+        results.put((preds, errors, wall))
+
+
+def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
+    """Serves the checkpoint through ``serve_model.make_server`` (max batch
+    64, warm-up, ILSVRC statistics, the l2norm tap) and drives it with the
+    port's client from 16 threads of another process: 256 images of 224 px
+    in requests of 1-8, over the f32 npy wire, over the uint8 wire with
+    ``--device_preproc``, and in bf16.  Each served batch is held against a
+    direct eval forward of the same batch on the card (1e-5), each response
+    against the served outputs (bitwise), the conv + statistics kernel's
+    launches to 16 a device call (and its plain version's to none); the
+    same traffic once more under ``torch.profiler`` gives the device
+    seconds and busy share; beyond ``--max_queue`` a request gets 503 with
+    Retry-After, and in ``--device_preproc`` mode a float outside [0, 255]
+    gets 400.  Before the timed run the traffic runs once untimed, and the
+    engine's statistics are reset."""
+    import multiprocessing
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_embeddings_torch.cli import common, serve_model
+    from semantic_embeddings_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from semantic_embeddings_torch.serving import EngineOverloaded
+
+    image = (SERVE_SIZE, SERVE_SIZE, 3)
+    _, requests = serve_traffic()
+    direct, _ = common.rebuild_model_from_checkpoint(ckpt, device)
+    mean = torch.tensor(IMAGENET_MEAN, device=device)
+    std = torch.tensor(IMAGENET_STD, device=device)
+    spawn = multiprocessing.get_context("spawn")
+
+    plain_calls = [0]
+    plain = CC._plain_conv_bn_stats
+
+    def counting_plain(x, w):
+        plain_calls[0] += 1
+        return plain(x, w)
+
+    def npy(arr):
+        buf = io.BytesIO()
+        np.save(buf, arr, allow_pickle=False)
+        return buf.getvalue()
+
+    def post_status(url, arr):
+        req = urllib.request.Request(url + "/v1/predict", data=npy(arr), method="POST",
+                                     headers={"Content-Type": "application/x-npy"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, resp.headers
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers
+
+    def run(label, extra, wire_dtype):
+        args = serve_model.build_parser().parse_args([
+            "--checkpoint", ckpt, "--input_size", str(SERVE_SIZE), "--port", "0",
+            "--max_batch", "64", "--max_queue", "256", "--warmup", "--dataset", "ilsvrc",
+            "--layer", "l2norm", "--device", str(device), *extra])
+        t0 = time.perf_counter()
+        srv = serve_model.make_server(args)
+        warm = srv.engine.warmup()  # as serve_model.main does for --warmup
+        setup_s = time.perf_counter() - t0
+        served, fn = [], srv.engine._fn
+
+        def recording(batch):  # each pack's batch is a fresh array
+            out = fn(batch)
+            served.append((batch, out))
+            return out
+
+        srv.engine._fn = recording
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        commands, results = spawn.Queue(), spawn.Queue()
+        clients = spawn.Process(target=drive_clients, daemon=True,
+                                args=(url, np.dtype(wire_dtype).name, commands, results))
+        sys.stdout.flush()
+        clients.start()
+
+        def traffic():
+            commands.put("run")
+            preds, errors, wall = results.get(timeout=600)
+            check(not errors, errors[:3])
+            return preds, wall
+
+        try:
+            check(results.get(timeout=120) == "ready", "the client process did not start")
+            traffic()  # once untimed: the first requests of a process pay its set-up
+            with srv.engine._lock:
+                srv.engine._stats = dict.fromkeys(srv.engine._stats, 0)
+                srv.engine._latencies.clear()
+            del served[:]
+            reset_counts()
+            plain_calls[0] = 0
+            preds, wall = traffic()
+            counts, stats = read_counts(), srv.engine.stats()
+            calls = len(served)
+            check(stats["batches"] == calls and stats["images"] == SERVE_IMAGES, stats)
+            check(counts["conv3x3_bn_stats"] == RN50_CONVS * calls and plain_calls[0] == 0,
+                  (counts, calls, plain_calls[0]))
+            # every served batch against a direct eval forward of the same
+            # batch (same composition, so cuDNN's same algorithms)
+            worst = 0.0
+            bf16 = torch.bfloat16 if "--bf16" in extra else None
+            with torch.inference_mode(), common.maybe_autocast(device, bf16):
+                for batch, out in served:
+                    x = torch.from_numpy(batch).to(device)
+                    if batch.dtype == np.uint8:
+                        x = (x.float() - mean) / std
+                    taps = {}
+                    direct(x, taps=taps)
+                    worst = max(worst, (taps["l2norm"].float() - out).abs().max().item())
+            rows = {r.tobytes() for _, out in served for r in out.cpu().numpy()}
+            norms = np.linalg.norm(preds.astype(np.float64), axis=1)
+            check(worst <= 1e-5, f"served vs direct forward {worst:.3g}")
+            check(all(p.tobytes() in rows for p in preds), "a response is no served row")
+            check(np.isfinite(preds).all() and np.abs(norms - 1.0).max() <= 1e-5, norms)
+            # the same traffic once more, under the profiler: the device's
+            # share of the clients' wall time
+            del served[:]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, prof_wall = traffic()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            check(kernels, "torch.profiler recorded no GPU kernel while serving")
+            device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+            n_lat = min(stats["requests"], 1024)
+            result = {
+                "wire": np.dtype(wire_dtype).name, "images": SERVE_IMAGES,
+                "requests": len(requests), "threads": SERVE_THREADS,
+                "clients": "16 threads in another process", "wall_s": wall,
+                "img_per_s": SERVE_IMAGES / wall, "device_calls": calls,
+                "conv3x3_bn_stats_launches": counts["conv3x3_bn_stats"],
+                "served_vs_direct_max_abs": worst,
+                "max_norm_err": float(np.abs(norms - 1.0).max()),
+                "profiled": {"wall_s": prof_wall, "device_s": device_s,
+                             "busy": device_s / prof_wall, "device_calls": len(served)},
+                # engine.stats(): p99 is rank int(0.99 n) of n sorted latencies
+                "p99_rank": f"{int(n_lat * 0.99) + 1} of {n_lat}",
+                "setup_s": setup_s, "warmup_s": warm, "stats": stats, "card": card}
+            print(f"serving {label}: {SERVE_IMAGES} images in {len(requests)} requests "
+                  f"from {SERVE_THREADS} client threads in another process in {wall:.3f} s "
+                  f"({result['img_per_s']:.1f} img/s); p50 {stats.get('latency_ms_p50')} ms, "
+                  f"p99 {stats.get('latency_ms_p99')} ms (latency {result['p99_rank']}), "
+                  f"{calls} device calls, avg batch {stats['avg_batch']}; conv3x3_bn_stats "
+                  f"launches {counts['conv3x3_bn_stats']} (16 x {calls}), plain 0; served vs "
+                  f"direct {worst:.3g}; profiled run: {device_s:.4f} s device of "
+                  f"{prof_wall:.3f} s, busy share {device_s / prof_wall:.3f}, {len(served)} "
+                  f"device calls; setup + warm-up {setup_s:.1f} s  [{card}]")
+            if label == "f32 npy":
+                result["overload"] = overload(srv, url, recording)
+            if "--device_preproc" in extra:
+                code, _ = post_status(url, np.full((1, *image), 255.5, np.float32))
+                check(code == 400, f"a float outside [0, 255] got {code}")
+                print("device_preproc: a float 255.5 got 400")
+        finally:
+            commands.put("stop")
+            clients.join(timeout=30)
+            if clients.is_alive():
+                clients.terminate()
+                clients.join(timeout=10)
+            srv.stop()
+        return preds, result
+
+    def overload(srv, url, recording):
+        """Holds the device call and fills the queue: one request more gets
+        503 with Retry-After."""
+        gate = threading.Event()
+
+        def gated(batch):
+            gate.wait(120)
+            return recording(batch)
+
+        srv.engine._fn = gated
+        zeros = np.zeros((64, *image), srv.engine.dtype)
+        held = [srv.engine.submit(zeros)]
+        deadline = time.time() + 30
+        while srv.engine.stats()["pending_images"] and time.time() < deadline:
+            time.sleep(0.01)  # the dispatcher takes the first into its call
+        try:
+            while True:
+                held.append(srv.engine.submit(zeros))
+        except EngineOverloaded:
+            pass
+        code, headers = post_status(url, np.zeros((1, *image), np.float32))
+        pending = srv.engine.stats()["pending_images"]
+        gate.set()
+        for fut in held:
+            fut.result(timeout=120)
+        check(code == 503 and headers.get("Retry-After") == "1", (code, dict(headers)))
+        print(f"overload: {pending} images pending (max_queue 256): HTTP {code}, "
+              f"Retry-After {headers.get('Retry-After')}")
+        return {"pending": pending, "code": code, "retry_after": headers.get("Retry-After")}
+
+    CC._plain_conv_bn_stats = counting_plain
+    try:
+        f32, result_f32 = run("f32 npy", [], np.float32)
+        _, result_u8 = run("f32 uint8 --device_preproc", ["--device_preproc"], np.uint8)
+        b16, result_bf16 = run("bf16 npy", ["--bf16"], np.float32)
+    finally:
+        CC._plain_conv_bn_stats = plain
+    cos = np.sum(f32.astype(np.float64) * b16, axis=1)
+    err = float(np.abs(f32 - b16).max())
+    print(f"bf16 vs f32 served outputs: max |diff| {err:.4g}, min cosine {cos.min():.6f} "
+          f"(bounds {BF16_ATOL}, {BF16_MIN_COS})")
+    check(err <= BF16_ATOL and cos.min() >= BF16_MIN_COS, (err, cos.min()))
+    result_bf16.update(vs_f32_max_abs=err, vs_f32_min_cos=float(cos.min()))
+    return {"f32_npy": result_f32, "f32_uint8_device_preproc": result_u8,
+            "bf16_npy": result_bf16}
+
+
+def feature_spread(feats, emb):
+    """(mean per-dimension std of the rows, mean cosine of the rows to the
+    normalised mean class embedding)."""
+    mean_emb = emb.mean(axis=0)
+    mean_emb = mean_emb / np.linalg.norm(mean_emb)
+    unit = feats / np.linalg.norm(feats, axis=1, keepdims=True)
+    return float(feats.std(axis=0).mean()), float((unit @ mean_emb).mean())
+
+
+def stage3(device, tmp, hierarchy, feat_path, model_path, emb_path, emb, feats):
+    """Phase 5b: stage 3 of the main path on slice 1's feature and model
+    dumps, through the port's two evaluation CLIs in their own processes,
+    held against the port's CPU run."""
+    import torch
+
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.data import get_data_generator
+    from semantic_embeddings_torch.embeddings.io import save_features
+    from semantic_embeddings_torch.evaluation.retrieval import evaluate_retrieval_features
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy
+
+    # After 20 steps the dump's features barely differ: the distances are
+    # ~1e-6 of |f|^2, about the f32 rounding of the |q|^2 + |d|^2 - 2 q.d
+    # sums, so on the dump as it is a rank follows the GEMM's order of sums.
+    # Centered, the same features rank alike in exact arithmetic (Euclidean
+    # ranking is translation invariant) and the sums are well conditioned:
+    # there the card's and the CPU's GEMMs may flip only true near-ties.
+    centered_path = os.path.join(tmp, "feat_centered.pickle")
+    save_features(centered_path, feats - feats.mean(axis=0))
+    csv_path = os.path.join(tmp, "retrieval.csv")
+    out = run_cli("evaluate_retrieval", "--dataset", DATASET, "--data_root", tmp,
+                  "--hierarchy", hierarchy, "--feat", feat_path, "--label", "slice1",
+                  "--feat", centered_path, "--label", "centered",
+                  "--csv", csv_path, "--device", "cuda")
+    tables = parse_table(out)
+    check(sorted(tables) == ["centered", "slice1"] and all(
+        len(t) == 11 and all(0.0 <= v <= 1.0 for v in t.values())
+        for t in tables.values()), tables)
+    with open(csv_path) as f:
+        rows = [line.strip().split(";") for line in f]
+    check(rows[0] == ["k", "slice1", "centered"] and len(rows) == 251, rows[:2])
+    csv = {name: {f"P@{r[0]} (LCS_HEIGHT)": float(r[1 + j]) for r in rows[1:]}
+           for j, name in enumerate(rows[0][1:])}
+    # the CLI's protocol (--plot_max 250: P@1..250, AHP, AP) in this process,
+    # on the card and on the CPU
+    labels_test = [int(c) for c in get_data_generator(DATASET).labels_test]
+    taxonomy = ClassHierarchy.from_file(hierarchy, id_type=int)
+    protocol = dict(ks=list(range(1, 251)), compute_ahp=True, compute_ap=True,
+                    block_size=1024)
+
+    def held(name, path):
+        """The CLI's table (4 decimals) and CSV against this process's card
+        run and the port's CPU run of the same dump: (queries whose values
+        differ by more than 1e-5 between card and CPU, the largest
+        per-query difference, the card's and the CLI's CSV's largest
+        distance from the CPU's means, the CLI's from this process's card
+        run)."""
+        means, per_query = evaluate_retrieval_features(
+            path, labels_test, taxonomy, device=device, **protocol)
+        means_cpu, per_query_cpu = evaluate_retrieval_features(
+            path, labels_test, taxonomy, device=torch.device("cpu"), **protocol)
+        diff = np.stack([np.abs(np.array(list(per_query[m].values()))
+                                - np.array(list(per_query_cpu[m].values())))
+                         for m in sorted(per_query_cpu)])
+        cli_vs_card = max(max(abs(v - means[m]) for m, v in tables[name].items()),
+                          max(abs(v - means[m]) for m, v in csv[name].items()))
+        card_vs_cpu = max(abs(means[m] - means_cpu[m]) for m in means_cpu)
+        csv_vs_cpu = max(abs(v - means_cpu[m]) for m, v in csv[name].items())
+        result = (int((diff.max(axis=0) > 1e-5).sum()), float(diff.max()),
+                  card_vs_cpu, csv_vs_cpu, cli_vs_card)
+        print(f"{name}: card vs the port's CPU run, {result[0]} of {N_TEST} queries differ "
+              f"by more than 1e-5 (largest {result[1]:.3g}), means within {card_vs_cpu:.3g}; "
+              f"the CLI's CSV within {csv_vs_cpu:.3g} of the CPU's means; the CLI's table "
+              f"and CSV within {cli_vs_card:.3g} of this process's card run")
+        check(cli_vs_card <= 1e-4, f"{name}: the CLI vs this process's card run")
+        return result
+
+    held("slice1", feat_path)  # printed: the collapsed dump ranks by rounding
+    differing, _, card_vs_cpu, csv_vs_cpu, _ = held("centered", centered_path)
+    check(differing <= 0.01 * N_TEST and card_vs_cpu <= 1e-3 and csv_vs_cpu <= 1e-3,
+          (differing, card_vs_cpu, csv_vs_cpu))
+    # The collapse's witness: the same test images through the model as
+    # the CLI built it (--seed 0), before any step, against the dump.
+    dataset = get_data_generator(DATASET, classes=list(range(100)))
+    model, _ = common.build_embedding_model(100, "resnet-110-wfc", "inv_corr", 100, seed=0)
+    before = common.extract_test_features(model.to(device), dataset, device, BATCH, pick=0)
+    (std0, cos0), (std1, cos1) = feature_spread(before, emb), feature_spread(feats, emb)
+    print(f"feature spread (mean per-dimension std; mean cosine to the mean class "
+          f"embedding): before training {std0:.4g}, {cos0:.6f}; after 20 steps {std1:.4g}, "
+          f"{cos1:.6f}")
+    # nearest class centroid (the class embedding) and the model's softmax
+    out = run_cli("evaluate_classification_accuracy", "--dataset", DATASET,
+                  "--data_root", tmp, "--hierarchy", hierarchy, "--batch_size", str(BATCH),
+                  "--model", model_path, "--label", "centroids", "--layer", "l2norm",
+                  "--prob_features", "0", "--centroids", emb_path,
+                  "--model", model_path, "--label", "prob", "--layer", "prob",
+                  "--prob_features", "1", "--device", "cuda")
+    accuracy = parse_table(out)
+    check(sorted(accuracy) == ["centroids", "prob"] and all(
+        0.0 <= v <= 1.0 for row in accuracy.values() for v in row.values()), accuracy)
+    emb32 = emb.astype(np.float32)
+    dists = ((feats ** 2).sum(1)[:, None] + (emb32 ** 2).sum(1)[None, :]
+             - 2.0 * feats @ emb32.T)
+    host_acc = float(np.mean(np.argsort(dists, axis=1, kind="stable")[:, 0]
+                             == np.asarray(labels_test)))
+    print(f"nearest-centroid accuracy {accuracy['centroids']['Accuracy']:.4f}, a host "
+          f"argsort of the feature dump {host_acc:.4f}")
+    check(f"{host_acc:.4f}" == f"{accuracy['centroids']['Accuracy']:.4f}", host_acc)
+    return {"before_training": {"std": std0, "cos_to_mean_embedding": cos0},
+            "after_20_steps": {"std": std1, "cos_to_mean_embedding": cos1}}
+
+
+def topk_and_ranking_bitwise(device):
+    """Phase 5c: the exact top-k and the ranked class ids of both ranking
+    paths on the card, bitwise equal to the CPU's on tie-heavy inputs."""
+    import torch
+
+    from semantic_embeddings_torch.evaluation import retrieval as R
+    from semantic_embeddings_torch.ops import topk as TK
+
+    for case in TK.CHECK_CASES:
+        x = TK.check_inputs(case)
+        v, i = TK.exact_topk(x.to(device), case[2], chunk=case[3])
+        v_cpu, i_cpu = TK.exact_topk(x, case[2], chunk=case[3])
+        check(torch.equal(v.cpu(), v_cpu) and torch.equal(i.cpu(), i_cpu), f"top-k {case}")
+    for prefix in (None, 250):
+        ranked = R.ranking_check(device, prefix)
+        check(torch.equal(ranked, R.ranking_check(torch.device("cpu"), prefix)),
+              f"ranked class ids, prefix {prefix}")
+    print(f"top-k at {TK.CHECK_CASES} (rows, n, k, chunk) and the ranked class ids of "
+          "the full sort and the top-250 prefix: bitwise equal to the CPU")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -386,6 +931,32 @@ def main(argv=None):
                       f"({cos_bound[part, dtype][1]})" if (part, dtype) in cos_bound
                       else "") + f"  [{card}]")
 
+    # The library call of the same per-row function: cosine_embedding_loss
+    # gives 1 - cos(z, t), which for the unit rows t is the kernel's
+    # 1 - <z/|z|, t>; forward, and forward + backward through autograd (f32).
+    # Beside it the launch floor: the device time of an empty kernel
+    # (torch.cuda._sleep(0), one kernel that spins for zero cycles).
+    z, t, g = path_inputs[torch.float32]
+    ones = torch.ones(z.shape[0], device=device)
+    zg = z.detach().clone().requires_grad_()
+    torch.testing.assert_close(
+        torch.nn.functional.cosine_embedding_loss(z, t, ones, reduction="none"),
+        C._plain_forward(z, t), rtol=0, atol=1e-5)
+    library = {
+        "fwd": lambda: torch.nn.functional.cosine_embedding_loss(
+            z, t, ones, reduction="none"),
+        "bwd": lambda: torch.autograd.grad(torch.nn.functional.cosine_embedding_loss(
+            zg, t, ones, reduction="none"), zg, g),
+    }
+    lib_times = {part: (time_ms(fn), device_ms(fn)) for part, fn in library.items()}
+    floor = (time_ms(lambda: torch.cuda._sleep(0)), device_ms(lambda: torch.cuda._sleep(0)))
+    for part, (ms, dev) in lib_times.items():
+        print(f"library (100, 100) f32 {part}: cosine_embedding_loss"
+              + (" forward + backward" if part == "bwd" else "")
+              + f" per call {ms * 1e3:.2f} us, device time {dev * 1e3:.2f} us  [{card}]")
+    print(f"launch floor: empty kernel per call {floor[0] * 1e3:.2f} us, device time "
+          f"{floor[1] * 1e3:.2f} us  [{card}]")
+
     # -- 4. conv kernels against their plain versions -------------------
     phase("4 conv3x3 kernels vs plain (TF32 off)")
     common.set_float32_precision()
@@ -466,6 +1037,7 @@ def main(argv=None):
     hierarchy = os.path.join(tmp, "taxonomy.parent-child.txt")
     emb_path = os.path.join(tmp, "embedding.pickle")
     feat_path = os.path.join(tmp, "feat.pickle")
+    model_path = os.path.join(tmp, "model.pt")
     write_taxonomy(hierarchy)
     # the port's compute_class_embedding CLI, in its own process
     sys.stdout.flush()
@@ -488,7 +1060,7 @@ def main(argv=None):
         "--architecture", "resnet-110-wfc", "--loss", "inv_corr",
         "--cls_weight", "0.1", "--fused_loss", "--lr_schedule", "SGDR",
         "--sgdr_max_lr", "0.5", "--batch_size", str(BATCH), "--epochs", "1",
-        "--feature_dump", feat_path, "--device", "cuda",
+        "--feature_dump", feat_path, "--model_dump", model_path, "--device", "cuda",
     ]
     C.launches_fwd = C.launches_bwd = 0
     tee = _Tee(sys.stdout)
@@ -519,6 +1091,28 @@ def main(argv=None):
     norms = np.linalg.norm(feats.astype(np.float64), axis=1)
     check(np.isfinite(feats).all() and np.abs(norms - 1.0).max() <= 1e-5, norms)
     print(f"feature dump {feats.shape}, max |norm - 1| {np.abs(norms - 1).max():.3g}")
+
+    # -- 5b. stage 3 on slice 1's dumps --------------------------------
+    phase("5b stage 3: evaluate_retrieval + evaluate_classification_accuracy")
+    collapse = stage3(device, tmp, hierarchy, feat_path, model_path, emb_path, emb, feats)
+
+    # -- 5c. exact top-k and ranking, card vs CPU ----------------------
+    phase("5c exact top-k and ranking on the card vs the CPU, bitwise")
+    topk_and_ranking_bitwise(device)
+
+    # -- 5d. retrieval throughput --------------------------------------
+    phase("5d retrieval throughput, bench_retrieval.py's two protocols")
+    taxonomy_1000 = os.path.join(tmp, "taxonomy1000.parent-child.txt")
+    write_taxonomy_1000(taxonomy_1000)
+    retrieval_rates = {
+        "cifar100_test": retrieval_protocol(
+            10_000, 100, 100, ClassHierarchy.from_file(hierarchy, id_type=int), True,
+            device, card),
+        "ilsvrc_val": retrieval_protocol(
+            50_000, 1000, 1000, ClassHierarchy.from_file(taxonomy_1000, id_type=int), False,
+            device, card),
+    }
+    torch.cuda.empty_cache()
 
     # -- 6. one step through the kernels vs the plain versions -----------
     phase("6 one resnet-110-wfc train step: kernel vs plain")
@@ -694,6 +1288,12 @@ def main(argv=None):
     norms = np.linalg.norm(feats.astype(np.float64), axis=1)
     check(np.isfinite(feats).all() and np.abs(norms - 1.0).max() <= 1e-5, norms)
     print(f"features {feats.shape}, max |norm - 1| {np.abs(norms - 1).max():.3g}")
+    # the trained state and the metadata the trainer CLI writes, for 10b
+    from semantic_embeddings_torch.train.state import save_checkpoint
+
+    rn50_ckpt = os.path.join(tmp, "resnet50.pt")
+    save_checkpoint(rn50_ckpt, state, {"architecture": "resnet-50", "embed_dim": 100,
+                                       "loss": "inv_corr", "cls_classes": 100})
     del state, eval_step
     torch.cuda.empty_cache()
 
@@ -767,6 +1367,13 @@ def main(argv=None):
                 batches, label, table, n=5, batch=RN50_BATCH)
             rn50_rates.setdefault((path, precision), []).append(result)
     summary = {f"{path}_{precision}": runs for (path, precision), runs in rn50_rates.items()}
+    del state_k, state_p, batches
+    torch.cuda.empty_cache()
+
+    # -- 10b. serving ResNet-50 @ 224 over HTTP -------------------------
+    phase("10b serving resnet-50 @ 224 over HTTP (serve_model.make_server)")
+    serving = serve_resnet50(rn50_ckpt, device, card, CC, reset_counts, read_counts)
+    torch.cuda.empty_cache()
 
     # -- 11. no JAX ----------------------------------------------------
     phase("11 no jax, no JAX package")
@@ -789,7 +1396,11 @@ def main(argv=None):
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
             "bound_ms": cos_bound[part, f32][0], "bound_by": cos_bound[part, f32][1],
-            "library_ms": None,
+            "library_ms": lib_times[part][0],
+            "library_device_ms": lib_times[part][1],
+            "library_call": "torch.nn.functional.cosine_embedding_loss"
+                            + (" forward + backward" if part == "bwd" else ""),
+            "launch_floor_ms": floor[0], "launch_floor_device_ms": floor[1],
             "device_ms": dev_times[part, f32][0],
             "plain_device_ms": dev_times[part, f32][1],
             "ms_bf16": times[part, bf16][0], "plain_ms_bf16": times[part, bf16][1],
@@ -808,6 +1419,12 @@ def main(argv=None):
             "replaces": replaces,
             "launches": rn50_launches[name],
             "launches_per_step": RN50_CONVS,
+            # phase 10b: the serving path's launches (16 a device call)
+            **({"launches_serving": {run: r["conv3x3_bn_stats_launches"]
+                                     for run, r in serving.items()},
+                "serving_device_calls": {run: r["device_calls"]
+                                         for run, r in serving.items()}}
+               if name == "conv3x3_bn_stats" else {}),
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -824,7 +1441,9 @@ def main(argv=None):
                          for case in CC.STAGE_SHAPES for dtype in (f32, bf16)},
         })
     print(json.dumps({"kernels": kernels, "card": card,
-                      "train_img_per_s_f32": rates, "resnet50_steps": summary}))
+                      "train_img_per_s_f32": rates, "resnet50_steps": summary,
+                      "retrieval": retrieval_rates, "serving": serving,
+                      "slice1_feature_spread": collapse}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

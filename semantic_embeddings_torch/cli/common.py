@@ -14,6 +14,7 @@ import torch
 from ..embeddings import save_features
 from ..models import EmbeddingModel, build_network
 from ..train import LOSS_OUTPUT, new_train_state
+from ..train.trainer import maybe_autocast
 
 
 def add_lr_schedule_arguments(parser):
@@ -97,6 +98,19 @@ def schedule_args_from(args):
     return {name: value for name, value in vars(args).items() if value is not None}
 
 
+def str2bool(v):
+    """The reference's flexible boolean flag parser (used by --norm)."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    import argparse
+
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
 def load_class_embedding(path_or_onehot):
     """Loads an embedding pickle, or None for 'onehot'."""
     if path_or_onehot == "onehot":
@@ -144,25 +158,12 @@ def print_model_summary(state, architecture):
         f"{len(params)} tensors (+{n_stats:,} batch-norm statistics)")
 
 
-@torch.no_grad()
 def extract_test_features(model, dataset, device, batch_size=100, pick=None,
                           autocast_dtype=None):
-    """Predicts the model output for every test image, in dataset order,
-    as masked fixed-size batches fetched from the device once."""
-    prepare = dataset.make_prepare(device)
-    model.eval()
-    outs, valids = [], []
-    for raw in dataset.test_batches(batch_size):
-        images, _ = prepare(raw, None, False)
-        if autocast_dtype is None:
-            out = model(images)
-        else:
-            with torch.autocast(device_type=device.type, dtype=autocast_dtype):
-                out = model(images)
-        outs.append((out[pick] if pick is not None else out).float())
-        valids.append(np.asarray(raw["valid"]) > 0)
-    feats = torch.cat(outs).cpu().numpy()
-    return feats[np.concatenate(valids)]
+    """The model's output for every test image, in dataset order (the
+    embedding of an (embedding, prob) model unless ``pick`` selects)."""
+    return extract_by_tap(model, dataset.make_prepare(device), dataset.test_batches(batch_size),
+                          device, pick=pick, autocast_dtype=autocast_dtype)
 
 
 def dump_artifacts(args, state, model, dataset, device, cls_weight=0.0,
@@ -191,6 +192,103 @@ def dump_artifacts(args, state, model, dataset, device, cls_weight=0.0,
             batch_size=getattr(args, "val_batch_size", 100) or 100,
             pick=0 if cls_weight > 0 else None, autocast_dtype=autocast_dtype)
         save_features(args.feature_dump, feats)
+
+
+def resolve_tap(taps, layer):
+    """The feature tap named ``layer`` from a model's ``taps`` dict; raises
+    with the available names otherwise.  Shared by feature extraction and
+    serving, so that both resolve taps alike."""
+    if layer not in taps:
+        raise ValueError(f"No feature tap named {layer!r}; available: {sorted(taps)}")
+    return taps[layer]
+
+
+def forward_tap(model, images, layer=None, pick=None):
+    """The model's output at tap ``layer`` (avg_pool / embedding / l2norm /
+    prob / softmax), or its final output with ``layer=None``; of a
+    multi-output model (embedding, prob) the embedding unless ``pick``
+    selects another element."""
+    if layer is None:
+        out = model(images)
+        if isinstance(out, tuple):
+            out = out[0 if pick is None else pick]
+        return out
+    taps = {}
+    model(images, taps=taps)
+    return resolve_tap(taps, layer)
+
+
+@torch.inference_mode()
+def extract_by_tap(model, prepare, batches, device, layer=None, train_branch=False,
+                   pick=None, seed=0, autocast_dtype=None):
+    """Features at a named tap for every batch, in order, masked by the
+    batches' ``valid`` and fetched from the device once; the eval-mode
+    counterpart of the reference's ``--layer`` sub-model extraction.
+
+    ``prepare(raw, rng, train)`` turns a raw batch into images on
+    ``device``.  With ``train_branch=True`` the augmentation draws from one
+    ``torch.Generator`` seeded with ``seed`` that advances batch by batch,
+    so repeated passes over the data see fresh augmentations.
+    ``autocast_dtype`` (``torch.bfloat16`` for ``--bf16``) runs the forward
+    under autocast; features come back as f32.
+    """
+    rng = torch.Generator(device=device).manual_seed(seed)
+    model.eval()
+    chunks, valids = [], []
+    for raw in batches:
+        images, _ = prepare(raw, rng, train_branch)
+        with maybe_autocast(device, autocast_dtype):
+            feats = forward_tap(model, images, layer, pick)
+        chunks.append(feats.float())
+        valids.append(np.asarray(raw["valid"]) > 0 if "valid" in raw
+                      else np.ones(len(feats), dtype=bool))
+    fetched = torch.cat(chunks).cpu().numpy()
+    return fetched[np.concatenate(valids)]
+
+
+def load_checkpoint_raw(path):
+    """(state_dict, metadata) of a ``--model_dump``/``--snapshot`` file, or
+    of a ``--weight_dump`` (a bare ``state_dict``, no metadata)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in payload and isinstance(payload["model"], dict):
+        return payload["model"], payload.get("metadata", {})
+    return payload, {}
+
+
+def rebuild_model_from_checkpoint(path, device, architecture=None):
+    """Loads a model dump and rebuilds the module from its metadata (the
+    embedding width, loss and classification head that the trainer
+    records), on ``device`` in eval mode.  bf16 is the caller's
+    ``torch.autocast``; the weights stay f32.  Returns ``(model, metadata)``.
+    """
+    state_dict, meta = load_checkpoint_raw(path)
+    arch = meta.get("architecture") or architecture
+    if arch is None:
+        raise ValueError(f"Checkpoint {path} has no architecture metadata; pass "
+                         "--architecture.")
+    reject_unported([
+        ("serving or evaluating a classifier checkpoint (no embedding head)",
+         not any(k.startswith("backbone.") for k in state_dict)),
+        ("a checkpoint with cls_base", meta.get("cls_base") is not None),
+    ])
+    if "loss" not in meta:
+        import warnings
+
+        warnings.warn(
+            f"Checkpoint {path} lacks 'loss' metadata; assuming 'inv_corr' "
+            "(l2norm output).", RuntimeWarning)
+    embed_dim = meta.get("embed_dim")
+    if embed_dim is None:
+        top = state_dict.get("backbone.top.weight")
+        embed_dim = int(top.shape[0]) if top is not None else 0
+    cls_classes = meta.get("cls_classes", 0)
+    if not cls_classes and "cls_top.weight" in state_dict:
+        cls_classes = int(state_dict["cls_top.weight"].shape[0])
+    model, _ = build_embedding_model(
+        embed_dim, arch, meta.get("loss", "inv_corr"), cls_classes,
+        input_channels=int(state_dict["backbone.conv0.weight"].shape[1]))
+    model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval(), meta
 
 
 class MetricsLogger:

@@ -1,0 +1,233 @@
+"""CLI: serve a trained model over HTTP with dynamic micro-batching.
+
+The PyTorch counterpart of the JAX package's ``cli/serve_model.py`` for a
+checkpoint (``--model_dump`` / ``--snapshot`` of the port's trainer), with
+``--device``.  Run it as ``python -m semantic_embeddings_torch.cli.serve_model``:
+
+    python -m semantic_embeddings_torch.cli.serve_model --checkpoint model.pt \\
+        --layer l2norm --input_size 224 --dataset ilsvrc --warmup
+
+    curl -s localhost:8000/healthz
+    curl -s -X POST -H 'Content-Type: image/jpeg' \\
+        --data-binary @img.jpg localhost:8000/v1/predict
+
+The forward runs on the device in eval mode under ``torch.inference_mode()``
+(bf16 under ``torch.autocast`` with ``--bf16``), through the model's own
+kernels (the ImageNet ResNets' fused 3x3 conv + BN statistics).
+Normalization: ``--dataset`` picks that dataset's channel statistics, or
+``--mean``/``--std`` give them; JSON requests may skip it with
+``"normalized": true``.  SIGTERM stops accepting, drains and exits 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        description="Serves a trained model over HTTP with dynamic "
+                    "micro-batching.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    src = parser.add_argument_group("model source")
+    src.add_argument("--artifact", type=str, default=None,
+                     help="Exported model artifact (not ported yet).")
+    src.add_argument("--checkpoint", type=str, default=None,
+                     help="Model dump / snapshot to serve.")
+    src.add_argument("--architecture", type=str, default=None,
+                     help="Backbone architecture (checkpoints without "
+                          "metadata only).")
+    src.add_argument("--layer", type=str, default=None,
+                     help="Feature tap (l2norm / embedding / prob / avg_pool).")
+    src.add_argument("--input_size", type=int, default=None,
+                     help="Input image height/width (default 32).")
+    src.add_argument("--input_channels", type=int, default=3)
+    src.add_argument("--bf16", action="store_true", default=False,
+                     help="Run the forward in bfloat16 under torch.autocast "
+                          "(f32 weights).")
+    src.add_argument("--device", type=str, default="cuda",
+                     help="Device to run on (cuda, cuda:N or cpu). A CUDA "
+                          "device that is not present is an error.")
+
+    srv = parser.add_argument_group("server")
+    srv.add_argument("--host", type=str, default="127.0.0.1")
+    srv.add_argument("--port", type=int, default=8000)
+    srv.add_argument("--max_batch", type=int, default=256,
+                     help="Largest device batch (and request size cap).")
+    srv.add_argument("--batch_timeout_ms", type=float, default=2.0,
+                     help="How long the batcher waits to fill a batch "
+                          "after the first request arrives.")
+    srv.add_argument("--request_timeout_s", type=float, default=60.0)
+    srv.add_argument("--gpus", type=int, default=1,
+                     help="Number of devices to serve on (only 1 is ported).")
+    srv.add_argument("--max_queue", type=int, default=None,
+                     help="Pending-image cap; beyond it requests get HTTP "
+                          "503 + Retry-After instead of queueing unbounded "
+                          "(default: 16 full batches).")
+    srv.add_argument("--warmup", action="store_true", default=False,
+                     help="Run every batch bucket once before accepting "
+                          "traffic (cuDNN algorithm choice, kernel builds).")
+
+    prep = parser.add_argument_group("preprocessing")
+    prep.add_argument("--dataset", type=str, default=None,
+                      help="Use this dataset's channel mean/std for "
+                           "normalization.")
+    prep.add_argument("--data_root", type=str, default=None,
+                      help="Dataset root (only needed when the --dataset "
+                           "statistics require reading the data).")
+    prep.add_argument("--mean", type=str, default=None,
+                      help="Channel mean as CSV, e.g. 125.3,123.0,113.9.")
+    prep.add_argument("--std", type=str, default=None,
+                      help="Channel std as CSV.")
+    prep.add_argument("--target_size", type=int, default=None,
+                      help="Shorter-side resize target for JPEG requests "
+                           "before the center crop (default: crop size).")
+    prep.add_argument("--device_preproc", action="store_true", default=False,
+                      help="Transfer uint8 pixels and run the mean/std "
+                           "normalization on the device: a quarter of the "
+                           "host-to-device bytes. Requests must carry raw "
+                           "pixel values (JPEG, or integer arrays in [0, 255]).")
+    return parser
+
+
+def _csv_floats(text):
+    return [float(v) for v in text.split(",") if v.strip()]
+
+
+def build_model_fn(args, device):
+    """Returns ``(forward, meta)``: ``forward`` maps normalized (B, H, W, C)
+    images on ``device`` to the served output (tensors, f32)."""
+    from . import common
+
+    common.reject_unported([("--artifact", args.artifact is not None)])
+    if not args.checkpoint:
+        raise SystemExit("pass --checkpoint")
+    model, ckpt_meta = common.rebuild_model_from_checkpoint(
+        args.checkpoint, device, args.architecture)
+    layer = args.layer
+    autocast_dtype = torch.bfloat16 if args.bf16 else None
+    meta = {"checkpoint": os.path.abspath(args.checkpoint), "layer": layer,
+            "compute_dtype": "bfloat16" if args.bf16 else "float32",
+            "device": str(device)}
+    meta.update({k: v for k, v in ckpt_meta.items()
+                 if isinstance(v, (str, int, float, bool, type(None)))})
+    meta["input_size"] = args.input_size or 32
+    meta["input_channels"] = args.input_channels
+
+    def forward(images):
+        with torch.inference_mode(), common.maybe_autocast(device, autocast_dtype):
+            # without --layer the whole output, (embedding, prob) included
+            out = model(images) if layer is None else common.forward_tap(model, images, layer)
+        if isinstance(out, tuple):
+            return tuple(t.float() for t in out)
+        return out.float()
+
+    return forward, meta
+
+
+#: Published channel statistics (the reference README's), so that serving
+#: does not need the training data on disk.
+PUBLISHED_STATS = {
+    "cifar-100": ([129.30386353, 124.06987, 112.43356323],
+                  [68.17019653, 65.39176178, 70.4180603]),
+    "nab": ([125.30513277, 129.66606421, 118.45121113],
+            [57.0045467, 56.70059436, 68.44430446]),
+}
+
+
+def resolve_stats(args):
+    if args.mean or args.std:
+        return (_csv_floats(args.mean) if args.mean else None,
+                _csv_floats(args.std) if args.std else None)
+    if args.dataset:
+        from .. import data as data_mod
+
+        name = args.dataset.lower()
+        if name in PUBLISHED_STATS:
+            return PUBLISHED_STATS[name]
+        if name in ("cub", "cub-large"):
+            return data_mod.CUB_STATS
+        if name in ("ilsvrc", "imagenet") or name.endswith("-ilsvrcmean"):
+            return data_mod.IMAGENET_MEAN, data_mod.IMAGENET_STD
+        if name.endswith("-caffe"):
+            return data_mod.CAFFE_MEAN, data_mod.CAFFE_STD
+        if args.data_root:
+            # the port's in-memory datasets keep their statistics on the
+            # 0-255 pixel scale already
+            ds = data_mod.get_data_generator(name, args.data_root)
+            return list(np.asarray(ds.mean).ravel()), list(np.asarray(ds.std).ravel())
+        raise SystemExit(
+            f"no published stats for dataset '{args.dataset}'; pass "
+            "--data_root to compute them or give --mean/--std directly")
+    return None, None
+
+
+def make_server(args):
+    from ..data.cifar import to_device
+    from ..serving import BatchingEngine, Preprocessor, ServingServer
+    from . import common
+
+    common.reject_unported([("--gpus > 1", args.gpus > 1)])
+    device = common.resolve_device(args.device)
+    common.set_float32_precision()
+    forward, meta = build_model_fn(args, device)
+    mean, std = resolve_stats(args)
+    meta["mean"], meta["std"] = mean, std
+    if args.device_preproc:
+        # uint8 on the wire; the cast and the mean/std run on the device
+        mean_dev = torch.as_tensor(mean if mean is not None else 0.0,
+                                   dtype=torch.float32, device=device)
+        std_dev = torch.as_tensor(std if std is not None else 1.0,
+                                  dtype=torch.float32, device=device)
+
+        def fn(batch):
+            return forward((to_device(batch, device).float() - mean_dev) / std_dev)
+
+        engine_dtype = np.uint8
+        meta["device_preproc"] = True
+    else:
+        def fn(batch):
+            return forward(to_device(batch, device))
+
+        engine_dtype = np.float32
+    preproc = Preprocessor(meta["input_size"], args.input_channels, mean=mean, std=std,
+                           target_size=args.target_size, device_norm=args.device_preproc)
+    engine = BatchingEngine(
+        fn, (meta["input_size"], meta["input_size"], args.input_channels),
+        max_batch=args.max_batch, timeout_ms=args.batch_timeout_ms,
+        max_queue=args.max_queue, dtype=engine_dtype)
+    return ServingServer(engine, preproc, meta, host=args.host, port=args.port,
+                         request_timeout=args.request_timeout_s)
+
+
+def main(argv=None):
+    import signal
+    import threading
+
+    args = build_parser().parse_args(argv)
+    server = make_server(args)
+    if args.warmup:
+        print(f"warming up buckets {server.engine.buckets} ...", flush=True)
+        timings = server.engine.warmup()
+        print(f"warmup done: {timings} s per bucket", flush=True)
+    print(f"serving on http://{args.host}:{server.port}  "
+          f"(max_batch {args.max_batch}, timeout {args.batch_timeout_ms} ms)",
+          flush=True)
+    # Graceful SIGTERM: stop accepting, drain in-flight requests, exit 0.
+    # shutdown() must come from another thread than serve_forever's.
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+        target=server.httpd.shutdown, daemon=True).start())
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    print("serving stopped", flush=True)
+
+
+if __name__ == "__main__":
+    main()

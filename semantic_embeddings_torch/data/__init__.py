@@ -9,6 +9,15 @@ from __future__ import annotations
 from .base import DatasetBase
 from .cifar import CifarDataset, InMemoryDataset, SyntheticDataset
 
+# Published channel statistics (0-255 pixel scale), as the JAX package's
+# ``data/__init__.py`` has them; serving normalizes with them.
+CAFFE_MEAN = [123.68, 116.779, 103.939]
+CAFFE_STD = [1.0, 1.0, 1.0]
+IMAGENET_MEAN = [122.65435242, 116.6545058, 103.99789959]
+IMAGENET_STD = [71.40583196, 69.56888997, 73.0440314]
+CUB_STATS = ([123.82988033, 127.35116805, 110.25606303],
+             [59.2230949, 58.0736071, 67.80251684])
+
 
 def get_data_generator(dataset, data_root=None, classes=None, **extra):
     """Creates a dataset by name with the original defaults."""
@@ -42,4 +51,9 @@ __all__ = [
     "InMemoryDataset",
     "CifarDataset",
     "SyntheticDataset",
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "CAFFE_MEAN",
+    "CAFFE_STD",
+    "CUB_STATS",
 ]

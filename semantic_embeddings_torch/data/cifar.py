@@ -121,6 +121,15 @@ class InMemoryDataset(DatasetBase):
         for i, v in zip(idx, valid):
             yield {"idx": i.astype(np.int32), "valid": v}
 
+    def train_eval_batches(self, batch_size, epochs=1):
+        """Ordered masked batches over the training set, ``epochs`` passes
+        (SVM-mode feature extraction); consume with ``prepare(raw, rng,
+        train=True)`` from ``make_prepare(augment_train=...)``."""
+        for _ in range(epochs):
+            yield from (
+                {"idx": i.astype(np.int32), "valid": v}
+                for i, v in zip(*batched_indices_masked(self.num_train, batch_size)))
+
     # -- device side ---------------------------------------------------
 
     def device_arrays(self, device):

@@ -56,7 +56,8 @@ class ResidualBlock(nn.Module):
 
 class SmallResNet(nn.Module):
     """Takes NHWC images; returns (B, classes) with a top, else the pooled
-    (B, filters[-1]) features."""
+    (B, filters[-1]) features.  The feature taps carry the JAX module's
+    ``sow`` names."""
 
     def __init__(self, n=9, filters: Sequence[int] = (16, 32, 64), classes=100,
                  include_top=True, input_channels=3, generator=None):
@@ -79,12 +80,18 @@ class SmallResNet(nn.Module):
         if include_top:
             self.top = dense(filters[-1], classes, generator)
 
-    def forward(self, x):
+    def forward(self, x, taps=None):
+        """``taps``: a dict that, when given, also receives the pooled
+        features as ``avg_pool`` and the top's output as ``embedding``."""
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
         x = torch.relu(self.bn0(self.conv0(x)))
         for name in self.blocks:
             x = getattr(self, name)(x)
         x = global_avg_pool(x)
+        if taps is not None:
+            taps["avg_pool"] = x
         if self.include_top:
             x = self.top(x)
+            if taps is not None:
+                taps["embedding"] = x
         return x

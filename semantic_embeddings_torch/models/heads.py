@@ -49,12 +49,17 @@ class EmbeddingModel(nn.Module):
         other.cls_input = cls_input
         return other
 
-    def forward(self, x):
-        emb = self.backbone(x)
+    def forward(self, x, taps=None):
+        """``taps``: a dict that, when given, also receives the backbone's
+        taps and the output transform's (``l2norm`` or ``softmax``) and the
+        head's ``prob``, the JAX modules' ``sow`` names and values."""
+        emb = self.backbone(x, taps)
         if self.output == "l2norm":
             emb = l2norm(upcast32(emb))
         elif self.output == "softmax":
             emb = torch.softmax(upcast32(emb), dim=-1)
+        if taps is not None and self.output != "linear":
+            taps[self.output] = emb
 
         if self.cls_classes > 0:
             head_in = l2norm(upcast32(emb)) if self.cls_input == "l2norm" else emb
@@ -62,5 +67,7 @@ class EmbeddingModel(nn.Module):
             y = self.cls_bn(y)
             y = self.cls_top(y)
             prob = torch.softmax(upcast32(y), dim=-1)
+            if taps is not None:
+                taps["prob"] = prob
             return emb, prob
         return emb

@@ -135,7 +135,10 @@ class ResNet(nn.Module):
         if include_top:
             self.top = dense(in_f, classes, generator)
 
-    def forward(self, x):
+    def forward(self, x, taps=None):
+        """``taps``: a dict that, when given, also receives the pooled
+        features as ``avg_pool`` and the top's output as ``embedding`` (the
+        JAX module's ``sow`` names)."""
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
         # Keras-2.2 stem (keras_applications resnet50): ZeroPadding2D(3) +
         # VALID 7x7/2 conv, then ZeroPadding2D(1) + VALID 3x3/2 max-pool.
@@ -146,8 +149,12 @@ class ResNet(nn.Module):
         for name in self.blocks:
             x = getattr(self, name)(x)
         x = global_avg_pool(x)
+        if taps is not None:
+            taps["avg_pool"] = x
         if self.include_top:
             x = self.top(x)
+            if taps is not None:
+                taps["embedding"] = x
         return x
 
 

@@ -41,7 +41,8 @@ LOSS_OUTPUT = {
 }
 
 
-def _autocast(device, dtype):
+def maybe_autocast(device, dtype):
+    """``torch.autocast`` to ``dtype`` on ``device``, or nothing for None."""
     if dtype is None:
         return contextlib.nullcontext()
     return torch.autocast(device_type=device.type, dtype=dtype)
@@ -104,7 +105,7 @@ def make_train_step(
         images, labels = prepare(raw_batch, rng, True)
         targets = table[labels]
         model.train()
-        with _autocast(device, autocast_dtype):
+        with maybe_autocast(device, autocast_dtype):
             out = model(images)
         metrics = {}
         if cls_weight > 0:
@@ -168,7 +169,7 @@ def make_eval_step(
         )
         targets = table[labels]
         model.eval()
-        with _autocast(device, autocast_dtype):
+        with maybe_autocast(device, autocast_dtype):
             out = model(images)
         metrics = {}
         if cls_weight > 0:

@@ -14,6 +14,7 @@ import torch
 from semantic_embeddings_torch.embeddings import load_features, save_embeddings
 from semantic_embeddings_torch.ops import conv3x3 as cc
 from semantic_embeddings_torch.ops import cosine_loss as tc
+from semantic_embeddings_torch.ops import topk
 
 pytestmark = pytest.mark.cuda
 
@@ -298,6 +299,78 @@ def test_conv_autograd_through_kernels(device):
     (dx, dw), (dx_p, dw_p) = grads
     torch.testing.assert_close(dx, dx_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dw, dw_p, rtol=0, atol=1e-4 * dw_p.abs().max().item())
+
+
+@pytest.mark.parametrize("case", topk.CHECK_CASES)
+def test_exact_topk_on_the_card_equals_the_cpu(device, case):
+    """Tie-heavy rows and rows of +-inf: values and indices bitwise equal."""
+    x = topk.check_inputs(case)
+    _, _, k, chunk = case
+    v, i = topk.exact_topk(x.to(device), k, chunk=chunk)
+    v_cpu, i_cpu = topk.exact_topk(x, k, chunk=chunk)
+    assert torch.equal(v.cpu(), v_cpu) and torch.equal(i.cpu(), i_cpu)
+
+
+@pytest.mark.parametrize("prefix", [None, 250])
+def test_ranking_on_the_card_equals_the_cpu(device, prefix):
+    """The ranked class ids of both ranking paths (the full stable sort and
+    the exact top-k), bitwise equal to the CPU's on tie-heavy inputs."""
+    from semantic_embeddings_torch.evaluation import retrieval
+
+    got = retrieval.ranking_check(device, prefix)
+    assert got.shape == (512, 3999 if prefix is None else prefix)
+    assert torch.equal(got, retrieval.ranking_check(torch.device("cpu"), prefix))
+
+
+def test_retrieval_on_the_card_agrees_with_the_cpu(device, tmp_path):
+    """evaluate_retrieval_features on the card and on the CPU: per-query
+    values within 1e-5 (exact similarities; the cumulative sums differ in
+    order only)."""
+    from semantic_embeddings_torch.evaluation import retrieval
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy
+
+    rng = np.random.default_rng(0)
+    feats = rng.integers(-3, 4, (3000, 16)).astype(np.float32)
+    labels = [int(c) for c in rng.integers(0, 100, 3000)]
+    tree = tmp_path / "taxonomy.txt"
+    tree.write_text("".join(f"200 {100 + s}\n" + "".join(
+        f"{100 + s} {5 * s + leaf}\n" for leaf in range(5)) for s in range(20)))
+    h = ClassHierarchy.from_file(str(tree), id_type=int)
+    for kwargs in (dict(compute_ahp=True, compute_ap=True),
+                   dict(compute_ahp=250, compute_ap=False)):
+        _, on_card = retrieval.evaluate_retrieval_features(
+            feats, labels, h, block_size=1024, device=device, **kwargs)
+        _, on_cpu = retrieval.evaluate_retrieval_features(
+            feats, labels, h, block_size=1024, device=torch.device("cpu"), **kwargs)
+        for name in on_cpu:
+            np.testing.assert_allclose(list(on_card[name].values()),
+                                       list(on_cpu[name].values()), rtol=0, atol=1e-5)
+
+
+def test_serving_fn_launches_the_conv_kernel(device, tmp_path):
+    """A served rn18 forward runs through the conv + statistics kernel, 8
+    launches a device call, and equals a direct eval forward."""
+    from semantic_embeddings_torch.cli import common, serve_model
+    from semantic_embeddings_torch.train.state import new_train_state, save_checkpoint
+
+    model, _ = common.build_embedding_model(16, "rn18", "inv_corr", 0)
+    path = str(tmp_path / "m.pt")
+    save_checkpoint(path, new_train_state(model), {
+        "architecture": "rn18", "embed_dim": 16, "loss": "inv_corr", "cls_classes": 0})
+    srv = serve_model.make_server(serve_model.build_parser().parse_args(
+        ["--checkpoint", path, "--input_size", "64", "--port", "0", "--max_batch", "4",
+         "--layer", "l2norm"]))
+    x = np.random.default_rng(0).normal(size=(4, 64, 64, 3)).astype(np.float32)
+    srv.start()
+    try:
+        before = cc.launches_conv_bn_stats
+        got = srv.engine.predict(x, timeout=60)
+        assert cc.launches_conv_bn_stats - before == 8
+    finally:
+        srv.stop()
+    with torch.no_grad():
+        direct = model.to(device).eval()(torch.from_numpy(x).to(device)).cpu().numpy()
+    np.testing.assert_allclose(got, direct, rtol=0, atol=1e-5)
 
 
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(device):
