@@ -59,7 +59,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 6. One resnet-110-wfc train step through the kernels against one through
    the plain versions, from one copied state and one batch with fixed
    augmentation.
-7. Time 20 steady-state resnet-110-wfc train steps (f32, batch 100).  With
+7. Time 10 steady-state resnet-110-wfc train steps (f32, batch 100).  With
    ``--profile DIR`` also profile the step in f32 and bf16 (device time,
    GPU kernels per step, busy share, peak memory; tables into DIR) and time
    the host's issue of each piece of an f32 step.
@@ -78,14 +78,36 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    tensor of the kernel step is farther from the f64 step than twice the
    plain f32 step's farthest.
 10. ResNet-50 train-step throughput in f32 and bf16, through the kernels
-   and through the plain versions (in turns: kernel, plain, kernel), and
-   their device time, busy share and peak memory (``torch.profiler``).
+   and through the plain versions (in turns: kernel, plain, kernel; 8 steps
+   each), and their device time, busy share and peak memory
+   (``torch.profiler``, 3 steps).
 10b. Serve phase 8's trained ResNet-50 through ``serve_model.make_server``
    and drive it over HTTP from 16 threads of another process (f32 npy
    wire, uint8 wire with ``--device_preproc``, bf16), and once more under
    ``torch.profiler``: see :func:`serve_resnet50`.
-11. Check that neither JAX nor any module of the JAX package
+11. Import every module of the port (the model zoo's too) and check that
+   neither JAX nor any module of the JAX package
    (``semantic_embeddings_tpu``) was imported.
+12. The model zoo at its published widths, TF32 off: (a) build every
+   architecture name (and ``resnet-110-selu`` and a ``classification``
+   WRN) on the card from a fixed generator and run an eval forward at batch
+   2 at its input size (finite outputs; parameter counts printed); (b)
+   train ``simple``, ``wrn-28-10`` (with ``--cls_base top``, its dump then
+   through ``evaluate_classification_accuracy --layer prob``) and
+   ``pyramidnet-272-200`` at batch 128 and ``densenet-bc-190-40`` at batch
+   64 through ``learn_image_embeddings`` in their own processes (one epoch
+   of 3 batches, inv_corr through the cosine kernels + the 0.1 softmax
+   head, feature and model dumps): finite losses, unit-norm features, and
+   each model dump rebuilt reproduces its features within 1e-5; in this
+   process, one step of each through the cosine kernels and one through the
+   plain loss from the same weights (losses within 1e-6 relative, the
+   kernel pair launched 1 + 1 times), then 8 warm steps timed (img/s of
+   the median step, peak memory); (c) NASNet-A at 224 px, batch 32, 3 steps through ``fit`` in
+   f32, then one bf16 autocast step; (d) one ResNet-50 step with
+   ``--remat`` and one without from the same weights: running statistics
+   bitwise equal, loss and parameters within 1e-6 of each update,
+   ``conv3x3_bn_stats`` launched 32 against 16 times, the filter gradient
+   16 in both, and less peak memory with remat.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -439,6 +461,14 @@ def retrieval_protocol(n, d, n_classes, hierarchy, full_ap, device, card, runs=5
 
 
 SERVE_IMAGES, SERVE_THREADS, SERVE_SIZE = 256, 16, 224
+# every request of a timed serving pass, as its client sees it (first sent
+# to answered, a retry included), within this many seconds; a whole pass
+# takes about 1 s
+SERVE_REQUEST_BOUND_S = 15.0
+# the clients' socket timeout.  A request whose connection stalls in the
+# connect or the send (``URLError``) is sent once more on a new connection,
+# and counted: once in a pass at most.  A late answer is not retried.
+SERVE_ATTEMPT_S = 10.0
 #: bf16 against f32 serving: the unit-norm 100-d outputs within 0.05 of each
 #: other elementwise and at cosine >= 0.99 (bf16 keeps 8 significant bits;
 #: ResNet-50's 53 layers add up a few 2**-8 relative errors)
@@ -461,25 +491,33 @@ def drive_clients(url, wire, commands, results):
     share the server's interpreter: on each "run" from ``commands`` sends
     every request of :func:`serve_traffic` from 16 threads through the
     port's client over the ``wire`` dtype, and puts (predictions, errors,
-    seconds from the first request to the last answer) on ``results``."""
+    seconds from the first request to the last answer, each request's
+    seconds, the retried requests' first errors) on ``results``."""
     import threading
+    import urllib.error
 
     from semantic_embeddings_torch.serving import ServingClient
 
     pixels, requests = serve_traffic()
     wire_dtype = np.dtype(wire)
     images = pixels if wire_dtype == np.uint8 else pixels.astype(wire_dtype)
-    client = ServingClient(url)
+    client = ServingClient(url, timeout=SERVE_ATTEMPT_S)
     results.put("ready")
     while commands.get() == "run":
         preds = np.full((SERVE_IMAGES, 100), np.nan, np.float32)
-        errors = []
+        errors, seconds, retried = [], [], []
 
         def worker(mine):
             try:
                 for start, size in mine:
-                    preds[start:start + size] = client.predict(
-                        images[start:start + size], wire_dtype=wire_dtype)
+                    t = time.perf_counter()
+                    try:
+                        out = client.predict(images[start:start + size], wire_dtype=wire_dtype)
+                    except urllib.error.URLError as e:
+                        retried.append(f"{repr(e)} after {time.perf_counter() - t:.3f} s")
+                        out = client.predict(images[start:start + size], wire_dtype=wire_dtype)
+                    preds[start:start + size] = out
+                    seconds.append(time.perf_counter() - t)
             except Exception as e:  # noqa: BLE001 - reported to the parent
                 errors.append(repr(e))
 
@@ -493,7 +531,7 @@ def drive_clients(url, wire, commands, results):
         wall = time.perf_counter() - t0
         if any(th.is_alive() for th in threads):
             errors.append("a client thread did not finish in 300 s")
-        results.put((preds, errors, wall))
+        results.put((preds, errors, wall, seconds, retried))
 
 
 def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
@@ -503,13 +541,16 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
     in requests of 1-8, over the f32 npy wire, over the uint8 wire with
     ``--device_preproc``, and in bf16.  Each served batch is held against a
     direct eval forward of the same batch on the card (1e-5), each response
-    against the served outputs (bitwise), the conv + statistics kernel's
-    launches to 16 a device call (and its plain version's to none); the
-    same traffic once more under ``torch.profiler`` gives the device
-    seconds and busy share; beyond ``--max_queue`` a request gets 503 with
-    Retry-After, and in ``--device_preproc`` mode a float outside [0, 255]
-    gets 400.  Before the timed run the traffic runs once untimed, and the
-    engine's statistics are reset."""
+    against the served outputs (bitwise), every request of the timed pass
+    to ``SERVE_REQUEST_BOUND_S`` as its client sees it (a stalled
+    connection's retry, at most one a pass, is printed and kept), the conv
+    + statistics kernel's launches to 16 a device call (and its plain
+    version's to none); the same traffic once more under
+    ``torch.profiler`` gives the device seconds and busy share; beyond
+    ``--max_queue`` a request gets 503 with Retry-After, and in
+    ``--device_preproc`` mode a float outside [0, 255] gets 400.  Before
+    the timed run the traffic runs once untimed, and the engine's
+    statistics are reset."""
     import multiprocessing
     import threading
     import urllib.error
@@ -560,7 +601,7 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
         srv = serve_model.make_server(args)
         warm = srv.engine.warmup()  # as serve_model.main does for --warmup
         setup_s = time.perf_counter() - t0
-        served, fn = [], srv.engine._fn
+        served, fn, retries = [], srv.engine._fn, []
 
         def recording(batch):  # each pack's batch is a fresh array
             out = fn(batch)
@@ -578,9 +619,14 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
 
         def traffic():
             commands.put("run")
-            preds, errors, wall = results.get(timeout=600)
+            preds, errors, wall, seconds, retried = results.get(timeout=600)
             check(not errors, errors[:3])
-            return preds, wall
+            if retried:
+                print(f"serving {label}: a request's connection stalled and was sent "
+                      f"again: {retried}")
+                retries.extend(retried)
+            check(len(retried) <= 1, f"{len(retried)} requests retried in one pass")
+            return preds, wall, np.sort(seconds)
 
         try:
             check(results.get(timeout=120) == "ready", "the client process did not start")
@@ -591,8 +637,15 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
             del served[:]
             reset_counts()
             plain_calls[0] = 0
-            preds, wall = traffic()
+            preds, wall, seconds = traffic()
             counts, stats = read_counts(), srv.engine.stats()
+            client_ms = {"p50": 1e3 * seconds[len(seconds) // 2],
+                         "p99": 1e3 * seconds[int(len(seconds) * 0.99)],
+                         "max": 1e3 * seconds[-1]}
+            check(len(seconds) == len(requests)
+                  and seconds[-1] <= SERVE_REQUEST_BOUND_S,
+                  f"{len(seconds)} of {len(requests)} requests answered, the slowest in "
+                  f"{seconds[-1]:.3f} s (bound {SERVE_REQUEST_BOUND_S} s)")
             calls = len(served)
             check(stats["batches"] == calls and stats["images"] == SERVE_IMAGES, stats)
             check(counts["conv3x3_bn_stats"] == RN50_CONVS * calls and plain_calls[0] == 0,
@@ -618,7 +671,7 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
             # share of the clients' wall time
             del served[:]
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _, prof_wall = traffic()
+                _, prof_wall, _ = traffic()
                 torch.cuda.synchronize()
             kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             check(kernels, "torch.profiler recorded no GPU kernel while serving")
@@ -636,11 +689,15 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
                              "busy": device_s / prof_wall, "device_calls": len(served)},
                 # engine.stats(): p99 is rank int(0.99 n) of n sorted latencies
                 "p99_rank": f"{int(n_lat * 0.99) + 1} of {n_lat}",
+                "client_ms": client_ms, "retried": retries,
                 "setup_s": setup_s, "warmup_s": warm, "stats": stats, "card": card}
             print(f"serving {label}: {SERVE_IMAGES} images in {len(requests)} requests "
                   f"from {SERVE_THREADS} client threads in another process in {wall:.3f} s "
                   f"({result['img_per_s']:.1f} img/s); p50 {stats.get('latency_ms_p50')} ms, "
                   f"p99 {stats.get('latency_ms_p99')} ms (latency {result['p99_rank']}), "
+                  f"client p50/p99/max {client_ms['p50']:.1f}/{client_ms['p99']:.1f}/"
+                  f"{client_ms['max']:.1f} ms (bound {1e3 * SERVE_REQUEST_BOUND_S:.0f}), "
+                  f"{len(retries)} retried, "
                   f"{calls} device calls, avg batch {stats['avg_batch']}; conv3x3_bn_stats "
                   f"launches {counts['conv3x3_bn_stats']} (16 x {calls}), plain 0; served vs "
                   f"direct {worst:.3g}; profiled run: {device_s:.4f} s device of "
@@ -839,6 +896,273 @@ def topk_and_ranking_bitwise(device):
               f"ranked class ids, prefix {prefix}")
     print(f"top-k at {TK.CHECK_CASES} (rows, n, k, chunk) and the ranked class ids of "
           "the full sort and the top-250 prefix: bitwise equal to the CPU")
+
+# phase 12: (architecture, batch, --cls_base) trained through the CLI
+ZOO_TRAIN = [("simple", 128, None), ("wrn-28-10", 128, "top"),
+             ("pyramidnet-272-200", 128, None), ("densenet-bc-190-40", 64, None)]
+NASNET_BATCH = 32
+# warm steps timed for each family of 12b (img/s from the median step)
+ZOO_TIMED_STEPS = 8
+
+
+def timed(step, times):
+    """``step`` with the seconds of each call (to the end of its device
+    work) appended to ``times``."""
+    import torch
+
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    return run
+
+
+def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
+              plain_loss, reset_counts, read_counts, rn50_data, rn_prepare):
+    """Phase 12: the model zoo at its published widths; see the module's
+    docstring.  Returns the numbers for the JSON line."""
+    import torch
+
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.data import SyntheticDataset, get_data_generator
+    from semantic_embeddings_torch.models import ARCHITECTURES, EmbeddingModel, build_network
+    from semantic_embeddings_torch.train import (
+        fit, get_lr_schedule, make_eval_step, make_train_step, new_train_state)
+
+    def step_for(state, spec, prepare, loss_fn, autocast_dtype=None):
+        """The CLI's --fused_loss train step (inv_corr + 0.1 cls head,
+        clipnorm 10), with the cosine loss given."""
+        return make_train_step(
+            state.model.twin("linear", cls_input="l2norm"), prepare, loss_name="inv_corr",
+            class_embedding=embedding, num_classes=100, cls_weight=0.1,
+            l2_penalty_fn=spec.l2_penalty, clipnorm=10.0, loss_fn_override=loss_fn,
+            autocast_dtype=autocast_dtype)
+
+    def zoo_model(arch, cls_base=None):
+        model, spec = common.build_embedding_model(100, arch, "inv_corr", 100, seed=0,
+                                                   cls_base=cls_base)
+        spec.l2_filters = [(r"^cls_top$", 5e-4)] + list(spec.l2_filters)  # as the CLI
+        return common.init_model_state(model, device), spec
+
+    out = {"params": {}, "train": {}}
+
+    # -- 12a. every architecture at its input size ---------------------
+    phase("12a build every architecture, eval forward at batch 2")
+    builds = [(arch, {}) for arch in ARCHITECTURES] + [
+        ("resnet-110-selu", {}), ("wrn-28-10", {"classification": True})]
+    for arch, kw in builds:
+        gen = torch.Generator(device=device).manual_seed(0)
+        with torch.device(device):
+            spec = build_network(100, arch, generator=gen, **kw)
+            x = torch.randn(2, spec.input_size, spec.input_size, 3, generator=gen)
+        module = spec.module.eval()
+        with torch.no_grad():
+            y = module(x)
+        n = sum(p.numel() for p in module.parameters())
+        name = arch + "".join(f" {k}" for k in kw)
+        out["params"][name] = n
+        print(f"{name}: {n:,} parameters, output {tuple(y.shape)} at "
+              f"{spec.input_size} px, max |y| {y.abs().max().item():.4g}")
+        check(y.shape == (2, module.out_features) and torch.isfinite(y).all().item(),
+              (name, y.shape))
+        if kw.get("classification"):
+            check(torch.allclose(y.sum(-1), torch.ones(2, device=device)), "softmax top")
+        del spec, module, x, y
+    torch.cuda.empty_cache()
+
+    # -- 12b. four families through the CLI, and one step in this process
+    phase("12b simple / wrn-28-10 / pyramidnet-272-200 / densenet-bc-190-40 "
+          "through learn_image_embeddings")
+    for arch, batch, cls_base in ZOO_TRAIN:
+        name = f"synthetic-100-{3 * batch}-{batch}"
+        feat_path = os.path.join(tmp, f"{arch}.feat.pickle")
+        model_path = os.path.join(tmp, f"{arch}.pt")
+        printed = run_cli(
+            "learn_image_embeddings", "--dataset", name, "--data_root", tmp,
+            "--embedding", emb_path, "--architecture", arch, "--loss", "inv_corr",
+            "--cls_weight", "0.1", "--fused_loss", "--lr_schedule", "SGDR",
+            "--sgdr_max_lr", "0.5", "--batch_size", str(batch), "--epochs", "1",
+            "--feature_dump", feat_path, "--model_dump", model_path,
+            "--device", device.type, *(["--cls_base", cls_base] if cls_base else []))
+        losses = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", printed)
+        check(len(losses) >= 4 and all(math.isfinite(float(v)) for _, v in losses),
+              (arch, losses))
+        with open(feat_path, "rb") as f:
+            dump = pickle.load(f)["feat"]
+        feats = np.stack([dump[i] for i in range(batch)])
+        norms = np.linalg.norm(feats.astype(np.float64), axis=1)
+        check(feats.shape == (batch, 100) and np.abs(norms - 1).max() <= 1e-5, (arch, norms))
+        data = get_data_generator(name, classes=labels)
+        rebuilt, meta = common.rebuild_model_from_checkpoint(model_path, device)
+        check(meta.get("cls_base") == cls_base, meta)
+        again = common.extract_test_features(rebuilt, data, device, batch, pick=0)
+        dist = np.abs(again - feats).max()
+        print(f"{arch}: {len(losses)} printed losses, all finite; {batch} unit-norm "
+              f"features; the rebuilt dump reproduces them within {dist:.3g}")
+        check(dist <= 1e-5, (arch, dist))
+        del rebuilt
+        if cls_base:
+            run_cli("evaluate_classification_accuracy", "--dataset", name, "--data_root",
+                    tmp, "--model", model_path, "--layer", "prob", "--prob_features", "1",
+                    "--batch_size", str(batch), "--device", device.type)
+
+        # one step through the cosine kernels and one through the plain
+        # loss from the same weights and batch; then ZOO_TIMED_STEPS warm
+        # steps, timed
+        state_k, spec = zoo_model(arch, cls_base)
+        state_p = copy.deepcopy(state_k)
+        prepare = data.make_prepare(device)
+        batches = list(data.train_batches(batch, 0, 0))
+        reset_counts()
+        _, m_k = step_for(state_k, spec, prepare, kernel_loss)(
+            state_k, batches[0], 0.1, torch.Generator(device=device).manual_seed(0))
+        counts = read_counts()
+        _, m_p = step_for(state_p, spec, prepare, plain_loss)(
+            state_p, batches[0], 0.1, torch.Generator(device=device).manual_seed(0))
+        lk, lp = m_k["loss"].item(), m_p["loss"].item()
+        rel = abs(lk - lp) / abs(lp)
+        check(rel <= 1e-6, (arch, lk, lp))
+        check(counts["cosine_loss_fwd"] == 1 and counts["cosine_loss_bwd"] == 1, counts)
+        del state_p  # its blocks stay in the allocator's cache: the timed steps run warm
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        step = timed(step_for(state_k, spec, prepare, kernel_loss), times)
+        rng = torch.Generator(device=device).manual_seed(1)
+        for i in range(ZOO_TIMED_STEPS):
+            step(state_k, batches[1 + i % (len(batches) - 1)], 0.1, rng)
+        rate = batch / float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["train"][arch] = {"batch": batch, "img_per_s": rate, "peak_gib": peak,
+                              "step_s": times,
+                              "loss_kernel": lk, "loss_plain": lp,
+                              "cosine_launches": counts["cosine_loss_fwd"]}
+        print(f"{arch} step: loss kernel {lk:.9f} plain {lp:.9f} ({rel:.3g} relative), "
+              f"cosine launches {counts['cosine_loss_fwd']} + {counts['cosine_loss_bwd']}; "
+              f"{ZOO_TIMED_STEPS} warm steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms, "
+              f"median {rate:.1f} img/s (f32, batch {batch}), peak {peak:.3f} GiB [{card}]")
+        del state_k, batches, step
+        torch.cuda.empty_cache()
+
+    # -- 12c. NASNet-A at 224 px through fit ----------------------------
+    phase(f"12c nasnet-a @ 224 px, batch {NASNET_BATCH}, 3 steps through fit (f32), "
+          "one bf16 step")
+    state, spec = zoo_model("nasnet-a")
+    n_train = 3 * NASNET_BATCH
+    data = SyntheticDataset(num_classes=100, n_train=n_train, n_test=NASNET_BATCH,
+                            size=spec.input_size, classes=labels)
+    prepare = data.make_prepare(device, augment_train=False)
+    eval_step = make_eval_step(
+        state.model, prepare, loss_name="inv_corr", class_embedding=embedding,
+        num_classes=100, cls_weight=0.1, l2_penalty_fn=spec.l2_penalty)
+    schedule, _ = get_lr_schedule("SGD", n_train, NASNET_BATCH)
+    times = []
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(tee):
+        state = fit(state, timed(step_for(state, spec, prepare, kernel_loss), times),
+                    eval_step, data, schedule, epochs=1, batch_size=NASNET_BATCH)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", tee.buf.getvalue())
+    check(state.step == 3 and counts["cosine_loss_fwd"] == 3
+          and counts["cosine_loss_bwd"] == 3, (state.step, counts))
+    check(len(losses) >= 4 and all(math.isfinite(float(v)) for _, v in losses), losses)
+    rate = NASNET_BATCH * 2 / sum(times[1:])
+    torch.cuda.reset_peak_memory_stats()
+    raw = next(iter(data.train_batches(NASNET_BATCH, 0, 0)))
+    bf16_times = []
+    _, m16 = timed(step_for(state, spec, prepare, kernel_loss, torch.bfloat16), bf16_times)(
+        state, raw, 0.01, torch.Generator(device=device).manual_seed(0))
+    peak16 = torch.cuda.max_memory_allocated() / 2**30
+    bf16_counts = read_counts()
+    check(math.isfinite(m16["loss"].item()) and bf16_counts["cosine_loss_fwd"] == 4,
+          (m16["loss"], bf16_counts))
+    out["nasnet"] = {"batch": NASNET_BATCH, "params": sum(p.numel() for p in state.params),
+                     "step_s": times, "img_per_s": rate, "peak_gib": peak,
+                     "bf16_step_s": bf16_times[0], "bf16_loss": m16["loss"].item(),
+                     "bf16_peak_gib": peak16, "cosine_launches": bf16_counts["cosine_loss_fwd"]}
+    print(f"nasnet-a: {out['nasnet']['params']:,} parameters; {len(losses)} printed losses, "
+          f"all finite; steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; steps 2-3 "
+          f"{rate:.1f} img/s (f32, batch {NASNET_BATCH}), peak {peak:.3f} GiB; bf16 step "
+          f"{bf16_times[0] * 1e3:.1f} ms, loss {m16['loss'].item():.6f}, peak {peak16:.3f} GiB; "
+          f"cosine launches {bf16_counts['cosine_loss_fwd']} + "
+          f"{bf16_counts['cosine_loss_bwd']} [{card}]")
+    del state, eval_step, data, prepare
+    torch.cuda.empty_cache()
+
+    # -- 12d. --remat on ResNet-50 ----------------------------------------
+    phase(f"12d resnet-50 @ 224 px, batch {RN50_BATCH}: a step with --remat vs without (f32)")
+    states = {}
+    for remat in (False, True):
+        gen = torch.Generator().manual_seed(3)
+        spec = build_network(100, "resnet-50", generator=gen, remat=remat)
+        spec.l2_filters = [(r"^cls_top$", 5e-4)]
+        model = EmbeddingModel(spec.module, output="l2norm", cls_classes=100, generator=gen)
+        states[remat] = (new_train_state(model.to(device)), spec)
+    before = copy.deepcopy(states[False][0].model.state_dict())
+    for key, value in states[True][0].model.state_dict().items():
+        check(torch.equal(value, before[key]), f"remat model differs at {key}")
+    raw = next(iter(rn50_data.train_batches(RN50_BATCH, 0, 0)))
+    runs = {}
+    # cuDNN's default algorithms may sum with atomics, so that two runs of
+    # the same step differ by an ulp (the stem's filter gradient has, on
+    # the H100); deterministic ones make the two steps comparable
+    torch.backends.cudnn.deterministic = True
+    for remat, (state, spec) in states.items():
+        reset_counts()
+        _, metrics = step_for(state, spec, rn_prepare, kernel_loss)(state, raw, 0.1, None)
+        runs[remat] = {"loss": metrics["loss"].item(), "launches": read_counts()}
+    plain_sd, remat_sd = (states[k][0].model.state_dict() for k in (False, True))
+    param_names = {n for n, _ in states[False][0].model.named_parameters()}
+    stats_differ = [k for k in before if k not in param_names
+                    and not torch.equal(remat_sd[k], plain_sd[k])]
+    far, equal, worst = [], 0, 0.0
+    for key in param_names:
+        update = (plain_sd[key] - before[key]).abs().max().item()
+        diff = (remat_sd[key] - plain_sd[key]).abs().max().item()
+        equal += diff == 0.0
+        worst = max(worst, diff / max(update, 1e-30))
+        if diff > 1e-6 * update:
+            far.append((key, diff, update))
+    # a second step of each, for its time and peak memory, with the
+    # allocator's cache kept warm (emptying it puts cudaMalloc in the step)
+    for remat, (state, spec) in states.items():
+        step = step_for(state, spec, rn_prepare, kernel_loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        timed(step, times)(state, raw, 0.1, None)
+        runs[remat].update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           step_s=times[0])
+    torch.backends.cudnn.deterministic = False
+    loss_rel = abs(runs[True]["loss"] - runs[False]["loss"]) / abs(runs[False]["loss"])
+    lr, lp = runs[True]["launches"], runs[False]["launches"]
+    print(f"remat vs plain (cuDNN deterministic): loss {runs[True]['loss']:.9f} / "
+          f"{runs[False]['loss']:.9f} ({loss_rel:.3g} relative); running statistics "
+          f"{len(before) - len(param_names) - len(stats_differ)} of "
+          f"{len(before) - len(param_names)} bitwise equal; parameters {equal} of "
+          f"{len(param_names)} bitwise equal, worst {worst:.3g} of its update; "
+          f"conv3x3_bn_stats launches {lr['conv3x3_bn_stats']} / {lp['conv3x3_bn_stats']}, "
+          f"conv3x3_filter_grad {lr['conv3x3_filter_grad']} / {lp['conv3x3_filter_grad']}; "
+          f"second step: peak memory {runs[True]['peak_gib']:.3f} / "
+          f"{runs[False]['peak_gib']:.3f} GiB, {runs[True]['step_s'] * 1e3:.1f} / "
+          f"{runs[False]['step_s'] * 1e3:.1f} ms (f32, batch {RN50_BATCH}) [{card}]")
+    check(not stats_differ, f"running statistics differ under remat: {stats_differ[:5]}")
+    check(not far, f"parameters farther than 1e-6 of their update: {far[:5]}")
+    check(loss_rel <= 1e-6, runs)
+    check(lr["conv3x3_bn_stats"] == 2 * RN50_CONVS and lp["conv3x3_bn_stats"] == RN50_CONVS
+          and lr["conv3x3_filter_grad"] == RN50_CONVS
+          and lp["conv3x3_filter_grad"] == RN50_CONVS, (lr, lp))
+    check(runs[True]["peak_gib"] < runs[False]["peak_gib"], runs)
+    out["remat"] = {"remat": runs[True], "plain": runs[False], "worst_of_update": worst}
+    del states, before, plain_sd, remat_sd
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None):
@@ -1169,7 +1493,7 @@ def main(argv=None):
     # -- 7. time steady-state train steps -------------------------------
     phase("7 steady-state resnet-110-wfc train steps")
     prepare = dataset.make_prepare(device)
-    batches = list(dataset.train_batches(BATCH, 0, 0))
+    batches = list(dataset.train_batches(BATCH, 0, 0))[:10]
     rng = torch.Generator(device=device).manual_seed(0)
     rates = {}
     for name, state, loss_fn in (("kernel", state_k, kernel_loss),
@@ -1354,7 +1678,7 @@ def main(argv=None):
     phase("10 resnet-50 train-step throughput")
     state_p = copy.deepcopy(state_k)
     use_plain_conv_bn_stats(state_p.model)
-    batches = list(rn50_data.train_batches(RN50_BATCH, 0, 0)) * 3  # 12 steps
+    batches = list(rn50_data.train_batches(RN50_BATCH, 0, 0)) * 2  # 8 steps
     rn50_rates = {}
     for precision, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         for path, st in (("kernel", state_k), ("plain", state_p), ("kernel", state_k)):
@@ -1364,7 +1688,7 @@ def main(argv=None):
                 table = os.path.join(profile_dir, f"rn50_step_{path}_{precision}.txt")
             result = profile_step(
                 st, rn50_step(st, rn_spec, rn_prepare, path == "plain", dtype),
-                batches, label, table, n=5, batch=RN50_BATCH)
+                batches, label, table, n=3, batch=RN50_BATCH)
             rn50_rates.setdefault((path, precision), []).append(result)
     summary = {f"{path}_{precision}": runs for (path, precision), runs in rn50_rates.items()}
     del state_k, state_p, batches
@@ -1377,10 +1701,27 @@ def main(argv=None):
 
     # -- 11. no JAX ----------------------------------------------------
     phase("11 no jax, no JAX package")
+    import importlib
+    import pkgutil
+
+    import semantic_embeddings_torch as port
+
+    modules = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    for name in modules:  # every module of the port, the model zoo's too
+        importlib.import_module(name)
+    print(f"imported all {len(modules)} modules of the port")
     check("jax" not in sys.modules, "a JAX module was imported")
     tpu = [m for m in sys.modules if m.startswith("semantic_embeddings_tpu")]
     check(not tpu, f"modules of the JAX package were imported: {tpu}")
     print("neither jax nor semantic_embeddings_tpu imported")
+
+    # -- 12. the model zoo ---------------------------------------------
+    zoo = model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
+                    plain_loss, reset_counts, read_counts, rn50_data, rn_prepare)
+    check("jax" not in sys.modules and not any(
+        m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
+    zoo_cosine = {arch: r["cosine_launches"] for arch, r in zoo["train"].items()}
+    zoo_cosine["nasnet-a (3 fit steps + 1 bf16 step)"] = zoo["nasnet"]["cosine_launches"]
 
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
@@ -1392,6 +1733,8 @@ def main(argv=None):
             "launches": launches[part],
             "launches_per_step": 1,
             "launches_resnet50": rn50_launches[f"cosine_loss_{part}"],
+            # phase 12: one step of each family in this process, and NASNet-A's
+            "launches_zoo": zoo_cosine,
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -1425,6 +1768,9 @@ def main(argv=None):
                 "serving_device_calls": {run: r["device_calls"]
                                          for run, r in serving.items()}}
                if name == "conv3x3_bn_stats" else {}),
+            # phase 12d: one ResNet-50 step with --remat and one without
+            "launches_remat": {run: zoo["remat"][run]["launches"][name]
+                               for run in ("remat", "plain")},
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -1443,7 +1789,7 @@ def main(argv=None):
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
-                      "slice1_feature_spread": collapse}))
+                      "slice1_feature_spread": collapse, "zoo": zoo}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -133,15 +133,19 @@ def check_label_range(dataset, n_rows, what="embedding"):
 
 
 def build_embedding_model(embed_dim, architecture, loss, cls_classes,
-                          cls_input="output", input_channels=3, seed=0):
-    """Backbone + output transform + optional cls head; the initial weights
-    are drawn on the CPU from a ``torch.Generator`` seeded with ``seed``."""
+                          cls_input="output", input_channels=3, seed=0, remat=False,
+                          cls_base=None):
+    """Backbone + output transform + optional cls head (on the backbone
+    module ``cls_base`` names, if given); the initial weights are drawn on
+    the CPU from a ``torch.Generator`` seeded with ``seed``.  ``remat``
+    recomputes the residual blocks in the backward pass (``--remat``)."""
     generator = torch.Generator().manual_seed(seed)
-    spec = build_network(embed_dim, architecture,
-                         input_channels=input_channels, generator=generator)
+    spec = build_network(embed_dim, architecture, input_channels=input_channels,
+                         generator=generator, remat=remat)
     model = EmbeddingModel(
         spec.module, output=LOSS_OUTPUT[loss], cls_classes=cls_classes,
-        cls_input=cls_input, generator=generator)
+        cls_input=cls_input, generator=generator, cls_base=cls_base,
+        input_shape=(spec.input_size, spec.input_size, input_channels))
     return model, spec
 
 
@@ -255,10 +259,19 @@ def load_checkpoint_raw(path):
     return payload, {}
 
 
+def _input_channels(state_dict):
+    """The image channels a checkpoint's model takes: those of the backbone's
+    first conv weight, whatever the family names it."""
+    for key, value in state_dict.items():
+        if key.startswith("backbone.") and value.ndim == 4:
+            return int(value.shape[1])
+    raise ValueError("Checkpoint has no conv weight in its backbone")
+
+
 def rebuild_model_from_checkpoint(path, device, architecture=None):
     """Loads a model dump and rebuilds the module from its metadata (the
-    embedding width, loss and classification head that the trainer
-    records), on ``device`` in eval mode.  bf16 is the caller's
+    embedding width, loss, classification head and its ``cls_base`` that
+    the trainer records), on ``device`` in eval mode.  bf16 is the caller's
     ``torch.autocast``; the weights stay f32.  Returns ``(model, metadata)``.
     """
     state_dict, meta = load_checkpoint_raw(path)
@@ -269,7 +282,6 @@ def rebuild_model_from_checkpoint(path, device, architecture=None):
     reject_unported([
         ("serving or evaluating a classifier checkpoint (no embedding head)",
          not any(k.startswith("backbone.") for k in state_dict)),
-        ("a checkpoint with cls_base", meta.get("cls_base") is not None),
     ])
     if "loss" not in meta:
         import warnings
@@ -286,7 +298,8 @@ def rebuild_model_from_checkpoint(path, device, architecture=None):
         cls_classes = int(state_dict["cls_top.weight"].shape[0])
     model, _ = build_embedding_model(
         embed_dim, arch, meta.get("loss", "inv_corr"), cls_classes,
-        input_channels=int(state_dict["backbone.conv0.weight"].shape[1]))
+        input_channels=_input_channels(state_dict),
+        cls_base=meta.get("cls_base"))
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval(), meta
 

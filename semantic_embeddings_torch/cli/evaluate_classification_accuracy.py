@@ -152,7 +152,7 @@ def build_parser():
     group = parser.add_argument_group("Features")
     group.add_argument("--architecture", type=str, default="simple",
                        help="Architecture of checkpoints without metadata "
-                            f"(ported: {', '.join(ARCHITECTURES)}).")
+                            f"(one of: {', '.join(ARCHITECTURES)}).")
     group.add_argument("--model", type=str, action="append", required=True,
                        help="Path to a model dump used for extracting image "
                             "features.")

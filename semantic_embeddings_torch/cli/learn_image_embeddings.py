@@ -31,17 +31,6 @@ from ..train.optimizer import decay_from_max_decay
 from ..train.schedules import LR_SCHEDULES
 from . import common
 
-#: the JAX package's architecture names; those outside ``ARCHITECTURES``
-#: are not ported yet and are refused
-ALL_ARCHITECTURES = [
-    "simple", "resnet-32", "resnet-110", "resnet-110-fc", "resnet-110-wfc",
-    "wrn-28-10", "densenet-100-12", "densenet-100-24", "densenet-bc-190-40",
-    "pyramidnet-272-200", "pyramidnet-110-270", "resnet-50", "resnet-101",
-    "resnet-152", "rn18", "rn34", "rn50", "rn101", "rn152", "rn200",
-    "nasnet-a",
-]
-
-
 def build_parser():
     parser = argparse.ArgumentParser(
         description="Learns to map images onto class embeddings.",
@@ -60,7 +49,7 @@ def build_parser():
                             "embeddings on the fly.")
     group = parser.add_argument_group("Training parameters")
     group.add_argument("--architecture", type=str, default="simple",
-                       choices=ALL_ARCHITECTURES,
+                       choices=ARCHITECTURES,
                        help="Type of network architecture.")
     group.add_argument("--loss", type=str, default="inv_corr",
                        choices=["mse", "inv_corr", "unnorm_corr", "softmax_corr"],
@@ -73,8 +62,11 @@ def build_parser():
                             "classification layer will be added and this "
                             "parameter specifies the weight of the softmax loss.")
     group.add_argument("--cls_base", type=str, default=None,
-                       help="Backbone module the classification head should "
-                            "be based on (not ported yet).")
+                       help="Name of the backbone module whose output the "
+                            "classification head should be based on (a full "
+                            "module path such as stage3_block5/conv_b, a "
+                            "unique trailing part of it, or a module name "
+                            "such as top); the embedding if not given.")
     group.add_argument("--lr_schedule", type=str, default="SGDR",
                        choices=LR_SCHEDULES, help="Type of learning rate schedule.")
     group.add_argument("--clipgrad", type=float, default=10.0,
@@ -84,7 +76,10 @@ def build_parser():
     group.add_argument("--nesterov", action="store_true", default=False,
                        help="Use Nesterov momentum instead of standard momentum.")
     group.add_argument("--remat", action="store_true", default=False,
-                       help="Activation checkpointing (not ported yet).")
+                       help="Recompute the residual blocks' activations in "
+                            "the backward pass instead of keeping them "
+                            "(the CIFAR and ImageNet ResNets): less memory "
+                            "for large inputs, one more forward a step.")
     group.add_argument("--bf16", action="store_true", default=False,
                        help="bfloat16 compute under torch.autocast (float32 "
                             "params and batch statistics).")
@@ -145,11 +140,7 @@ def main(argv=None):
         ("--spatial", args.spatial > 1),
         ("--bn_per_replica", args.bn_per_replica),
         ("--finetune", args.finetune is not None),
-        ("--remat", args.remat),
         ("--profile_dir", args.profile_dir is not None),
-        ("--cls_base", args.cls_base is not None),
-        (f"--architecture {args.architecture}",
-         args.architecture not in ARCHITECTURES),
     ])
     device = common.resolve_device(args.device)
     common.set_float32_precision()
@@ -170,7 +161,8 @@ def main(argv=None):
 
     model, spec = common.build_embedding_model(
         embedding.shape[1], args.architecture, args.loss, cls_classes,
-        input_channels=dataset.num_channels, seed=args.seed)
+        input_channels=dataset.num_channels, seed=args.seed, remat=args.remat,
+        cls_base=args.cls_base)
     state = common.init_model_state(model, device)
     if args.snapshot and os.path.exists(args.snapshot):
         print(f"Resuming from snapshot {args.snapshot}")
@@ -248,6 +240,7 @@ def main(argv=None):
             "embed_dim": int(embedding.shape[1]),
             "loss": args.loss,
             "cls_classes": cls_classes,
+            "cls_base": args.cls_base,
         },
     )
 
@@ -278,6 +271,7 @@ def main(argv=None):
             "embed_dim": int(embedding.shape[1]),
             "loss": args.loss,
             "cls_classes": cls_classes,
+            "cls_base": args.cls_base,
         },
     )
     return state

@@ -1,10 +1,13 @@
 """Bridge between the JAX package's Flax variables and the port's ``state_dict``.
 
-The port's module names follow the Flax tree (``conv0``, ``bn0``,
-``stage{s}_block{b}/{conv,bn}_{a,b}``, in the ImageNet ResNets also
-``_c`` and ``_sc``, ``top``), so leaves map by path:
+The port's module names follow the Flax tree in every family (``conv0``,
+``bn0``, ``stage{s}_block{b}/{conv,bn}_{a,b}``, ``b0_l3_grow``,
+``cell_7/left1/dw0``, ``top``, ...), so leaves map by path:
 
-- conv ``kernel`` (H, W, I, O)   <-> ``weight`` (O, I, H, W)
+- conv ``kernel`` (H, W, I/g, O) <-> ``weight`` (O, I/g, H, W) (depthwise:
+  (H, W, 1, C) <-> (C, 1, H, W))
+- transposed conv ``kernel`` (H, W, I, O) <-> ``weight`` (I, O, H, W)
+  flipped in H and W (:class:`..models.layers.ConvTranspose2dSame`)
 - dense ``kernel`` (in, out)     <-> ``weight`` (out, in)
 - ``bias``                       <-> ``bias``
 - BN ``scale`` / ``bias``        <-> ``weight`` / ``bias``
@@ -39,7 +42,9 @@ def _flatten(tree, prefix=()):
         yield prefix, tree
 
 
-def _kernel_to_torch(a):
+def _kernel_to_torch(a, transposed=False):
+    if a.ndim == 4 and transposed:  # HWIO -> IOHW, flipped in H and W
+        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if a.ndim == 4:  # HWIO -> OIHW
         return a.transpose(3, 2, 0, 1)
     if a.ndim == 2:  # (in, out) -> (out, in)
@@ -47,7 +52,9 @@ def _kernel_to_torch(a):
     raise ValueError(f"unexpected kernel rank {a.ndim}")
 
 
-def _kernel_to_flax(a):
+def _kernel_to_flax(a, transposed=False):
+    if a.ndim == 4 and transposed:  # IOHW flipped in H and W -> HWIO
+        return a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     if a.ndim == 4:  # OIHW -> HWIO
         return a.transpose(2, 3, 1, 0)
     if a.ndim == 2:
@@ -58,7 +65,11 @@ def _kernel_to_flax(a):
 def flax_to_state_dict(variables, model):
     """Returns a ``state_dict`` for ``model`` from Flax ``variables``
     (``{'params': ..., 'batch_stats': ...}`` of numpy-convertible leaves)."""
+    from torch import nn
+
     target = model.state_dict()
+    transposed = {name for name, m in model.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     out = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
@@ -72,7 +83,7 @@ def flax_to_state_dict(variables, model):
                     f"counterpart in {type(model).__name__} (looked for {key!r})")
             a = np.array(leaf, dtype=np.float32)  # a writable copy
             if name == "kernel":
-                a = _kernel_to_torch(a)
+                a = _kernel_to_torch(a, ".".join(modules) in transposed)
             ref = target[key]
             if tuple(a.shape) != tuple(ref.shape):
                 raise ValueError(
@@ -113,13 +124,13 @@ def state_dict_to_flax(model):
                 "running_var": ("batch_stats", "var"),
             }.get(name, (None, None))
             modules = modules + [_BN_LEVEL]
-        elif isinstance(module, (nn.Conv2d, nn.Linear)):
+        elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             collection, leaf = {
                 "weight": ("params", "kernel"),
                 "bias": ("params", "bias"),
             }.get(name, (None, None))
             if leaf == "kernel":
-                a = _kernel_to_flax(a)
+                a = _kernel_to_flax(a, isinstance(module, nn.ConvTranspose2d))
         else:
             collection = leaf = None
         if collection is None:

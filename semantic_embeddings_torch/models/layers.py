@@ -2,19 +2,22 @@
 ``models/layers.py``).
 
 Keras-semantic defaults are kept where they affect training parity:
-glorot-uniform kernel init with zero biases (he-normal where the JAX
-package asks for it), BatchNorm momentum 0.99 / epsilon 1e-3 with a biased
-running variance, TF "SAME" padding.  The public model functions take NHWC
-images; inside, the layers work in NCHW.
+glorot-uniform kernel init with zero biases (the JAX package's other
+initializers where it asks for them), BatchNorm momentum 0.99 / epsilon 1e-3
+with a biased running variance, TF "SAME" padding.  The public model
+functions take NHWC images; inside, the layers work in NCHW.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def upcast32(x):
@@ -28,17 +31,45 @@ def _glorot_uniform_(weight, generator):
     nn.init.xavier_uniform_(weight, generator=generator)
 
 
-def _he_normal_(weight, generator):
-    # Flax's he_normal: a normal of variance 2 / fan_in truncated at two
-    # standard deviations, its scale corrected for the truncation (the
-    # constant is the std of a unit normal truncated to [-2, 2]).
-    fan_in = nn.init._calculate_fan_in_and_fan_out(weight)[0]
-    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+def _truncated_normal_(weight, generator, scale, mode):
+    # Flax's variance_scaling(scale, mode, "truncated_normal"): a normal of
+    # variance scale / fan truncated at two standard deviations, its scale
+    # corrected for the truncation (the constant is the std of a unit
+    # normal truncated to [-2, 2]).  torch's fans of a conv weight (O, I/g,
+    # H, W) are Flax's of its kernel (H, W, I/g, O), depthwise ones too.
+    fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(weight)
+    fan = fan_in if mode == "fan_in" else (fan_in + fan_out) / 2
+    std = math.sqrt(scale / fan) / 0.87962566103423978
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
 
 
-KERNEL_INITS = {"glorot_uniform": _glorot_uniform_, "he_normal": _he_normal_}
+def _he_normal_(weight, generator):
+    _truncated_normal_(weight, generator, 2.0, "fan_in")
+
+
+def _glorot_normal_(weight, generator):
+    _truncated_normal_(weight, generator, 1.0, "fan_avg")
+
+
+def _lecun_normal_(weight, generator):
+    # Flax's default kernel init (``nn.Conv``, ``nn.ConvTranspose``)
+    _truncated_normal_(weight, generator, 1.0, "fan_in")
+
+
+def keras_uniform_(tensor, generator):
+    """Keras's 'uniform' initializer: U(-0.05, 0.05)."""
+    nn.init.uniform_(tensor, -0.05, 0.05, generator=generator)
+
+
+KERNEL_INITS = {"glorot_uniform": _glorot_uniform_, "he_normal": _he_normal_,
+                "glorot_normal": _glorot_normal_, "lecun_normal": _lecun_normal_}
+
+
+def activation_fn(name):
+    """The activation named ``name`` (``relu``, ``selu``, or None for the
+    identity)."""
+    return {"relu": torch.relu, "selu": torch.selu, None: lambda x: x}[name]
 
 
 def _same_padding(size, kernel, stride):
@@ -48,19 +79,28 @@ def _same_padding(size, kernel, stride):
     return total // 2, total - total // 2
 
 
+def _same_pads(x, window, stride):
+    """TF SAME (left, right, top, bottom) padding of an NCHW ``x``, in
+    ``F.pad``'s order."""
+    return _same_padding(x.shape[3], window, stride) + _same_padding(x.shape[2], window, stride)
+
+
 class Conv2dSame(nn.Conv2d):
     """``nn.Conv2d`` with TF "SAME" padding, computed per call, or none
     (``padding="VALID"``).
 
     TF SAME puts the odd pixel of padding after, not before: a stride-2 3x3
     conv on an even input pads (0, 1), where ``padding=1`` would pad (1, 1)
-    and shift every downsampling stage by one pixel.
+    and shift every downsampling stage by one pixel.  ``groups`` as in
+    ``nn.Conv2d`` (Flax's ``feature_group_count``; depthwise when it equals
+    the input features).
     """
 
     def __init__(self, in_features, features, kernel, stride=1, use_bias=True,
-                 generator=None, padding="SAME", kernel_init="glorot_uniform"):
+                 generator=None, padding="SAME", kernel_init="glorot_uniform",
+                 groups=1):
         super().__init__(in_features, features, kernel, stride=stride,
-                         padding=0, bias=use_bias)
+                         padding=0, bias=use_bias, groups=groups)
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, not {padding!r}")
         self.same = padding == "SAME"
@@ -69,29 +109,101 @@ class Conv2dSame(nn.Conv2d):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        k, s = self.kernel_size[0], self.stride[0]
+        k, s, g = self.kernel_size[0], self.stride[0], self.groups
         if not self.same:
-            return F.conv2d(x, self.weight, self.bias, s)
-        ph = _same_padding(x.shape[2], k, s)
-        pw = _same_padding(x.shape[3], k, s)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, s, (ph[0], pw[0]))
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, s)
+            return F.conv2d(x, self.weight, self.bias, s, groups=g)
+        left, right, top, bottom = pads = _same_pads(x, k, s)
+        if left == right and top == bottom:
+            return F.conv2d(x, self.weight, self.bias, s, (top, left), groups=g)
+        return F.conv2d(F.pad(x, pads), self.weight, self.bias, s, groups=g)
 
 
 def conv(in_features, features, kernel=3, stride=1, use_bias=True,
-         generator=None, padding="SAME", kernel_init="glorot_uniform"):
+         generator=None, padding="SAME", kernel_init="glorot_uniform", groups=1):
     """3x3-style SAME conv with Keras-like defaults."""
     return Conv2dSame(in_features, features, kernel, stride, use_bias, generator,
-                      padding, kernel_init)
+                      padding, kernel_init, groups)
+
+
+class ConvTranspose2dSame(nn.ConvTranspose2d):
+    """Flax's ``nn.ConvTranspose`` (``transpose_kernel=False``) with SAME
+    padding.
+
+    Flax dilates the input by the stride and correlates it with its kernel
+    (H, W, I, O) as it is, padded by ``lax``'s transposed-SAME amounts
+    (3x3, stride 2: 2 before, 1 after; output = stride * input).
+    ``F.conv_transpose2d`` correlates with the kernel flipped in H and W and
+    pads k - 1 - padding on both sides (plus ``output_padding`` after).  So
+    the weight here, (I, O, H, W), is Flax's kernel flipped in H and W
+    (:mod:`..convert` maps it), the padding is k - 1 - Flax's "before", and
+    Flax's "after" is reached by cropping (or by ``output_padding``).
+    The kernel is drawn as Flax draws it (lecun-normal over fan-in I*H*W).
+    """
+
+    def __init__(self, in_features, features, kernel, stride, use_bias=True,
+                 generator=None):
+        super().__init__(in_features, features, kernel, stride=stride, bias=use_bias)
+        pad_len = kernel + stride - 2
+        before = kernel - 1 if stride > kernel - 1 else math.ceil(pad_len / 2)
+        self.pad_before, self.pad_after = before, pad_len - before
+        with torch.no_grad():
+            w = torch.empty(features, in_features, kernel, kernel)
+            _lecun_normal_(w, generator)
+            self.weight.copy_(w.transpose(0, 1))
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        k, s = self.kernel_size[0], self.stride[0]
+        extra = self.pad_after - self.pad_before  # -1 .. s - 1
+        y = F.conv_transpose2d(x, self.weight, self.bias, s, k - 1 - self.pad_before,
+                               max(extra, 0))
+        return y[:, :, :y.shape[2] + extra, :y.shape[3] + extra] if extra < 0 else y
 
 
 def dense(in_features, features, generator=None):
+    """Linear layer with glorot-uniform kernel and zero bias (Keras)."""
     layer = nn.Linear(in_features, features)
     _glorot_uniform_(layer.weight, generator)
     nn.init.zeros_(layer.bias)
     return layer
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the forward run inside as a recompute (of a rematerialized
+    block, in the backward pass): every :class:`KerasBatchNorm` in training
+    mode normalizes with the batch statistics as before but leaves its
+    running statistics where the first forward moved them, so that they
+    move once a step.  Per thread: the autograd engine may recompute on a
+    thread of its own."""
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def _recomputing():
+    return getattr(_RECOMPUTE, "on", False)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), recomputing()
+
+
+def rematerialized(block, x):
+    """``block(x)`` with its activations dropped after the forward and
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
+    the recompute under :func:`recomputing`: the JAX package's
+    ``nn.remat``.  Without autograd it is just ``block(x)``."""
+    if not torch.is_grad_enabled():
+        return block(x)
+    return checkpoint(block, x, use_reentrant=False, context_fn=_remat_contexts)
 
 
 class KerasBatchNorm(nn.Module):
@@ -102,13 +214,20 @@ class KerasBatchNorm(nn.Module):
     channel axis 1 of a (N, C, ...) input.  ``F.batch_norm`` would move the
     running variance towards the *unbiased* batch variance; Flax (and Keras)
     move it towards the biased one, so the update is corrected right after.
+    ``scale_init(weight, generator)`` draws the scale (ones by default; the
+    WRN's BNs draw :func:`keras_uniform_`).  Under :func:`recomputing` the
+    running statistics stay as they are.
     """
 
-    def __init__(self, features, momentum=0.99, epsilon=1e-3):
+    def __init__(self, features, momentum=0.99, epsilon=1e-3, scale_init=None,
+                 generator=None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(features))
+        if scale_init is not None:
+            with torch.no_grad():
+                scale_init(self.weight, generator)
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
@@ -119,6 +238,11 @@ class KerasBatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0,
                                 self.epsilon)
         m = self.momentum
+        if _recomputing():
+            # the same call as the first forward's (so autograd saves the
+            # same tensors), on copies of the statistics that are dropped
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, 1.0 - m, self.epsilon)
         old_var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                          self.bias, True, 1.0 - m, self.epsilon)
@@ -150,9 +274,10 @@ class KerasBatchNorm(nn.Module):
             mean = s / n
             var = torch.clamp_min(ss / n - mean * mean, 0.0)
             m = self.momentum
-            with torch.no_grad():
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            if not _recomputing():
+                with torch.no_grad():
+                    self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
@@ -165,14 +290,58 @@ def channel_pad(x, before, after):
     return F.pad(x, (0, 0, 0, 0, int(before), int(after)))
 
 
-def avg_pool(x, window, stride=None):
-    """VALID average pooling (the only form the CIFAR ResNets use)."""
-    return F.avg_pool2d(x, window, stride or window)
+def avg_pool(x, window, stride=None, padding="VALID", count_include_pad=True):
+    """Average pooling as Flax's ``nn.avg_pool``: VALID, or TF SAME, where
+    ``count_include_pad=False`` divides each border window by its cells
+    inside the image (Keras's SAME AveragePooling2D; NASNet's in-cell 3x3/1
+    pools) and ``True`` by the whole window."""
+    stride = stride or window
+    if padding == "VALID":
+        return F.avg_pool2d(x, window, stride)
+    left, right, top, bottom = pads = _same_pads(x, window, stride)
+    if left == right and top == bottom:
+        return F.avg_pool2d(x, window, stride, (top, left),
+                            count_include_pad=count_include_pad)
+    total = F.avg_pool2d(F.pad(x, pads), window, stride, divisor_override=1)
+    if count_include_pad:
+        return total / (window * window)
+    ones = F.pad(torch.ones_like(x[:1, :1]), pads)
+    return total / F.avg_pool2d(ones, window, stride, divisor_override=1)
 
 
-def max_pool(x, window, stride=None):
-    """VALID max pooling."""
-    return F.max_pool2d(x, window, stride or window)
+def max_pool(x, window, stride=None, padding="VALID"):
+    """Max pooling as Flax's ``nn.max_pool``: VALID, or TF SAME (the padding
+    never wins: -inf)."""
+    stride = stride or window
+    if padding == "VALID":
+        return F.max_pool2d(x, window, stride)
+    left, right, top, bottom = pads = _same_pads(x, window, stride)
+    if left == right and top == bottom:
+        return F.max_pool2d(x, window, stride, (top, left))
+    return F.max_pool2d(F.pad(x, pads, value=-math.inf), window, stride)
+
+
+def zero_pad_same(x, window, stride):
+    """``x`` zero-padded by the TF SAME amounts of a ``window`` / ``stride``
+    pool (Keras's ``ZeroPadding2D(correct_pad)``)."""
+    return F.pad(x, _same_pads(x, window, stride))
+
+
+def flatten_nhwc(x):
+    """(B, C, H, W) -> (B, H*W*C) in the NHWC order a Flax reshape gives, so
+    that a dense layer after it takes the JAX package's kernel."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1) if x.ndim == 4 else x
+
+
+def top_output(x, top_activation, taps):
+    """The top dense layer's output ``x`` through ``top_activation`` (softmax,
+    in f32 or f64, or none), recorded in ``taps`` as ``prob`` or
+    ``embedding`` (the JAX models' ``sow`` names)."""
+    if top_activation == "softmax":
+        x = torch.softmax(upcast32(x), dim=-1)
+    if taps is not None:
+        taps["prob" if top_activation == "softmax" else "embedding"] = x
+    return x
 
 
 def global_avg_pool(x):

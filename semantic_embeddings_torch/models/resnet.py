@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``models/resnet.py``: the reference's
 ``resnet-50/101/152`` and ``rn18/34/50/101/152/200`` as one module: a
 ZeroPad(3) + VALID 7x7/2 stem conv, ZeroPad(1) + VALID 3x3/2 max-pool, four
 stages of bottleneck (depth >= 50) or basic blocks, global average pooling
-and a linear top Dense named ``top``.  Convs are bias-free (each feeds a
+and a top Dense named ``top`` (linear, or softmax for classification);
+``remat`` recomputes each block's activations in the backward pass, which
+runs its ``conv_b`` through the fused op a second time.  Convs are bias-free (each feeds a
 BatchNorm) and he-normal initialized.  Module names follow the Flax tree
 (``conv0``, ``bn0``, ``stage{s}_block{b}``, ``conv_a``, ``bn_sc``, ...) so
 that :mod:`..convert` maps one onto the other by name.
@@ -18,8 +20,7 @@ is the second kernel.  A block's ``conv_bn_stats`` names the op it calls;
 reference a run through the kernels is held against.
 
 Not ported: the JAX module's ``SpaceToDepthStem`` and ``Conv1x1AsDot``
-(TPU matrix-unit levers that ``build_network`` never selects) and
-``remat``.
+(TPU matrix-unit levers that ``build_network`` never selects).
 """
 
 from __future__ import annotations
@@ -29,7 +30,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3_bn_stats, plain_conv3x3_bn_stats
-from .layers import KerasBatchNorm, conv, dense, global_avg_pool, max_pool
+from .layers import (
+    KerasBatchNorm,
+    conv,
+    dense,
+    global_avg_pool,
+    max_pool,
+    rematerialized,
+    top_output,
+)
 
 STAGE_BLOCKS = {
     18: (2, 2, 2, 2),
@@ -112,12 +121,14 @@ class ResNet(nn.Module):
     features.  ``bn_epsilon`` differs per reference constructor (see
     ``build_network``)."""
 
-    def __init__(self, depth=50, classes=1000, include_top=True, bn_epsilon=1e-3,
-                 input_channels=3, generator=None):
+    def __init__(self, depth=50, classes=1000, include_top=True, top_activation=None,
+                 remat=False, bn_epsilon=1e-3, input_channels=3, generator=None):
         super().__init__()
         bottleneck = depth >= 50
         block_cls = BottleneckBlock if bottleneck else BasicBlock
         self.include_top = include_top
+        self.top_activation = top_activation
+        self.remat = remat
         self.conv0 = _conv(input_channels, 64, 7, 2, generator, padding="VALID")
         self.bn0 = KerasBatchNorm(64, epsilon=bn_epsilon)
         self.blocks = []
@@ -137,8 +148,8 @@ class ResNet(nn.Module):
 
     def forward(self, x, taps=None):
         """``taps``: a dict that, when given, also receives the pooled
-        features as ``avg_pool`` and the top's output as ``embedding`` (the
-        JAX module's ``sow`` names)."""
+        features as ``avg_pool`` and the top's output as ``embedding`` (or
+        ``prob`` under a softmax top; the JAX module's ``sow`` names)."""
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
         # Keras-2.2 stem (keras_applications resnet50): ZeroPadding2D(3) +
         # VALID 7x7/2 conv, then ZeroPadding2D(1) + VALID 3x3/2 max-pool.
@@ -147,14 +158,13 @@ class ResNet(nn.Module):
         x = torch.relu(self.bn0(x))
         x = max_pool(F.pad(x, (1, 1, 1, 1)), 3, 2)
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = rematerialized(block, x) if self.remat else block(x)
         x = global_avg_pool(x)
         if taps is not None:
             taps["avg_pool"] = x
         if self.include_top:
-            x = self.top(x)
-            if taps is not None:
-                taps["embedding"] = x
+            x = top_output(self.top(x), self.top_activation, taps)
         return x
 
 
