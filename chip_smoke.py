@@ -108,6 +108,39 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bitwise equal, loss and parameters within 1e-6 of each update,
    ``conv3x3_bn_stats`` launched 32 against 16 times, the filter gradient
    16 in both, and less peak memory with remat.
+13. The kernels as ``torch.library`` custom ops on the new paths: (a)
+   export phase 8's ResNet-50 with ``python -m
+   semantic_embeddings_torch.cli.export_model --validate`` (batch -1, the
+   l2norm tap), f32 and ``--bf16``, two processes at once; here each
+   artifact holds 16 ``conv3x3_bn_stats`` nodes, launches 16 a call at
+   batch 1 and 64, and equals the direct forward (f32 within 1e-5, bf16
+   within the JAX CLI's 2e-2 relative); the export time and a call's time
+   are printed; (b) serve the f32 artifact with ``serve_model --artifact``
+   as 10b serves the checkpoint (the same client process, checks and
+   numbers); (c) ``learn_classifier`` with the CosineLoss.md recipe's flags
+   (resnet-50 at 224 px, ``--label_smoothing 0.1``, SGDR, batch 24,
+   ``--bf16``) for one epoch of 4 steps on a synthetic 224-px set with a
+   model dump: 16 + 16 conv launches a step, the step timed and its peak
+   memory; ``evaluate_classification_accuracy`` reads the dump; then
+   ``learn_image_embeddings --finetune`` from it with ``--finetune_init
+   1``: after phase 1 every backbone parameter is bitwise as loaded and
+   both tops moved, the cosine pair launched 1 + 1 a step and the filter
+   gradient not at all; phase 2 launches all four; (d) ``learn_devise``
+   (``--init_weights`` from phase 5's dump, both phases),
+   ``learn_labelembedding`` and ``learn_center_loss`` (learned and fixed
+   centroids) on resnet-110-wfc at batch 100, four processes at once, one
+   epoch of 5 steps: finite training losses (validation after 5 steps may
+   overflow: the BN running statistics are still near their initial
+   values), each dump rebuilt reproduces its features within 1e-5 of their
+   size (NaN where they are NaN), the features are finite and within 1e-5
+   of each row's largest magnitude of a float64 forward of the same weights
+   wherever that forward stays inside float32's range (with fixed centroids
+   it may pass it, and those features are then NaN), fixed centroids
+   unchanged; each learner's step timed here with its peak memory; (e,
+   first) the host time of a call
+   through each custom op against its kernel's wrapper called directly
+   (small shapes, 500 calls, in turns), and what that dispatch adds to a
+   slice 1 and a ResNet-50 step.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -534,7 +567,7 @@ def drive_clients(url, wire, commands, results):
         results.put((preds, errors, wall, seconds, retried))
 
 
-def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
+def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts, artifact=None):
     """Serves the checkpoint through ``serve_model.make_server`` (max batch
     64, warm-up, ILSVRC statistics, the l2norm tap) and drives it with the
     port's client from 16 threads of another process: 256 images of 224 px
@@ -550,7 +583,9 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
     ``--max_queue`` a request gets 503 with Retry-After, and in
     ``--device_preproc`` mode a float outside [0, 255] gets 400.  Before
     the timed run the traffic runs once untimed, and the engine's
-    statistics are reset."""
+    statistics are reset.  With ``artifact`` (phase 13b) it serves that
+    ``export_model`` artifact (``--artifact``, f32 npy wire) instead, held
+    to the same checks against the checkpoint's direct forward."""
     import multiprocessing
     import threading
     import urllib.error
@@ -593,10 +628,12 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
             return e.code, e.headers
 
     def run(label, extra, wire_dtype):
+        source = (["--artifact", artifact] if artifact
+                  else ["--checkpoint", ckpt, "--layer", "l2norm"])
         args = serve_model.build_parser().parse_args([
-            "--checkpoint", ckpt, "--input_size", str(SERVE_SIZE), "--port", "0",
+            *source, "--input_size", str(SERVE_SIZE), "--port", "0",
             "--max_batch", "64", "--max_queue", "256", "--warmup", "--dataset", "ilsvrc",
-            "--layer", "l2norm", "--device", str(device), *extra])
+            "--device", str(device), *extra])
         t0 = time.perf_counter()
         srv = serve_model.make_server(args)
         warm = srv.engine.warmup()  # as serve_model.main does for --warmup
@@ -749,6 +786,12 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts):
         return {"pending": pending, "code": code, "retry_after": headers.get("Retry-After")}
 
     CC._plain_conv_bn_stats = counting_plain
+    if artifact:
+        try:
+            _, result = run("artifact f32 npy", [], np.float32)
+        finally:
+            CC._plain_conv_bn_stats = plain
+        return {"artifact_f32_npy": result}
     try:
         f32, result_f32 = run("f32 npy", [], np.float32)
         _, result_u8 = run("f32 uint8 --device_preproc", ["--device_preproc"], np.uint8)
@@ -1162,6 +1205,427 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     out["remat"] = {"remat": runs[True], "plain": runs[False], "worst_of_update": worst}
     del states, before, plain_sd, remat_sd
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 13: the classifier recipe's batch (CosineLoss.md / RECIPES.md), the
+# steps of one epoch and its validation batches
+CLS_BATCH, CLS_STEPS, CLS_VAL = 24, 4, 2
+# phase 13d: the baselines at slice 1's shape, 5 steps of 100
+BASE_DATASET, BASE_STEPS = "synthetic-100-500-200", 5
+# warm steps timed for each learner of 13c and 13d
+LEARNER_TIMED_STEPS = 5
+
+
+def run_clis(jobs):
+    """Runs ``{name: (module, argv)}`` CLIs of the port, each in its own
+    process, all at once; returns ``{name: stdout}``.  Fails unless every
+    one exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"semantic_embeddings_torch.cli.{module}", *argv],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (module, argv) in jobs.items()}
+    outs = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate()
+        print(f"{name} ({jobs[name][0]}) exit {proc.returncode}, done at "
+              f"{time.perf_counter() - t0:.1f} s\n{stdout.strip()}")
+        if proc.returncode:
+            print(stderr[-4000:])
+        outs[name] = (proc.returncode, stdout)
+    check(all(code == 0 for code, _ in outs.values()),
+          {name: code for name, (code, _) in outs.items()})
+    return {name: out for name, (_, out) in outs.items()}
+
+
+def finite_losses(name, printed):
+    """Fails unless every loss a CLI printed (training and validation) is
+    finite; returns how many it printed."""
+    losses = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", printed)
+    check(len(losses) >= 2 and all(math.isfinite(float(v)) for _, v in losses),
+          (name, losses))
+    return len(losses)
+
+
+def finite_train_losses(name, printed):
+    """Fails unless each epoch's training loss (``loss=`` on the epoch
+    lines) is finite; returns them, with the validation losses printed."""
+    train = [float(v) for v in re.findall(r"^epoch .* loss=([^\s]+)", printed, re.M)]
+    check(train and all(math.isfinite(v) for v in train), (name, train))
+    val = [float(v) for v in re.findall(r"'val_loss': ([^\s,}]+)", printed)]
+    return train, val
+
+
+#: an image whose float64 forward reaches this magnitude in some layer of the
+#: backbone (1e-3 of float32's largest value) may give non-finite float32
+#: features; below it every feature must be finite
+F32_RANGE_MARGIN = float(np.finfo(np.float32).max) * 1e-3
+
+
+def exact_features(model, data, device, batch):
+    """The eval-mode features of every test image through a float64 copy of
+    ``model``, and for each image the largest magnitude that any module of
+    the backbone produced on the way (float32 overflows where that passes
+    its range, and the features then turn inf or NaN)."""
+    import torch
+
+    from semantic_embeddings_torch.cli import common
+
+    exact = copy.deepcopy(model).double().eval()
+    peak = {}
+
+    def record(module, inputs, output):
+        if torch.is_tensor(output):
+            peak["now"] = torch.maximum(peak["now"], output.abs().flatten(1).amax(1))
+
+    handles = [m.register_forward_hook(record) for m in exact.backbone.modules()]
+    prepare = data.make_prepare(device)
+    rng = torch.Generator(device=device).manual_seed(0)
+    feats, peaks, valids = [], [], []
+    try:
+        with torch.no_grad():
+            for raw in data.test_batches(batch):
+                images, _ = prepare(raw, rng, False)
+                images = images.double()
+                peak["now"] = images.abs().flatten(1).amax(1)
+                feats.append(common.forward_tap(exact, images, None, 0))
+                peaks.append(peak["now"])
+                valids.append(np.asarray(raw["valid"]) > 0 if "valid" in raw
+                              else np.ones(len(images), dtype=bool))
+    finally:
+        for handle in handles:
+            handle.remove()
+    valid = np.concatenate(valids)
+    return torch.cat(feats).cpu().numpy()[valid], torch.cat(peaks).cpu().numpy()[valid]
+
+
+def time_learner(name, step, state, batches, card):
+    """Times LEARNER_TIMED_STEPS warm steps of ``step``; returns the median
+    step's seconds and the peak device memory."""
+    import torch
+
+    rng = torch.Generator(device=next(state.model.parameters()).device).manual_seed(0)
+    step(state, batches[0], 0.01, rng)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    run = timed(step, times)
+    for i in range(LEARNER_TIMED_STEPS):
+        run(state, batches[(1 + i) % len(batches)], 0.01, rng)
+    step_s = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name}: {LEARNER_TIMED_STEPS} warm steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, median {step_s * 1e3:.1f} ms, "
+          f"peak {peak:.3f} GiB [{card}]")
+    return {"step_s": times, "median_step_ms": step_s * 1e3, "peak_gib": peak}
+
+
+def phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, slice1_dump, CC,
+            reset_counts, read_counts):
+    """Phase 13: export and artifact serving, the classifier, --finetune and
+    the baselines; see the module's docstring.  Returns the numbers for the
+    JSON line."""
+    import torch
+
+    from semantic_embeddings_torch.cli import (
+        common, export_model, learn_classifier, learn_image_embeddings)
+    from semantic_embeddings_torch.data import get_data_generator
+    from semantic_embeddings_torch.train import (
+        losses, make_classifier_train_step, make_train_step, new_train_state, special)
+
+    out = {"export": {}}
+    t_phase = time.perf_counter()
+
+    # -- 13e (first: it is short). dispatch through the ops, host time -----
+    phase("13e host time a call: each custom op against its kernel's wrapper called directly")
+    from semantic_embeddings_torch.ops import cosine_loss as C
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    z, t, g = C.check_inputs((BATCH, 100), torch.float32, gen)
+    x, w, dy = CC.check_inputs((2, 7, 7, 32, 32), torch.float32, gen)
+    ops = torch.ops.semantic_embeddings_torch
+    pairs = {
+        "cosine_loss_fwd": (lambda: ops.cosine_loss_fwd(z, t), lambda: C._launch_forward(z, t)),
+        "cosine_loss_bwd": (lambda: ops.cosine_loss_bwd(z, t, g),
+                            lambda: C._launch_backward(z, t, g)),
+        "conv3x3_bn_stats": (lambda: ops.conv3x3_bn_stats(x, w),
+                             lambda: CC._launch_conv_bn_stats(x, w)),
+        "conv3x3_filter_grad": (lambda: ops.conv3x3_filter_grad(x, dy),
+                                lambda: CC._launch_filter_grad(x, dy)),
+    }
+
+    def host_us(fn, n=500):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    dispatch = {}
+    for name, (op, direct_fn) in pairs.items():
+        runs = {"direct": [], "op": []}
+        for kind in ("direct", "op", "op", "direct"):
+            runs[kind].append(host_us(direct_fn if kind == "direct" else op))
+        d, o = statistics.mean(runs["direct"]), statistics.mean(runs["op"])
+        dispatch[name] = {"direct_us": runs["direct"], "op_us": runs["op"],
+                          "dispatch_us": o - d}
+        print(f"{name}: {o:.1f} us a call through the op, {d:.1f} us through the wrapper "
+              f"directly (small shapes, launch-bound): dispatch {o - d:.1f} us [{card}]")
+    per_step = {"slice1": dispatch["cosine_loss_fwd"]["dispatch_us"]
+                + dispatch["cosine_loss_bwd"]["dispatch_us"],
+                "resnet50": RN50_CONVS * (dispatch["conv3x3_bn_stats"]["dispatch_us"]
+                                          + dispatch["conv3x3_filter_grad"]["dispatch_us"])
+                + dispatch["cosine_loss_fwd"]["dispatch_us"]
+                + dispatch["cosine_loss_bwd"]["dispatch_us"]}
+    print(f"dispatch a train step: slice 1 {per_step['slice1']:.1f} us (2 op calls), "
+          f"resnet-50 {per_step['resnet50']:.1f} us (34 op calls) [{card}]")
+    out["dispatch"] = {"per_call": dispatch, "per_step_us": per_step}
+    del z, t, g, x, w, dy
+
+    # -- 13a. export_model in its own process, f32 and bf16 ---------------
+    phase("13a export phase 8's resnet-50 (export_model --validate, own processes), "
+          "f32 and bf16, batch -1, l2norm")
+    paths = {p: os.path.join(tmp, f"resnet50_{p}.pt2") for p in ("f32", "bf16")}
+    printed = run_clis({p: ("export_model", [
+        "--checkpoint", rn50_ckpt, "--out", path, "--layer", "l2norm", "--input_size",
+        str(SERVE_SIZE), "--batch", "-1", "--device", device.type, "--validate",
+        *(["--bf16"] if p == "bf16" else [])]) for p, path in paths.items()})
+    direct, _ = common.rebuild_model_from_checkpoint(rn50_ckpt, device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    for precision, path in paths.items():
+        check("Validated" in printed[precision], f"{precision} export not validated")
+        export_s = float(re.search(r"in ([0-9.]+) s; custom-op", printed[precision]).group(1))
+        nodes = export_model.count_op_nodes(torch.export.load(path), "conv3x3_bn_stats")
+        check(nodes == RN50_CONVS, f"{precision} artifact holds {nodes} conv3x3_bn_stats nodes")
+        fn, sidecar = export_model.load_artifact(path, device)
+        bf16 = torch.bfloat16 if precision == "bf16" else None
+        result = {"export_s": export_s, "conv3x3_bn_stats_nodes": nodes,
+                  "bytes": os.path.getsize(path), "launches_per_call": {}, "max_abs_err": {}}
+        for b in (1, 64):
+            x = torch.randn(b, SERVE_SIZE, SERVE_SIZE, 3, generator=gen, device=device)
+            reset_counts()
+            with torch.inference_mode():
+                got = fn(x)
+            torch.cuda.synchronize()
+            result["launches_per_call"][b] = read_counts()["conv3x3_bn_stats"]
+            with torch.inference_mode(), common.maybe_autocast(device, bf16):
+                want = common.forward_tap(direct, x, "l2norm").float()
+            err = (got - want).abs().max().item()
+            result["max_abs_err"][b] = err
+            if bf16 is None:
+                check(err <= 1e-5, f"f32 artifact vs direct forward at batch {b}: {err:.3g}")
+            else:  # the JAX export CLI's bf16 tolerance
+                torch.testing.assert_close(got, want, rtol=2e-2, atol=1e-3)
+        check(result["launches_per_call"] == {1: RN50_CONVS, 64: RN50_CONVS},
+              result["launches_per_call"])
+        def direct_call():
+            with common.maybe_autocast(device, bf16):
+                return common.forward_tap(direct, x, "l2norm")
+
+        with torch.inference_mode():  # in turns: artifact, direct, direct, artifact
+            for key, call in (("call", lambda: fn(x)), ("direct", direct_call),
+                              ("direct", direct_call), ("call", lambda: fn(x))):
+                result.setdefault(f"{key}_ms_b64", []).append(time_ms(call, iters=20,
+                                                                      warmup=3))
+        out["export"][precision] = result
+        print(f"{precision} artifact: exported in {export_s:.2f} s ({result['bytes']:,} "
+              f"bytes), {nodes} conv3x3_bn_stats nodes, {RN50_CONVS} launches a call at "
+              f"batch 1 and 64; vs the direct forward {result['max_abs_err']}; a call at "
+              f"batch 64 {result['call_ms_b64']} ms, the direct forward "
+              f"{result['direct_ms_b64']} ms (CUDA events, in turns) [{card}]")
+        del fn
+    del direct
+    torch.cuda.empty_cache()
+
+    # -- 13b. serve the f32 artifact over HTTP ---------------------------
+    phase("13b serve the f32 artifact over HTTP (serve_model --artifact)")
+    out["serving"] = serve_resnet50(rn50_ckpt, device, card, CC, reset_counts, read_counts,
+                                    artifact=paths["f32"])
+    torch.cuda.empty_cache()
+
+    # -- 13c. the classifier recipe, its dump, --finetune from it --------
+    phase(f"13c learn_classifier: resnet-50 @ {SERVE_SIZE} px, --label_smoothing 0.1, SGDR, "
+          f"batch {CLS_BATCH}, --bf16; then learn_image_embeddings --finetune")
+    name = f"synthetic-100-{CLS_STEPS * CLS_BATCH}-{CLS_VAL * CLS_BATCH}-{SERVE_SIZE}"
+    cls_dump = os.path.join(tmp, "classifier.pt")
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    with contextlib.redirect_stdout(tee):
+        state = learn_classifier.main([
+            "--dataset", name, "--data_root", tmp, "--architecture", "resnet-50",
+            "--label_smoothing", "0.1", "--lr_schedule", "SGDR", "--sgdr_max_lr", "0.05",
+            "--batch_size", str(CLS_BATCH), "--bf16", "--epochs", "1",
+            "--model_dump", cls_dump, "--device", device.type])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    finite_losses("learn_classifier", tee.buf.getvalue())
+    # fit's validation and the final one each run the CLS_VAL test batches
+    want = {"cosine_loss_fwd": 0, "cosine_loss_bwd": 0,
+            "conv3x3_bn_stats": RN50_CONVS * (CLS_STEPS + 2 * CLS_VAL),
+            "conv3x3_filter_grad": RN50_CONVS * CLS_STEPS}
+    check(state.step == CLS_STEPS and counts == want, (state.step, counts))
+    data = get_data_generator(name)
+    batches = list(data.train_batches(CLS_BATCH, 0, 0))
+    out["classifier"] = {"launches": counts, **time_learner(
+        f"learn_classifier step (resnet-50, bf16, batch {CLS_BATCH})",
+        make_classifier_train_step(state.model, data.make_prepare(device),
+                                   num_classes=data.num_classes,
+                                   label_smoothing=0.1, autocast_dtype=torch.bfloat16),
+        state, batches, card)}
+    del state
+    torch.cuda.empty_cache()
+    table = run_cli("evaluate_classification_accuracy", "--dataset", name, "--data_root",
+                    tmp, "--model", cls_dump, "--layer", "prob", "--prob_features", "1",
+                    "--batch_size", str(CLS_BATCH), "--device", device.type)
+    accuracy = parse_table(table)["classifier"]
+    check(all(0.0 <= v <= 1.0 for v in accuracy.values()), accuracy)
+    out["classifier"]["evaluate_classification_accuracy"] = accuracy
+
+    dump = torch.load(cls_dump, map_location="cpu", weights_only=True)["model"]
+    phase1 = {}
+    finetune = common.finetune
+
+    def finetune_checked(args, state, warm_step, eval_step, dataset):
+        tops = {n: p.detach().clone() for n, p in state.model.named_parameters()
+                if "top" in n}
+        reset_counts()
+        state = finetune(args, state, warm_step, eval_step, dataset)
+        torch.cuda.synchronize()
+        phase1["launches"] = read_counts()
+        params = dict(state.model.named_parameters())
+        loaded = [k for k in dump if "backbone." + k in params and not k.startswith("top.")]
+        phase1["backbone_params_checked"] = len(loaded)
+        phase1["backbone_changed"] = [k for k in loaded
+                                      if not torch.equal(params["backbone." + k].cpu(), dump[k])]
+        phase1["tops_moved"] = {n: not torch.equal(params[n], v) for n, v in tops.items()}
+        reset_counts()
+        return state
+
+    common.finetune = finetune_checked
+    tee = _Tee(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(tee):
+            state = learn_image_embeddings.main([
+                "--dataset", name, "--data_root", tmp, "--embedding", emb_path,
+                "--architecture", "resnet-50", "--loss", "inv_corr", "--cls_weight", "0.1",
+                "--fused_loss", "--lr_schedule", "SGDR", "--sgdr_max_lr", "0.05",
+                "--batch_size", str(CLS_BATCH), "--bf16", "--epochs", "1",
+                "--finetune", cls_dump, "--finetune_init", "1", "--device", device.type])
+    finally:
+        common.finetune = finetune
+    torch.cuda.synchronize()
+    phase2 = read_counts()
+    finite_losses("learn_image_embeddings --finetune", tee.buf.getvalue())
+    check(phase1["backbone_params_checked"] == len(
+        [n for n, _ in state.model.backbone.named_parameters() if not n.startswith("top.")])
+        and not phase1["backbone_changed"], phase1)
+    check(all(phase1["tops_moved"].values()), phase1["tops_moved"])
+    check(phase1["launches"] == {
+        "cosine_loss_fwd": CLS_STEPS, "cosine_loss_bwd": CLS_STEPS,
+        "conv3x3_bn_stats": RN50_CONVS * (CLS_STEPS + CLS_VAL),
+        "conv3x3_filter_grad": 0}, phase1["launches"])
+    check(phase2 == {
+        "cosine_loss_fwd": CLS_STEPS, "cosine_loss_bwd": CLS_STEPS,
+        "conv3x3_bn_stats": RN50_CONVS * (CLS_STEPS + 2 * CLS_VAL),
+        "conv3x3_filter_grad": RN50_CONVS * CLS_STEPS}, phase2)
+    print(f"--finetune phase 1: {phase1['backbone_params_checked']} backbone parameters "
+          f"bitwise as loaded (the BN running statistics move, as in Keras 2.2), tops "
+          f"moved {phase1['tops_moved']}, launches {phase1['launches']}; phase 2 launches "
+          f"{phase2}")
+    out["finetune"] = {"phase1": phase1, "phase2_launches": phase2}
+    del state
+    torch.cuda.empty_cache()
+
+    # -- 13d. the baselines on resnet-110-wfc, each in its own process ----
+    phase(f"13d learn_devise / learn_labelembedding / learn_center_loss (learned and "
+          f"fixed): resnet-110-wfc @ 32 px, batch {BATCH}, own processes")
+    base = ["--dataset", BASE_DATASET, "--data_root", tmp, "--architecture",
+            "resnet-110-wfc", "--batch_size", str(BATCH), "--device", device.type]
+    learners = {
+        "devise": ("learn_devise", ["--embedding", emb_path, "--init_weights", slice1_dump,
+                                    "--init_epochs", "1", "--ft_epochs", "1"]),
+        "labelembed": ("learn_labelembedding", ["--embed_dim", "100", "--epochs", "1",
+                                                "--lr_schedule", "SGDR"]),
+        "center_loss": ("learn_center_loss", ["--embed_dim", "100", "--epochs", "1"]),
+        "center_loss_fixed": ("learn_center_loss", ["--centroids", emb_path, "--epochs", "1"]),
+    }
+    files = {k: (os.path.join(tmp, f"{k}.pt"), os.path.join(tmp, f"{k}.feat.pickle"))
+             for k in learners}
+    printed = run_clis({k: (module, [*base, *argv, "--model_dump", files[k][0],
+                                     "--feature_dump", files[k][1]])
+                        for k, (module, argv) in learners.items()})
+    data = get_data_generator(BASE_DATASET)
+    batches = list(data.train_batches(BATCH, 0, 0))
+    prepare = data.make_prepare(device)
+    norm_emb = embedding / np.linalg.norm(embedding, axis=-1, keepdims=True)
+    out["baselines"] = {}
+    for k, (model_path, feat_path) in files.items():
+        # After 5 steps the BatchNorm running statistics are still 95% their
+        # initial (0, 1), so in eval mode the 54 residual blocks scale the
+        # raw embeddings without bound (no l2norm here, unlike slice 1):
+        # validation losses may overflow; the training losses may not.  The
+        # features may overflow float32 too, and then only where the float64
+        # forward of the same weights passes float32's range.
+        train_losses, val_losses = finite_train_losses(k, printed[k])
+        with open(feat_path, "rb") as f:
+            feats_dump = pickle.load(f)["feat"]
+        feats = np.stack([feats_dump[i] for i in range(len(feats_dump))])
+        model, meta = common.rebuild_model_from_checkpoint(model_path, device)
+        again = common.extract_test_features(model, data, device, BATCH, pick=0)
+        # the rebuilt dump within 1e-5 of each feature's size (at least 1),
+        # NaN where the dump has NaN
+        same = ((again == feats) | (np.isnan(again) & np.isnan(feats))
+                | (np.abs(again - feats) <= 1e-5 * np.maximum(1.0, np.abs(feats))))
+        finite = np.isfinite(feats)
+        dist = float(np.abs(again - feats)[finite].max()) if finite.any() else 0.0
+        # the dump against the float64 forward: rows in float32's range are
+        # finite and within 1e-5 of the row's largest magnitude
+        exact, peak = exact_features(model, data, device, BATCH)
+        in_range = peak < F32_RANGE_MARGIN
+        scale = np.maximum(np.abs(exact).max(axis=1, keepdims=True), np.finfo(np.float64).tiny)
+        rows = feats[in_range]
+        vs_f64 = float((np.abs(rows - exact[in_range]) / scale[in_range]).max()) \
+            if in_range.any() else 0.0
+        check(feats.shape == (data.num_test, 100) and same.all()
+              and np.isfinite(rows).all() and vs_f64 <= 1e-5,
+              (k, feats.shape, dist, vs_f64, int((~in_range).sum())))
+        if k == "center_loss_fixed":
+            check(np.array_equal(model.cls_centroids.detach().cpu().numpy(), embedding),
+                  "the fixed centroids moved")
+        state = new_train_state(model.train())
+        if k == "devise":
+            step = make_train_step(model, prepare, class_embedding=norm_emb,
+                                   loss_fn_override=losses.devise_ranking_loss(norm_emb),
+                                   optimizer="adagrad", clipnorm=0.0)
+        elif k == "labelembed":
+            step = special.make_labelembed_train_step(model, prepare)
+        else:
+            step = special.make_center_loss_train_step(
+                model, prepare, num_classes=data.num_classes,
+                trainable_fn=(lambda p: "cls_centroids" not in p)
+                if k == "center_loss_fixed" else None)
+        out["baselines"][k] = {"train_losses": train_losses, "val_losses": val_losses,
+                               "rebuilt_vs_dump": dist,
+                               "finite_features": float(finite.mean()),
+                               "vs_f64_of_row_max": vs_f64,
+                               "rows_past_f32_range": int((~in_range).sum()),
+                               "f64_peak": float(peak.max()),
+                               **time_learner(f"{k} step (resnet-110-wfc, f32, batch {BATCH})",
+                                              step, state, batches, card)}
+        print(f"{k}: training losses {train_losses} (finite), validation losses "
+              f"{val_losses}; the rebuilt dump reproduces its {feats.shape} features "
+              f"({finite.mean():.3f} of them finite) within {dist:.3g}; the float64 forward "
+              f"reaches {peak.max():.3g} ({int((~in_range).sum())} of {len(peak)} images past "
+              f"float32's range), the rest within {vs_f64:.3g} of their rows' largest")
+        del model, state, step
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13 took {out['seconds']:.1f} s")
     return out
 
 
@@ -1723,6 +2187,14 @@ def main(argv=None):
     zoo_cosine = {arch: r["cosine_launches"] for arch, r in zoo["train"].items()}
     zoo_cosine["nasnet-a (3 fit steps + 1 bf16 step)"] = zoo["nasnet"]["cosine_launches"]
 
+    # -- 13. export, artifact serving, the classifier, --finetune, baselines
+    p13 = phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, model_path, CC,
+                  reset_counts, read_counts)
+    check("jax" not in sys.modules and not any(
+        m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
+    finetune_launches = {"phase1": p13["finetune"]["phase1"]["launches"],
+                         "phase2": p13["finetune"]["phase2_launches"]}
+
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
     for part, line in (("fwd", 40), ("bwd", 48)):
@@ -1735,6 +2207,9 @@ def main(argv=None):
             "launches_resnet50": rn50_launches[f"cosine_loss_{part}"],
             # phase 12: one step of each family in this process, and NASNet-A's
             "launches_zoo": zoo_cosine,
+            # phase 13c: --finetune of resnet-50, 4 steps a phase
+            "launches_finetune": {ph: c[f"cosine_loss_{part}"]
+                                  for ph, c in finetune_launches.items()},
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -1771,6 +2246,17 @@ def main(argv=None):
             # phase 12d: one ResNet-50 step with --remat and one without
             "launches_remat": {run: zoo["remat"][run]["launches"][name]
                                for run in ("remat", "plain")},
+            # phase 13a-b: a call of the exported artifact (batch 1 and 64) and
+            # its serving; 13c: the classifier's epoch and --finetune's phases
+            **({"launches_export_per_call": {p: r["launches_per_call"]
+                                             for p, r in p13["export"].items()},
+                "launches_serving_artifact": p13["serving"]["artifact_f32_npy"][
+                    "conv3x3_bn_stats_launches"],
+                "serving_artifact_device_calls": p13["serving"]["artifact_f32_npy"][
+                    "device_calls"]}
+               if name == "conv3x3_bn_stats" else {}),
+            "launches_classifier": p13["classifier"]["launches"][name],
+            "launches_finetune": {ph: c[name] for ph, c in finetune_launches.items()},
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -1789,7 +2275,7 @@ def main(argv=None):
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
-                      "slice1_feature_spread": collapse, "zoo": zoo}))
+                      "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -198,6 +198,64 @@ def dump_artifacts(args, state, model, dataset, device, cls_weight=0.0,
         save_features(args.feature_dump, feats)
 
 
+def read_class_list(path):
+    """The first word of each line of ``path``, in order, each once; as ints
+    where all of them are."""
+    from collections import OrderedDict
+
+    with open(path) as f:
+        class_list = list(OrderedDict(
+            (line.strip().split()[0], None) for line in f if line.strip()))
+    try:
+        return [int(c) for c in class_list]
+    except ValueError:
+        return class_list
+
+
+def add_finetune_arguments(group, init_epochs):
+    group.add_argument("--finetune", type=str, default=None,
+                       help="Path to pre-trained weights to be fine-tuned (a "
+                            "model, snapshot or weight dump of the port; "
+                            "tensors load by name).")
+    group.add_argument("--finetune_init", type=int, default=init_epochs,
+                       help="Number of initial epochs for training just the "
+                            "new layers before fine-tuning.")
+
+
+def finetune(args, state, warm_step, eval_step, dataset):
+    """``--finetune``: loads the weights by name, then, for
+    ``--finetune_init`` epochs, runs the train step ``warm_step()`` builds
+    (one that trains the new layers only) at a constant ``--sgd_lr``, with
+    no schedule, as the reference's warm-up does; then resets the optimizer
+    (zero velocity, step and epoch 0) for the full training, as the
+    reference's fresh compile does.  Returns the state."""
+    from ..train import fit, load_weights_by_name
+    from ..train.optimizer import init_velocity
+    from ..train.schedules import PiecewiseSchedule
+
+    print(f"Loading pre-trained weights from {args.finetune}")
+    load_weights_by_name(args.finetune, state.model)
+    if args.finetune_init > 0:
+        print("Pre-training new layers")
+        state = fit(state, warm_step(), eval_step, dataset,
+                    PiecewiseSchedule([(0, args.sgd_lr)]), epochs=args.finetune_init,
+                    batch_size=args.batch_size, val_batch_size=args.val_batch_size,
+                    seed=getattr(args, "seed", 0), verbose=not args.no_progress)
+        state.velocity = init_velocity(state.params)
+        state.step = state.epoch = 0
+        print("Full model training")
+    return state
+
+
+def reject_unported_parallel(args):
+    """Refuses the multi-device flags, which are not ported yet."""
+    reject_unported([
+        ("--gpus > 1", args.gpus > 1),
+        ("--spatial", args.spatial > 1),
+        ("--bn_per_replica", args.bn_per_replica),
+    ])
+
+
 def resolve_tap(taps, layer):
     """The feature tap named ``layer`` from a model's ``taps`` dict; raises
     with the available names otherwise.  Shared by feature extraction and
@@ -260,46 +318,71 @@ def load_checkpoint_raw(path):
 
 
 def _input_channels(state_dict):
-    """The image channels a checkpoint's model takes: those of the backbone's
-    first conv weight, whatever the family names it."""
-    for key, value in state_dict.items():
-        if key.startswith("backbone.") and value.ndim == 4:
+    """The image channels a checkpoint's model takes: those of its first conv
+    weight (the network's stem: every model registers its network first),
+    whatever the family names it."""
+    for value in state_dict.values():
+        if value.ndim == 4:
             return int(value.shape[1])
-    raise ValueError("Checkpoint has no conv weight in its backbone")
+    raise ValueError("Checkpoint has no conv weight in its network")
 
 
 def rebuild_model_from_checkpoint(path, device, architecture=None):
-    """Loads a model dump and rebuilds the module from its metadata (the
-    embedding width, loss, classification head and its ``cls_base`` that
-    the trainer records), on ``device`` in eval mode.  bf16 is the caller's
-    ``torch.autocast``; the weights stay f32.  Returns ``(model, metadata)``.
+    """Loads a model dump and rebuilds the module from its metadata, on
+    ``device`` in eval mode: an embedding model (the embedding width, loss,
+    classification head and its ``cls_base`` that the trainer records), a
+    baseline learner's model (``learner`` in the metadata), or a classifier
+    (a bare network with a softmax ``top``, whose width gives the classes).
+    bf16 is the caller's ``torch.autocast``; the weights stay f32.  Returns
+    ``(model, metadata)``.
     """
+    from ..models import CenterLossModel, LabelEmbedModel
+    from ..train.state import has_backbone
+
     state_dict, meta = load_checkpoint_raw(path)
     arch = meta.get("architecture") or architecture
     if arch is None:
         raise ValueError(f"Checkpoint {path} has no architecture metadata; pass "
                          "--architecture.")
-    reject_unported([
-        ("serving or evaluating a classifier checkpoint (no embedding head)",
-         not any(k.startswith("backbone.") for k in state_dict)),
-    ])
+    channels = _input_channels(state_dict)
+    generator = torch.Generator().manual_seed(0)  # any init: the dump overwrites it
+    if not has_backbone(state_dict):  # a classifier: the bare network
+        top = state_dict.get("top.weight")
+        if top is None:
+            raise ValueError(f"Cannot infer the classifier output width of {path}")
+        model = build_network(int(top.shape[0]), arch, classification=True,
+                              input_channels=channels, generator=generator).module
+        model.load_state_dict(state_dict, strict=True)
+        return model.to(device).eval(), meta
+    embed_dim = meta.get("embed_dim")
+    if embed_dim is None:
+        top = state_dict.get("backbone.top.weight")
+        embed_dim = int(top.shape[0]) if top is not None else 0
+    learner = meta.get("learner")
+    if learner is not None:
+        backbone = build_network(embed_dim, arch, input_channels=channels,
+                                 generator=generator).module
+        classes = int(state_dict["prob_head.weight"].shape[0])
+        if learner == "labelembed":
+            model = LabelEmbedModel(backbone, classes, generator)
+        elif learner == "center_loss":
+            model = CenterLossModel(backbone, classes, embed_dim, generator=generator)
+        else:
+            raise ValueError(f"Checkpoint {path} names an unknown learner {learner!r}")
+        model.load_state_dict(state_dict, strict=True)
+        return model.to(device).eval(), meta
     if "loss" not in meta:
         import warnings
 
         warnings.warn(
             f"Checkpoint {path} lacks 'loss' metadata; assuming 'inv_corr' "
             "(l2norm output).", RuntimeWarning)
-    embed_dim = meta.get("embed_dim")
-    if embed_dim is None:
-        top = state_dict.get("backbone.top.weight")
-        embed_dim = int(top.shape[0]) if top is not None else 0
     cls_classes = meta.get("cls_classes", 0)
     if not cls_classes and "cls_top.weight" in state_dict:
         cls_classes = int(state_dict["cls_top.weight"].shape[0])
     model, _ = build_embedding_model(
         embed_dim, arch, meta.get("loss", "inv_corr"), cls_classes,
-        input_channels=_input_channels(state_dict),
-        cls_base=meta.get("cls_base"))
+        input_channels=channels, cls_base=meta.get("cls_base"))
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval(), meta
 

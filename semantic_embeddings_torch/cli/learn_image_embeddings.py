@@ -5,6 +5,8 @@ The PyTorch counterpart of the JAX package's
 Run it as ``python -m semantic_embeddings_torch.cli.learn_image_embeddings``.
 With ``--fused_loss`` the cosine loss runs through the hand-written CUDA
 kernel pair of :mod:`semantic_embeddings_torch.ops.cosine_loss`.
+``--finetune`` first trains only the ``top`` layers for ``--finetune_init``
+epochs from weights loaded by name, then the whole model.
 """
 
 from __future__ import annotations
@@ -102,12 +104,7 @@ def build_parser():
                             "identified by monitoring the specified metric.")
     group.add_argument("--initial_epoch", type=int, default=0,
                        help="Initial epoch for resuming training from snapshot.")
-    group.add_argument("--finetune", type=str, default=None,
-                       help="Path to pre-trained weights to be fine-tuned "
-                            "(not ported yet).")
-    group.add_argument("--finetune_init", type=int, default=8,
-                       help="Number of initial epochs for training just the "
-                            "new layers before fine-tuning.")
+    common.add_finetune_arguments(group, init_epochs=8)
     common.add_common_train_arguments(group)
     group = parser.add_argument_group("Output parameters")
     group.add_argument("--model_dump", type=str, default=None,
@@ -135,13 +132,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    common.reject_unported([
-        ("--gpus > 1", args.gpus > 1),
-        ("--spatial", args.spatial > 1),
-        ("--bn_per_replica", args.bn_per_replica),
-        ("--finetune", args.finetune is not None),
-        ("--profile_dir", args.profile_dir is not None),
-    ])
+    common.reject_unported_parallel(args)
+    common.reject_unported([("--profile_dir", args.profile_dir is not None)])
     device = common.resolve_device(args.device)
     common.set_float32_precision()
     autocast_dtype = torch.bfloat16 if args.bf16 else None
@@ -216,6 +208,13 @@ def main(argv=None):
         metric_fn=metrics_dict, l2_penalty_fn=spec.l2_penalty,
         autocast_dtype=autocast_dtype,
     )
+
+    if args.finetune:
+        # the warm-up trains only the layers the reference names embedding
+        # and prob: the backbone's and the head's tops
+        state = common.finetune(args, state, lambda: make_train_step(
+            train_model, prepare, trainable_fn=lambda p: "top" in p, **step_kwargs,
+            **train_overrides), eval_step, dataset)
 
     schedule, num_epochs = get_lr_schedule(
         args.lr_schedule, dataset.num_train, args.batch_size,

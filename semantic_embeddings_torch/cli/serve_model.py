@@ -1,9 +1,12 @@
 """CLI: serve a trained model over HTTP with dynamic micro-batching.
 
-The PyTorch counterpart of the JAX package's ``cli/serve_model.py`` for a
-checkpoint (``--model_dump`` / ``--snapshot`` of the port's trainer), with
-``--device``.  Run it as ``python -m semantic_embeddings_torch.cli.serve_model``:
+The PyTorch counterpart of the JAX package's ``cli/serve_model.py``, with
+``--device``: it serves an artifact of ``export_model`` (``torch.export``)
+or a checkpoint (``--model_dump`` / ``--snapshot`` of the port's learners).
+Run it as ``python -m semantic_embeddings_torch.cli.serve_model``:
 
+    python -m semantic_embeddings_torch.cli.serve_model --artifact model.pt2 \\
+        --dataset ilsvrc --warmup
     python -m semantic_embeddings_torch.cli.serve_model --checkpoint model.pt \\
         --layer l2norm --input_size 224 --dataset ilsvrc --warmup
 
@@ -13,7 +16,8 @@ checkpoint (``--model_dump`` / ``--snapshot`` of the port's trainer), with
 
 The forward runs on the device in eval mode under ``torch.inference_mode()``
 (bf16 under ``torch.autocast`` with ``--bf16``), through the model's own
-kernels (the ImageNet ResNets' fused 3x3 conv + BN statistics).
+kernels (the ImageNet ResNets' fused 3x3 conv + BN statistics); an
+artifact's graph calls the same kernels through the port's custom ops.
 Normalization: ``--dataset`` picks that dataset's channel statistics, or
 ``--mean``/``--std`` give them; JSON requests may skip it with
 ``"normalized": true``.  SIGTERM stops accepting, drains and exits 0.
@@ -36,20 +40,24 @@ def build_parser():
     )
     src = parser.add_argument_group("model source")
     src.add_argument("--artifact", type=str, default=None,
-                     help="Exported model artifact (not ported yet).")
+                     help="Artifact (.pt2) from export_model (reads the "
+                          ".json sidecar when present).")
     src.add_argument("--checkpoint", type=str, default=None,
                      help="Model dump / snapshot to serve.")
     src.add_argument("--architecture", type=str, default=None,
                      help="Backbone architecture (checkpoints without "
                           "metadata only).")
     src.add_argument("--layer", type=str, default=None,
-                     help="Feature tap (l2norm / embedding / prob / avg_pool).")
+                     help="Feature tap (l2norm / embedding / prob / "
+                          "avg_pool); checkpoint source only.")
     src.add_argument("--input_size", type=int, default=None,
-                     help="Input image height/width (default 32).")
+                     help="Input image height/width (default: the "
+                          "artifact's sidecar value, else 32).")
     src.add_argument("--input_channels", type=int, default=3)
     src.add_argument("--bf16", action="store_true", default=False,
                      help="Run the forward in bfloat16 under torch.autocast "
-                          "(f32 weights).")
+                          "(f32 weights); checkpoint source only: artifacts "
+                          "bake their dtype at export (export_model --bf16).")
     src.add_argument("--device", type=str, default="cuda",
                      help="Device to run on (cuda, cuda:N or cpu). A CUDA "
                           "device that is not present is an error.")
@@ -104,14 +112,17 @@ def build_model_fn(args, device):
     images on ``device`` to the served output (tensors, f32)."""
     from . import common
 
-    common.reject_unported([("--artifact", args.artifact is not None)])
-    if not args.checkpoint:
-        raise SystemExit("pass --checkpoint")
+    if bool(args.artifact) == bool(args.checkpoint):
+        raise SystemExit("pass exactly one of --artifact / --checkpoint")
+    if args.artifact:
+        return _artifact_fn(args, device)
+    from .export_model import ServingForward
+
     model, ckpt_meta = common.rebuild_model_from_checkpoint(
         args.checkpoint, device, args.architecture)
-    layer = args.layer
-    autocast_dtype = torch.bfloat16 if args.bf16 else None
-    meta = {"checkpoint": os.path.abspath(args.checkpoint), "layer": layer,
+    # without --layer the whole output, (embedding, prob) included
+    module = ServingForward(model, args.layer, torch.bfloat16 if args.bf16 else None)
+    meta = {"checkpoint": os.path.abspath(args.checkpoint), "layer": args.layer,
             "compute_dtype": "bfloat16" if args.bf16 else "float32",
             "device": str(device)}
     meta.update({k: v for k, v in ckpt_meta.items()
@@ -120,12 +131,41 @@ def build_model_fn(args, device):
     meta["input_channels"] = args.input_channels
 
     def forward(images):
-        with torch.inference_mode(), common.maybe_autocast(device, autocast_dtype):
-            # without --layer the whole output, (embedding, prob) included
-            out = model(images) if layer is None else common.forward_tap(model, images, layer)
-        if isinstance(out, tuple):
-            return tuple(t.float() for t in out)
-        return out.float()
+        with torch.inference_mode():
+            return module(images)
+
+    return forward, meta
+
+
+def _artifact_fn(args, device):
+    """The forward of an ``export_model`` artifact, loaded with
+    ``torch.export.load`` (the port's custom ops registered first) and moved
+    to ``device``; its sidecar's fields in the metadata."""
+    from .export_model import load_artifact
+
+    if args.bf16:
+        raise SystemExit(
+            "--bf16 applies to --checkpoint serving only; artifacts bake "
+            "their compute dtype at export time (export_model --bf16).")
+    if args.layer is not None:
+        raise SystemExit("--layer applies to --checkpoint serving only; "
+                         "artifacts bake their tap at export time "
+                         "(export_model --layer).")
+    program, sidecar = load_artifact(args.artifact, device)
+    exported_on = sidecar.get("platforms")
+    if exported_on and device.type not in exported_on:
+        raise SystemExit(
+            f"{args.artifact} was exported for {exported_on}, not {device.type}: "
+            "export it on the kind of device that serves it.")
+    meta = {"artifact": os.path.abspath(args.artifact), **sidecar, "device": str(device)}
+    shape = sidecar.get("input_shape", [-1, 32])
+    meta["input_size"] = args.input_size or abs(shape[1]) or 32
+    meta["input_channels"] = args.input_channels
+    meta["fixed_batch"] = shape[0] if shape[0] > 0 else None
+
+    def forward(images):
+        with torch.inference_mode():
+            return program(images)
 
     return forward, meta
 
@@ -197,10 +237,13 @@ def make_server(args):
         engine_dtype = np.float32
     preproc = Preprocessor(meta["input_size"], args.input_channels, mean=mean, std=std,
                            target_size=args.target_size, device_norm=args.device_preproc)
+    # an artifact of a fixed batch takes that batch only
+    fixed = meta.get("fixed_batch")
     engine = BatchingEngine(
         fn, (meta["input_size"], meta["input_size"], args.input_channels),
-        max_batch=args.max_batch, timeout_ms=args.batch_timeout_ms,
-        max_queue=args.max_queue, dtype=engine_dtype)
+        max_batch=fixed or args.max_batch, timeout_ms=args.batch_timeout_ms,
+        buckets=[fixed] if fixed else None, max_queue=args.max_queue,
+        dtype=engine_dtype)
     return ServingServer(engine, preproc, meta, host=args.host, port=args.port,
                          request_timeout=args.request_timeout_s)
 

@@ -12,6 +12,8 @@ The port's module names follow the Flax tree in every family (``conv0``,
 - ``bias``                       <-> ``bias``
 - BN ``scale`` / ``bias``        <-> ``weight`` / ``bias``
 - BN ``mean`` / ``var`` (batch_stats) <-> ``running_mean`` / ``running_var``
+- a parameter of the model itself (the learners' ``labelembeddings`` and
+  ``cls_centroids``) <-> the parameter of that name, as it is
 
 ``KerasBatchNorm`` wraps a Flax ``nn.BatchNorm`` named ``BatchNorm_0``; that
 level has no counterpart in the port.  Both directions raise on any leaf
@@ -76,6 +78,8 @@ def flax_to_state_dict(variables, model):
             *modules, name = path
             modules = [m for m in modules if m != _BN_LEVEL]
             torch_name = _TO_TORCH.get((collection, name))
+            if torch_name is None and collection == "params" and not modules:
+                torch_name = name  # a model's own parameter keeps its name
             key = ".".join(modules + [torch_name or name])
             if torch_name is None or key not in target:
                 raise KeyError(
@@ -131,6 +135,8 @@ def state_dict_to_flax(model):
             }.get(name, (None, None))
             if leaf == "kernel":
                 a = _kernel_to_flax(a, isinstance(module, nn.ConvTranspose2d))
+        elif not modules and name in dict(model.named_parameters()):
+            collection, leaf = "params", name
         else:
             collection = leaf = None
         if collection is None:

@@ -1,6 +1,6 @@
 """Dataset registry (counterpart of the JAX package's ``data/__init__.py``).
 
-Ported so far: ``synthetic[-N[-n_train[-n_test]]]``, ``cifar-10`` and
+Ported so far: ``synthetic[-N[-n_train[-n_test[-size]]]]``, ``cifar-10`` and
 ``cifar-100``.  The file datasets come in later work.
 """
 
@@ -25,15 +25,14 @@ def get_data_generator(dataset, data_root=None, classes=None, **extra):
     kwargs = dict(extra)
 
     if dataset.startswith("synthetic"):
-        # synthetic[-<num_classes>[-<n_train>[-<n_test>]]]: in-memory random
-        # data, CIFAR-shaped.  ``classes`` (the embedding's label order)
-        # takes precedence for the class count.
+        # synthetic[-<num_classes>[-<n_train>[-<n_test>[-<size>]]]]: in-memory
+        # random data, CIFAR-shaped unless a size (ImageNet's 224) is
+        # given.  ``classes`` (the embedding's label order) takes precedence
+        # for the class count.
         parts = dataset.split("-")
         n = int(parts[1]) if len(parts) > 1 else 100
-        if len(parts) > 2:
-            kwargs.setdefault("n_train", int(parts[2]))
-        if len(parts) > 3:
-            kwargs.setdefault("n_test", int(parts[3]))
+        for key, part in zip(("n_train", "n_test", "size"), parts[2:5]):
+            kwargs.setdefault(key, int(part))
         return SyntheticDataset(num_classes=n, classes=classes, **kwargs)
 
     if dataset == "cifar-10":

@@ -19,6 +19,7 @@ from .cifar_resnet import ResidualBlock, SmallResNet
 from .densenet import DenseNet, DenseNetFCN, sub_pixel_upscale
 from .heads import EmbeddingModel, l2norm
 from .layers import KerasBatchNorm
+from .learners import CenterLossModel, LabelEmbedModel
 from .nasnet import NASNetA
 from .plainnet import PlainNet
 from .pyramidnet import PyramidNet
@@ -72,7 +73,7 @@ class ModelSpec:
     module: nn.Module
     #: list of (path-regex, coefficient): L2 penalty ``coef * sum(kernel**2)``
     #: added to the loss for every conv/dense kernel whose module path
-    #: matches (first match wins).
+    #: matches (first match wins; a coefficient of 0 exempts the kernels).
     l2_filters: list = field(default_factory=list)
     #: the input resolution the architecture is built for
     input_size: int = 32
@@ -110,7 +111,9 @@ class ModelSpec:
                     if re.search(pattern, joined):
                         matched[i].append(module)
                         break
-            groups = [(coef, mods) for (_, coef), mods in zip(filters, matched) if mods]
+            # a rule of coefficient 0 matches its kernels to exempt them
+            groups = [(coef, mods) for (_, coef), mods in zip(filters, matched)
+                      if mods and coef]
             cached = self._groups[model] = (filters, groups)
         return cached[1]
 
@@ -197,10 +200,12 @@ __all__ = [
     "ARCHITECTURES",
     "ModelSpec",
     "build_network",
+    "CenterLossModel",
     "DenseNet",
     "DenseNetFCN",
     "EmbeddingModel",
     "KerasBatchNorm",
+    "LabelEmbedModel",
     "NASNetA",
     "PlainNet",
     "PyramidNet",

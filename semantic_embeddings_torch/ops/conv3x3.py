@@ -11,20 +11,24 @@ NCHW layout with (F, C, 3, 3) weights:
   filter_grad(x, dy):   dw[f, c, kh, kw] = sum_{n,h,w} x_pad[n, c, h+kh, w+kw]
                         * dy[n, f, h, w], in f32
 
-:func:`conv3x3_bn_stats` is the autograd op through which every ResNet
-``conv_b`` + ``bn_b`` pair runs.  Its forward is the first kernel; its
-backward adds the statistics' cotangents to y's (``g_y + g_s + 2 y g_ss``),
+:func:`conv3x3_bn_stats` is the op through which every ResNet ``conv_b`` +
+``bn_b`` pair runs.  Both functions are ``torch.library`` custom ops,
+``semantic_embeddings_torch::conv3x3_bn_stats`` and
+``::conv3x3_filter_grad``, each with a fake implementation, so that graphs
+through them trace and export (an exported ResNet holds one
+``conv3x3_bn_stats`` node per ``conv_b``).  The first op's registered
+autograd adds the statistics' cotangents to y's (``g_y + g_s + 2 y g_ss``),
 computes dx with ``torch.nn.grad.conv2d_input`` (the JAX package leaves dx
-to XLA too) and dw with the second kernel.
+to XLA too) and dw with the second op.
 
-For CUDA tensors each kernel is launched (``csrc/conv3x3_bn_stats.cu``,
+For CUDA tensors each op launches its kernel (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
 the wrapper raises.  Each has two instances, chosen by the dtype, and all
 four run on the tensor cores (``mma.sync``): bf16 products in bf16, f32
 ones as 3xTF32 (three TF32 products for each f32-exact one).
 :func:`instance` names what a dtype runs.  For CPU tensors the plain
-versions run.  The device of the tensor decides, nothing else: there is no
-fallback from a kernel to its plain version.
+versions run.  The dispatcher picks by the tensor's device, nothing else:
+there is no fallback from a kernel to its plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
 launches, so that a run can show that its steps went through them.
 """
@@ -219,20 +223,68 @@ def instance(kernel, dtype):
     return getattr(lib, f"{kernel}_instance")(int(dtype == torch.bfloat16)).decode()
 
 
-def _conv_bn_stats(x, w):
-    if x.device.type == "cpu":
-        return _plain_conv_bn_stats(x, w)
+# ---------------------------------------------------------------------------
+# The custom ops: the kernels for CUDA tensors, the plain versions for CPU ones
+# ---------------------------------------------------------------------------
+
+
+def _check_shapes(x, other, dim, other_dim, what):
+    """The fake implementations' check: x and ``other`` 4-D, agreeing in
+    extent at x's ``dim`` and ``other``'s ``other_dim``, through
+    ``torch._check``, which takes a symbolic batch."""
+    if x.ndim != 4 or other.ndim != 4:
+        raise ValueError(f"{what} needs 4-D operands; got {tuple(x.shape)} and "
+                         f"{tuple(other.shape)}")
+    torch._check(x.shape[dim] == other.shape[other_dim],
+                 lambda: f"{what}: operands of shapes {tuple(x.shape)} and "
+                         f"{tuple(other.shape)} do not fit")
+
+
+@torch.library.custom_op("semantic_embeddings_torch::conv3x3_bn_stats",
+                         mutates_args=(), device_types="cpu")
+def conv3x3_bn_stats_op(x: torch.Tensor, w: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(y, s, ss)``: the 3x3 SAME conv y in x's dtype and the per-channel
+    f32 sums of y and y**2 (f64 for f64 operands on the CPU)."""
+    return _plain_conv_bn_stats(x, w)
+
+
+@conv3x3_bn_stats_op.register_kernel("cuda")
+def _(x, w):
     return _launch_conv_bn_stats(x, w)
 
 
-def _filter_grad(x, dy):
-    if x.device.type == "cpu":
-        return _plain_filter_grad(x, dy)
+@conv3x3_bn_stats_op.register_fake
+def _(x, w):
+    _check_shapes(x, w, 1, 1, "conv3x3_bn_stats")  # C
+    n, _, h, wd = x.shape
+    f = w.shape[0]
+    stats = torch.promote_types(x.dtype, torch.float32)
+    return (x.new_empty((n, f, h, wd)), x.new_empty((f,), dtype=stats),
+            x.new_empty((f,), dtype=stats))
+
+
+@torch.library.custom_op("semantic_embeddings_torch::conv3x3_filter_grad",
+                         mutates_args=(), device_types="cpu")
+def conv3x3_filter_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dw (F, C, 3, 3) in f32 (f64 for f64 operands on the CPU)."""
+    return _plain_filter_grad(x, dy)
+
+
+@conv3x3_filter_grad.register_kernel("cuda")
+def _(x, dy):
     return _launch_filter_grad(x, dy)
 
 
+@conv3x3_filter_grad.register_fake
+def _(x, dy):
+    _check_shapes(x, dy, 0, 0, "conv3x3_filter_grad")  # N
+    return x.new_empty((dy.shape[1], x.shape[1], 3, 3),
+                       dtype=torch.promote_types(x.dtype, torch.float32))
+
+
 # ---------------------------------------------------------------------------
-# The autograd op
+# Autograd
 # ---------------------------------------------------------------------------
 
 
@@ -261,24 +313,19 @@ def _backward(ctx, g_y, g_s, g_ss, filter_grad):
     return dx, dw
 
 
-class Conv3x3BNStats(torch.autograd.Function):
-    """``(y, s, ss)`` of a 3x3 SAME conv; gradients to x and w."""
+def _setup_context(ctx, inputs, output):
+    x, w = inputs
+    ctx.save_for_backward(x, w, output[0])
 
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.set_materialize_grads(False)
-        y, s, ss = _conv_bn_stats(x, w)
-        ctx.save_for_backward(x, w, y)
-        return y, s, ss
 
-    @staticmethod
-    def backward(ctx, g_y, g_s, g_ss):
-        return _backward(ctx, g_y, g_s, g_ss, _filter_grad)
+conv3x3_bn_stats_op.register_autograd(
+    lambda ctx, g_y, g_s, g_ss: _backward(ctx, g_y, g_s, g_ss, conv3x3_filter_grad),
+    setup_context=_setup_context)
 
 
 class PlainConv3x3BNStats(torch.autograd.Function):
-    """:class:`Conv3x3BNStats` through the plain versions on any device: the
-    reference that a train step through the kernels is held against.
+    """The custom op's autograd through the plain versions on any device:
+    the reference that a train step through the kernels is held against.
     Nothing on the training path uses it."""
 
     @staticmethod
@@ -295,25 +342,27 @@ class PlainConv3x3BNStats(torch.autograd.Function):
 
 def _apply(function, x, w):
     # Under autocast, x and w are cast to the autocast dtype (bf16 for
-    # --bf16) and the op runs with autocast off: both kernels then see bf16
-    # x, w and dy; without autocast they see x's dtype (f32).  y is in that
+    # --bf16) here, outside the op (autocast casts no custom op's inputs),
+    # and the op runs with autocast off: both kernels then see bf16 x, w
+    # and dy; without autocast they see x's dtype (f32).  y is in that
     # dtype, the statistics and dw in f32.
     kind = x.device.type
     dtype = torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
     with torch.autocast(kind, enabled=False):
-        return function.apply(x.to(dtype).contiguous(), w.to(dtype).contiguous())
+        return function(x.to(dtype).contiguous(), w.to(dtype).contiguous())
 
 
 def conv3x3_bn_stats(x, w):
     """3x3 SAME stride-1 conv of NCHW ``x`` with (F, C, 3, 3) ``w``, returning
     ``(y, s, ss)``: y, and the f32 per-channel sums of y and y**2 over
-    (N, H, W) that BatchNorm's batch statistics need."""
-    return _apply(Conv3x3BNStats, x, w)
+    (N, H, W) that BatchNorm's batch statistics need; through the custom op
+    ``semantic_embeddings_torch::conv3x3_bn_stats``."""
+    return _apply(conv3x3_bn_stats_op, x, w)
 
 
 def plain_conv3x3_bn_stats(x, w):
     """:func:`conv3x3_bn_stats` through the plain versions (a reference)."""
-    return _apply(PlainConv3x3BNStats, x, w)
+    return _apply(PlainConv3x3BNStats.apply, x, w)
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,16 @@ Counterpart of ``semantic_embeddings_tpu/ops/cosine_loss.py``.  Per row:
   forward:  nsq = max(||z||^2, eps); loss = 1 - (t . z) * rsqrt(nsq)
   backward: dz = -g * rsqrt(nsq) * (t - ((t . z) / nsq) * z)
 
-For a CUDA tensor, forward and backward each launch one hand-written kernel
-(``csrc/cosine_loss.cu``, built by :mod:`.._build` at first use), or raise.
-For a CPU tensor they run :func:`_plain_forward` / :func:`_plain_backward`,
-the torch transcription of the JAX package's ``_jnp_forward`` and ``_bwd``.
-The device of the tensor decides, nothing else: there is no fallback from
-the kernel to the plain version.
+Forward and backward are ``torch.library`` custom ops,
+``semantic_embeddings_torch::cosine_loss_fwd`` and ``::cosine_loss_bwd``, the
+second registered as the autograd of the first, each with a fake
+implementation, so that graphs through them trace and export.  For a CUDA
+tensor each op launches one hand-written kernel (``csrc/cosine_loss.cu``,
+built by :mod:`.._build` at first use), or raises.  For a CPU tensor they
+run :func:`_plain_forward` / :func:`_plain_backward`, the torch
+transcription of the JAX package's ``_jnp_forward`` and ``_bwd``.  The
+dispatcher picks by the tensor's device, nothing else: there is no fallback
+from the kernel to the plain version.
 
 ``launches_fwd`` / ``launches_bwd`` count kernel launches, so that a run can
 show that its train steps went through the kernels.
@@ -80,6 +84,17 @@ def _plain_backward(z, t, g):
 # ---------------------------------------------------------------------------
 
 
+def _check_shapes(z, t):
+    """The fake implementations' check: z and t 2-D of one shape, through
+    ``torch._check``, which takes a symbolic batch."""
+    if z.ndim != 2 or t.ndim != 2:
+        raise ValueError(
+            f"cosine loss needs 2-D z and t; got {tuple(z.shape)} and {tuple(t.shape)}")
+    torch._check(z.shape[0] == t.shape[0] and z.shape[1] == t.shape[1],
+                 lambda: f"cosine loss needs z and t of one shape; got "
+                         f"{tuple(z.shape)} and {tuple(t.shape)}")
+
+
 def _check(z, t):
     if z.device.type != "cuda" or t.device != z.device:
         raise ValueError(
@@ -137,39 +152,68 @@ def _launch_backward(z, t, g):
     return dz
 
 
-def _forward(z, t):
-    if z.device.type == "cpu":
-        return _plain_forward(z, t)
+# ---------------------------------------------------------------------------
+# The custom ops: the kernel for CUDA tensors, the plain version for CPU ones
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("semantic_embeddings_torch::cosine_loss_fwd",
+                         mutates_args=(), device_types="cpu")
+def cosine_loss_fwd(z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Per-row ``1 - <t, z/||z||>``; f32 (f64 for f64 z on the CPU)."""
+    return _plain_forward(z, t)
+
+
+@cosine_loss_fwd.register_kernel("cuda")
+def _(z, t):
     return _launch_forward(z, t)
 
 
-def _backward(z, t, g):
-    if z.device.type == "cpu":
-        return _plain_backward(z, t, g)
+@cosine_loss_fwd.register_fake
+def _(z, t):
+    _check_shapes(z, t)
+    return z.new_empty(z.shape[:1], dtype=torch.promote_types(z.dtype, torch.float32))
+
+
+@torch.library.custom_op("semantic_embeddings_torch::cosine_loss_bwd",
+                         mutates_args=(), device_types="cpu")
+def cosine_loss_bwd(z: torch.Tensor, t: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dz of :func:`cosine_loss_fwd` for the cotangent g (B,), in z's dtype."""
+    return _plain_backward(z, t, g)
+
+
+@cosine_loss_bwd.register_kernel("cuda")
+def _(z, t, g):
     return _launch_backward(z, t, g)
 
 
-class FusedCosineLoss(torch.autograd.Function):
-    """Per-sample ``1 - <t, z/||z||>``; ``t`` gets no gradient."""
+@cosine_loss_bwd.register_fake
+def _(z, t, g):
+    _check_shapes(z, t)
+    return torch.empty_like(z, memory_format=torch.contiguous_format)
 
-    @staticmethod
-    def forward(ctx, z, t):
-        ctx.save_for_backward(z, t)
-        return _forward(z, t)
 
-    @staticmethod
-    def backward(ctx, g):
-        z, t = ctx.saved_tensors
-        return _backward(z, t, g), None
+def _setup_context(ctx, inputs, output):
+    z, t = inputs
+    ctx.save_for_backward(z, t)
+
+
+def _autograd_backward(ctx, g):
+    z, t = ctx.saved_tensors
+    return cosine_loss_bwd(z, t, g), None
+
+
+cosine_loss_fwd.register_autograd(_autograd_backward, setup_context=_setup_context)
 
 
 def fused_cosine_loss(z, t):
-    """Per-sample ``1 - <t, z/||z||>`` with a fused backward.
+    """Per-sample ``1 - <t, z/||z||>`` with a fused backward, through the
+    custom op ``semantic_embeddings_torch::cosine_loss_fwd``.
 
     ``z``: raw (un-normalized) embeddings (B, D), f32 or bf16; ``t``: target
     class embeddings (B, D), treated as constants (no gradient).
     """
-    return FusedCosineLoss.apply(z, t)
+    return cosine_loss_fwd(z, t)
 
 
 def l2_normalize(x, epsilon=_EPS):
@@ -232,7 +276,7 @@ def check_against_plain(z, t, g):
 
 
 class PlainCosineLoss(torch.autograd.Function):
-    """:class:`FusedCosineLoss` through the plain versions on any device:
+    """The custom op's autograd through the plain versions on any device:
     the reference that a train step through the kernels is held against.
     Nothing on the training path uses it."""
 

@@ -2,6 +2,7 @@
 
 from . import losses, metrics
 from .optimizer import (
+    adagrad_update,
     clip_by_per_tensor_norm,
     decay_from_max_decay,
     effective_lr,
@@ -12,6 +13,7 @@ from .schedules import LR_SCHEDULES, get_lr_schedule
 from .state import (
     TrainState,
     load_checkpoint,
+    load_weights_by_name,
     new_train_state,
     save_checkpoint,
     save_weights,
@@ -19,15 +21,20 @@ from .state import (
 from .trainer import (
     EMB_LOSSES,
     LOSS_OUTPUT,
+    finish_step,
     fit,
+    make_classifier_eval_step,
+    make_classifier_train_step,
     make_eval_step,
     make_train_step,
     run_validation,
+    trainable_indices,
 )
 
 __all__ = [
     "losses",
     "metrics",
+    "adagrad_update",
     "clip_by_per_tensor_norm",
     "decay_from_max_decay",
     "effective_lr",
@@ -37,13 +44,18 @@ __all__ = [
     "get_lr_schedule",
     "TrainState",
     "load_checkpoint",
+    "load_weights_by_name",
     "new_train_state",
     "save_checkpoint",
     "save_weights",
     "EMB_LOSSES",
     "LOSS_OUTPUT",
+    "finish_step",
     "fit",
+    "make_classifier_eval_step",
+    "make_classifier_train_step",
     "make_eval_step",
     "make_train_step",
     "run_validation",
+    "trainable_indices",
 ]

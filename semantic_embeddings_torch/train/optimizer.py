@@ -13,6 +13,9 @@ nesterov, clipnorm=10)``, whose update differs from ``torch.optim.SGD``:
 - ``decay`` is per-iteration inverse time decay on the base LR, applied by
   the epoch loop (:func:`effective_lr`).
 
+DeViSE trains with ``keras.optimizers.Adagrad`` instead
+(:func:`adagrad_update`; its accumulators take the velocities' place).
+
 Parameters, velocities and gradients are lists of tensors in one order.
 The update runs in place, as a few ``torch._foreach_*`` calls.
 """
@@ -49,6 +52,16 @@ def sgd_update(params, velocity, grads, lr, momentum=0.9, nesterov=False,
         torch._foreach_add_(params, grads, alpha=-lr)
     else:
         torch._foreach_add_(params, velocity)
+
+
+@torch.no_grad()
+def adagrad_update(params, accum, grads, lr, epsilon=1e-7):
+    """One Keras-Adagrad step (DeViSE), in place on ``params`` and the
+    accumulators ``accum``: ``a += g**2; p -= lr * g / (sqrt(a) + eps)``."""
+    torch._foreach_addcmul_(accum, grads, grads)
+    denom = torch._foreach_sqrt(accum)
+    torch._foreach_add_(denom, epsilon)
+    torch._foreach_addcdiv_(params, grads, denom, value=-float(lr))
 
 
 def effective_lr(base_lr, decay, iterations):

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..data.cifar import to_device
 from . import losses as L
-from .optimizer import effective_lr, sgd_update
+from .optimizer import adagrad_update, effective_lr, sgd_update
 from .state import TrainState, save_checkpoint
 
 EMB_LOSSES = {
@@ -66,6 +66,38 @@ def _apply_metric_fns(metric_fn, targets, emb_out, reduce):
             for name, fn in (metric_fn or {}).items()}
 
 
+def trainable_indices(model, trainable_fn=None):
+    """Indices into ``model.parameters()`` of the parameters a step trains:
+    every one, or those whose path (``/``-joined module path and name, as
+    the JAX tree's: ``backbone/top/weight``) ``trainable_fn`` accepts."""
+    names = [n.replace(".", "/") for n, _ in model.named_parameters()]
+    return [i for i, n in enumerate(names) if trainable_fn is None or trainable_fn(n)]
+
+
+def finish_step(state, total, trained, lr, *, optimizer="sgd", momentum=0.9,
+                nesterov=False, clipnorm=10.0):
+    """The step tail every learner shares: the gradients of ``total`` with
+    respect to the parameters at the indices ``trained`` only, then Keras
+    SGD (per-tensor clip, momentum) or Keras Adagrad (no clip, as in the
+    JAX package) on those in place.  A parameter left out, and its
+    velocity, stay bitwise as they were and take no L2 penalty (the JAX
+    package's ``trainable_fn`` mask, which zeroes their gradients);
+    BatchNorm running statistics move in the forward all the same (Keras
+    2.2's frozen-BN semantics)."""
+    state.step += 1
+    if not trained:  # nothing to train (a warm-up of a model with no top)
+        return
+    params = state.params
+    params = [params[i] for i in trained]
+    slots = [state.velocity[i] for i in trained]
+    grads = list(torch.autograd.grad(total, params))
+    if optimizer == "adagrad":
+        adagrad_update(params, slots, grads, lr)
+    else:
+        sgd_update(params, slots, grads, lr, momentum=momentum, nesterov=nesterov,
+                   clipnorm=clipnorm)
+
+
 def make_train_step(
     model,
     prepare: Callable,
@@ -81,6 +113,8 @@ def make_train_step(
     loss_fn_override: Callable | None = None,
     num_classes: int | None = None,
     autocast_dtype=None,
+    trainable_fn: Callable | None = None,
+    optimizer: str = "sgd",
 ):
     """Builds the train step ``step(state, raw_batch, lr, rng)``.
 
@@ -94,12 +128,18 @@ def make_train_step(
     ``l2_penalty_fn(model)`` adds the kernel penalty to the loss, so its
     gradient is in ``g`` before the per-tensor clip.  ``autocast_dtype``
     (``torch.bfloat16`` for ``--bf16``) runs the forward under autocast.
+    ``trainable_fn(path) -> bool`` picks the parameters the step trains
+    (:func:`finish_step`); ``optimizer``: ``'sgd'`` (Keras-exact) or
+    ``'adagrad'`` (DeViSE), whose accumulators take the velocity's place.
     """
+    if optimizer not in ("sgd", "adagrad"):
+        raise ValueError(f"optimizer must be 'sgd' or 'adagrad', not {optimizer!r}")
     emb_loss = loss_fn_override or EMB_LOSSES[loss_name]
     device = _device_of(model)
     table = _class_table(class_embedding, device)
     if num_classes is None and table is not None:
         num_classes = table.shape[0]
+    trained = trainable_indices(model, trainable_fn)
 
     def step(state: TrainState, raw_batch, lr, rng):
         images, labels = prepare(raw_batch, rng, True)
@@ -127,11 +167,8 @@ def make_train_step(
             metrics.update(_apply_metric_fns(
                 metric_fn, targets, emb_out.detach(), lambda v: v.mean()))
 
-        params = state.params
-        grads = torch.autograd.grad(total, params)
-        sgd_update(params, state.velocity, list(grads), lr,
-                   momentum=momentum, nesterov=nesterov, clipnorm=clipnorm)
-        state.step += 1
+        finish_step(state, total, trained, lr, optimizer=optimizer, momentum=momentum,
+                    nesterov=nesterov, clipnorm=clipnorm)
         return state, metrics
 
     return step
@@ -162,11 +199,7 @@ def make_eval_step(
     @torch.no_grad()
     def step(state: TrainState, raw_batch, rng):
         images, labels = prepare(raw_batch, rng, False)
-        valid = raw_batch.get("valid")
-        mask = (
-            torch.ones(images.shape[0], device=device) if valid is None
-            else to_device(np.asarray(valid, dtype=np.float32), device)
-        )
+        mask = valid_mask(raw_batch, images.shape[0], device)
         targets = table[labels]
         model.eval()
         with maybe_autocast(device, autocast_dtype):
@@ -196,6 +229,88 @@ def make_eval_step(
         metrics.update({f"{k}_correct": v for k, v in correct.items()})
         metrics["count"] = mask.sum()
         return metrics
+
+    return step
+
+
+def valid_mask(raw_batch, n, device):
+    """The batch's ``valid`` rows as 0/1 floats on ``device`` (padded final
+    batches), or ``n`` ones."""
+    valid = raw_batch.get("valid")
+    if valid is None:
+        return torch.ones(n, device=device)
+    return to_device(np.asarray(valid, dtype=np.float32), device)
+
+
+def make_classifier_train_step(
+    model,
+    prepare: Callable,
+    *,
+    num_classes: int,
+    label_smoothing: float = 0.0,
+    l2_penalty_fn: Callable | None = None,
+    momentum: float = 0.9,
+    nesterov: bool = False,
+    clipnorm: float = 10.0,
+    trainable_fn: Callable | None = None,
+    autocast_dtype=None,
+):
+    """The plain softmax classifier's train step (``learn_classifier``):
+    Keras cross-entropy on the model's softmax output against the one-hot
+    labels, smoothed by ``label_smoothing``."""
+    trained = trainable_indices(model, trainable_fn)
+    device = _device_of(model)
+
+    def step(state: TrainState, raw_batch, lr, rng):
+        images, labels = prepare(raw_batch, rng, True)
+        onehot = L.label_smoothing(F.one_hot(labels, num_classes).float(), label_smoothing)
+        model.train()
+        with maybe_autocast(device, autocast_dtype):
+            prob = model(images)
+        ce = L.categorical_crossentropy(onehot, prob).mean()
+        total = ce
+        if l2_penalty_fn is not None:
+            total = total + l2_penalty_fn(model)
+        metrics = {"loss": total.detach(), "ce": ce.detach(),
+                   "acc": (torch.argmax(prob, -1) == labels).float().mean()}
+        finish_step(state, total, trained, lr, momentum=momentum, nesterov=nesterov,
+                    clipnorm=clipnorm)
+        return state, metrics
+
+    return step
+
+
+def make_classifier_eval_step(
+    model,
+    prepare: Callable,
+    *,
+    num_classes: int,
+    label_smoothing: float = 0.0,
+    l2_penalty_fn: Callable | None = None,
+    autocast_dtype=None,
+):
+    """The classifier's validation step: summed smoothed cross-entropy and
+    correct predictions over the batch's valid rows, and the predictions."""
+    device = _device_of(model)
+
+    @torch.no_grad()
+    def step(state: TrainState, raw_batch, rng):
+        images, labels = prepare(raw_batch, rng, False)
+        mask = valid_mask(raw_batch, images.shape[0], device)
+        onehot = L.label_smoothing(F.one_hot(labels, num_classes).float(), label_smoothing)
+        model.eval()
+        with maybe_autocast(device, autocast_dtype):
+            prob = model(images)
+        out = {
+            "emb_loss": (L.categorical_crossentropy(onehot, prob) * mask).sum(),
+            "cls_correct": ((torch.argmax(prob, -1) == labels).float() * mask).sum(),
+            "pred": torch.argmax(prob, -1),
+            "count": mask.sum(),
+        }
+        # Keras folds the L2 kernel penalty into val_loss (see make_eval_step)
+        if l2_penalty_fn is not None:
+            out["total_loss"] = out["emb_loss"] + l2_penalty_fn(model) * mask.sum()
+        return out
 
     return step
 

@@ -71,10 +71,10 @@ def test_device_cuda_without_gpu_raises(tmp_path, embedding):
 
 
 @pytest.mark.parametrize("extra", [
-    # --remat, --cls_base and every architecture are ported: each still
-    # leaves a flag that is not ported refused
+    # --remat, --cls_base, --finetune and every architecture are ported:
+    # each still leaves a flag that is not ported refused
     ["--gpus", "4", "--remat"], ["--bn_per_replica"], ["--gpus", "2"], ["--spatial", "2"],
-    ["--finetune", "w.pt"], ["--profile_dir", "trace"],
+    ["--finetune", "w.pt", "--bn_per_replica"], ["--profile_dir", "trace"],
     ["--profile_dir", "trace", "--cls_base", "top", "--cls_weight", "0.1"],
     ["--spatial", "2", "--architecture", "wrn-28-10"],
 ])

@@ -388,3 +388,193 @@ def test_conv_wrappers_reject_what_the_kernels_do_not_take(device):
         cc._launch_filter_grad(x, dy.cpu())
     with pytest.raises(ValueError, match="shape"):
         cc._launch_filter_grad(x, dy[:1])
+
+
+# -- the kernels as torch.library custom ops ---------------------------------
+
+OPS = torch.ops.semantic_embeddings_torch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_on_the_card(device, dtype):
+    """The registrations hold for CUDA tensors too: each op's CUDA
+    implementation against its fake and its autograd."""
+    z, t, g = _inputs(device, (37, 100), dtype)
+    torch.library.opcheck(tc.cosine_loss_fwd, (z.clone().requires_grad_(), t))
+    torch.library.opcheck(tc.cosine_loss_bwd, (z, t, g))
+    x, w, dy = cc.check_inputs((2, 14, 14, 32, 64), dtype,
+                               torch.Generator(device=device).manual_seed(11))
+    torch.library.opcheck(cc.conv3x3_bn_stats_op,
+                          (x.clone().requires_grad_(), w.clone().requires_grad_()))
+    torch.library.opcheck(cc.conv3x3_filter_grad, (x, dy))
+
+
+def test_custom_ops_launch_the_kernels_once_each(device):
+    """Each op on CUDA tensors launches its hand-written kernel once and
+    returns what the kernel returns."""
+    z, t, g = _inputs(device, (100, 100), torch.float32)
+    before = (tc.launches_fwd, tc.launches_bwd)
+    loss, dz = OPS.cosine_loss_fwd(z, t), OPS.cosine_loss_bwd(z, t, g)
+    torch.cuda.synchronize()
+    assert (tc.launches_fwd - before[0], tc.launches_bwd - before[1]) == (1, 1)
+    assert torch.equal(loss, tc._launch_forward(z, t))
+    assert torch.equal(dz, tc._launch_backward(z, t, g))
+    x, w, dy = cc.check_inputs((4, 14, 14, 32, 48), torch.float32,
+                               torch.Generator(device=device).manual_seed(12))
+    before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
+    outs, dw = OPS.conv3x3_bn_stats(x, w), OPS.conv3x3_filter_grad(x, dy)
+    torch.cuda.synchronize()
+    assert (cc.launches_conv_bn_stats - before[0], cc.launches_filter_grad - before[1]) == (1, 1)
+    for a, b in zip(outs, cc._launch_conv_bn_stats(x, w)):
+        assert torch.equal(a, b)
+    assert torch.equal(dw, cc._launch_filter_grad(x, dy))
+
+
+def _rn18_checkpoint(tmp_path, cls_classes=0):
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.train.state import new_train_state, save_checkpoint
+
+    model, _ = common.build_embedding_model(16, "rn18", "inv_corr", cls_classes)
+    path = str(tmp_path / "rn18.pt")
+    save_checkpoint(path, new_train_state(model), {
+        "architecture": "rn18", "embed_dim": 16, "loss": "inv_corr",
+        "cls_classes": cls_classes})
+    return path, model
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_exported_rn18_launches_the_conv_kernel(device, tmp_path, bf16):
+    """export_model on the card: the artifact holds 8 conv3x3_bn_stats
+    nodes, launches the kernel 8 times a call at any batch, and equals the
+    direct forward (f32 within 1e-5; bf16 within the JAX CLI's 2e-2)."""
+    from semantic_embeddings_torch.cli import common, export_model
+
+    path, model = _rn18_checkpoint(tmp_path)
+    out = str(tmp_path / "rn18.pt2")
+    sidecar = export_model.main(["--checkpoint", path, "--out", out, "--layer", "l2norm",
+                                 "--input_size", "64", "--device", "cuda", "--validate",
+                                 *(["--bf16"] if bf16 else [])])
+    assert sidecar["custom_op_nodes"]["conv3x3_bn_stats"] == 8
+    assert sidecar["platforms"] == ["cuda"]
+    fn, _ = export_model.load_artifact(out, device)
+    model = model.to(device).eval()
+    for b in (1, 5):
+        x = torch.randn(b, 64, 64, 3, device=device,
+                        generator=torch.Generator(device=device).manual_seed(b))
+        before = cc.launches_conv_bn_stats
+        with torch.inference_mode():
+            got = fn(x)
+            torch.cuda.synchronize()
+            assert cc.launches_conv_bn_stats - before == 8
+            with common.maybe_autocast(device, torch.bfloat16 if bf16 else None):
+                want = common.forward_tap(model, x, "l2norm").float()
+        if bf16:
+            torch.testing.assert_close(got, want, rtol=2e-2, atol=1e-3)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_serving_an_artifact_launches_the_conv_kernel(device, tmp_path):
+    from semantic_embeddings_torch.cli import export_model, serve_model
+
+    path, model = _rn18_checkpoint(tmp_path)
+    out = str(tmp_path / "serve.pt2")
+    export_model.main(["--checkpoint", path, "--out", out, "--layer", "l2norm",
+                       "--input_size", "64", "--device", "cuda"])
+    srv = serve_model.make_server(serve_model.build_parser().parse_args(
+        ["--artifact", out, "--port", "0", "--max_batch", "4"]))
+    x = np.random.default_rng(0).normal(size=(4, 64, 64, 3)).astype(np.float32)
+    srv.start()
+    try:
+        before = cc.launches_conv_bn_stats
+        got = srv.engine.predict(x, timeout=60)
+        assert cc.launches_conv_bn_stats - before == 8
+    finally:
+        srv.stop()
+    with torch.no_grad():
+        direct = model.to(device).eval()(torch.from_numpy(x).to(device)).cpu().numpy()
+    np.testing.assert_allclose(got, direct, rtol=0, atol=1e-5)
+
+
+# -- the baseline learners and --finetune on the card -----------------------
+
+
+def _learner_argv(tmp_path, *extra):
+    return ["--data_root", str(tmp_path), "--batch_size", "16", "--device", "cuda",
+            "--no_progress", *extra]
+
+
+def test_learn_classifier_on_the_card_through_both_conv_kernels(device, tmp_path):
+    """rn18 at 64 px: 8 + 8 conv-kernel launches a step; the dump rebuilds
+    and is evaluated on the card; --finetune from it runs both phases, the
+    warm-up launching no filter gradient (the backbone is frozen)."""
+    from semantic_embeddings_torch.cli import common, learn_classifier
+
+    dump = str(tmp_path / "cls.pt")
+    argv = _learner_argv(tmp_path, "--dataset", "synthetic-10-32-16-64", "--architecture",
+                         "rn18", "--epochs", "1", "--label_smoothing", "0.1", "--bf16")
+    before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
+    state = learn_classifier.main(argv + ["--model_dump", dump])
+    torch.cuda.synchronize()
+    # 2 steps; fit's validation and the final one each run 1 test batch
+    assert (cc.launches_conv_bn_stats - before[0], cc.launches_filter_grad - before[1]) == (
+        8 * (2 + 2), 8 * 2)
+    assert all(p.device.type == "cuda" for p in state.model.parameters())
+    model, _ = common.rebuild_model_from_checkpoint(dump, device)
+    assert type(model).__name__ == "ResNet"
+    before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
+    state = learn_classifier.main(argv + ["--finetune", dump, "--finetune_init", "1"])
+    torch.cuda.synchronize()
+    # phase 1: 2 frozen steps + 1 validation batch; phase 2: 2 steps + 2
+    assert (cc.launches_conv_bn_stats - before[0], cc.launches_filter_grad - before[1]) == (
+        8 * (3 + 4), 8 * 2)
+    assert state.step == 2
+
+
+@pytest.mark.parametrize("learner", ["devise", "labelembed", "center_loss",
+                                     "center_loss_fixed", "finetune"])
+def test_learner_clis_run_on_the_card(device, tmp_path, learner):
+    """Each learner CLI through its steps on the card (`simple` at 32 px),
+    its dump rebuilt reproducing its features within 1e-5; --finetune of
+    the trainer launching the cosine pair once a step in both phases."""
+    from semantic_embeddings_torch.cli import (
+        common, learn_center_loss, learn_devise, learn_image_embeddings,
+        learn_labelembedding)
+    from semantic_embeddings_torch.data import get_data_generator
+
+    rng = np.random.default_rng(0)
+    e = rng.normal(size=(10, 64))
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    emb = str(tmp_path / "emb.pickle")
+    save_embeddings(emb, list(range(10)), e)
+    base = _learner_argv(tmp_path, "--dataset", "synthetic-10-64-32", "--architecture",
+                         "simple")
+    dump, feat = str(tmp_path / "m.pt"), str(tmp_path / "f.pickle")
+    init = str(tmp_path / "init.pt")
+    learn_image_embeddings.main(base + ["--embedding", emb, "--epochs", "1", "--model_dump",
+                                        init])
+    outputs = ["--model_dump", dump, "--feature_dump", feat]
+    before = (tc.launches_fwd, tc.launches_bwd)
+    if learner == "devise":
+        learn_devise.main(base + ["--embedding", emb, "--init_weights", init,
+                                  "--init_epochs", "1", "--ft_epochs", "1", *outputs])
+    elif learner == "labelembed":
+        learn_labelembedding.main(base + ["--embed_dim", "64", "--epochs", "1", *outputs])
+    elif learner == "center_loss":
+        learn_center_loss.main(base + ["--embed_dim", "64", "--epochs", "1", *outputs])
+    elif learner == "center_loss_fixed":
+        state = learn_center_loss.main(base + ["--centroids", emb, "--epochs", "1", *outputs])
+        np.testing.assert_array_equal(state.model.cls_centroids.detach().cpu().numpy(),
+                                      e.astype(np.float32))
+    else:
+        learn_image_embeddings.main(base + ["--embedding", emb, "--epochs", "1",
+                                            "--fused_loss", "--finetune", init,
+                                            "--finetune_init", "1", *outputs])
+        torch.cuda.synchronize()
+        assert (tc.launches_fwd - before[0], tc.launches_bwd - before[1]) == (8, 8)
+    _, feats = load_features(feat)
+    assert np.isfinite(feats).all()
+    model, _ = common.rebuild_model_from_checkpoint(dump, device)
+    again = common.extract_test_features(model, get_data_generator("synthetic-10-64-32"),
+                                         device, 16, pick=0)
+    np.testing.assert_allclose(again, feats, rtol=0, atol=1e-5)

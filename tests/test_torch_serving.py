@@ -526,7 +526,9 @@ def test_serve_cli_bf16_stays_near_f32(checkpoint_pair):
     np.testing.assert_allclose(outs[1], outs[0], rtol=0, atol=0.05)
 
 
-@pytest.mark.parametrize("extra", [["--gpus", "2"], ["--artifact", "model.pt2"]])
+# --artifact is ported (tests/test_torch_export.py); --gpus stays refused
+# with either model source
+@pytest.mark.parametrize("extra", [["--gpus", "2"], ["--gpus", "2", "--artifact", "model.pt2"]])
 def test_serve_cli_refuses_unported(checkpoint_pair, extra):
     _, _, path = checkpoint_pair
     with pytest.raises(SystemExit, match="not ported yet"):
