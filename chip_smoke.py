@@ -19,11 +19,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 4. Hold the 3x3 conv + BN-statistics kernel and the 3x3 filter-gradient
    kernel (both on the tensor cores: bf16 as bf16, f32 as 3xTF32) against
    their plain versions, and f32 y and dw against f64, in f32 and bf16
-   (TF32 off), at the four ResNet-50 stage shapes at batch 128, four ragged
-   shapes and three shapes that take each copy path (16- or 8-byte copies,
-   or the repack); print the instance each dtype runs, the copy width each
-   shape takes and the distance of y from f64 (the kernel's and cuDNN's).
-   At the stage shapes time both kernels, their plain versions and cuDNN's
+   (TF32 off), at the four ResNet-50 stage shapes at batch 128 (224 px) and
+   at batch 24 (448 px, the CUB recipe's), four ragged shapes and three
+   shapes that take each copy path (16- or 8-byte copies, or the repack);
+   print the instance each dtype runs, the copy width each shape takes and
+   the distance of y from f64 (the kernel's and cuDNN's).  At the eight
+   stage shapes time both kernels, their plain versions and cuDNN's
    wgrad, and print each kernel's bound (the larger of operations over the
    peak and bytes over 3.35 TB/s; the peak is bf16's 989 TFLOP/s, and for
    f32 that of f32-exact products on the tensor cores, 3xTF32 at 495 / 3
@@ -141,6 +142,36 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    through each custom op against its kernel's wrapper called directly
    (small shapes, 500 calls, in turns), and what that dispatch adds to a
    slice 1 and a ResNet-50 step.
+14. The file datasets on the CosineLoss.md CUB recipe (ResNet-50 at 448
+   px, batch 24, bf16): (a) probe the host's JPEG libraries (libjpeg's
+   header and libraries, Pillow, nvJPEG's header, the cores) and build the
+   native decoder: plan A where it builds (the datasets decode with it),
+   plan B where it does not and Pillow is present (the datasets take
+   Pillow's path, ``--decoder pillow``, and g++'s error is printed as a
+   finding); (b) write a CUB layout from the seed: 200 classes of 3
+   training and 1 test JPEG, shorter sides of 300-500 px, aspects of
+   0.75-1.33, class-dependent content, one grayscale; (c) the host decode
+   rates of CUB's test and train transforms on 1 and 8 threads (plan A:
+   native center crops within a mean |diff| of 12 of Pillow's); (d) the
+   recipe through ``learn_image_embeddings --dataset cub`` (``--fused_loss``,
+   2 epochs, feature and model dumps) in its own process: finite losses,
+   the conv kernels 16 + 16 a step and the cosine pair 1 + 1, the pipeline
+   flags in the dataset; (e) beside it, one step on a batch from the file
+   pipeline through the kernels and through the plain versions, in f32
+   (TF32 off) and bf16, each held to an f64 step as phase 9 does; (f) the
+   step's img/s at batch 24 with the batch resident on the card and fed by
+   the file pipeline, the busy share under ``torch.profiler``, and the host
+   cores the step needs (device img/s over decode img/s per core); (g)
+   ``evaluate_retrieval`` and ``evaluate_classification_accuracy`` on (d)'s
+   dumps over a two-level taxonomy of the 200 classes, and the SVM mode's
+   augmented feature pass (2 passes with the host's train transforms); (h)
+   ``learn_classifier --dataset cub --label_smoothing 0.1`` and
+   ``learn_image_embeddings --dataset nab-large`` (one epoch each on a
+   50-class copy of (b)'s files made of symlinks), in their own processes
+   beside (g)'s, and the classifier's dump through
+   ``evaluate_classification_accuracy --layer prob``; (i) serve (d)'s model
+   with ``--decode_threads``: a JPEG body's answer equals, bitwise, the
+   answer to the npy body of the pixels the server's decoder gives.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -1629,6 +1660,535 @@ def phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, slice1_dump, CC,
     return out
 
 
+# phase 14: the file datasets on the CosineLoss.md CUB recipe (ResNet-50 at
+# 448 px, batch 24, bf16): 200 classes of CUB's layout, 3 training and 1 test
+# images each, shorter sides of 300-500 px
+CUB_CLASSES, CUB_TRAIN, CUB_TEST, CUB_BATCH = 200, 3, 1, 24
+CUB_ARCH = "resnet-50"
+CUB_EPOCHS = 2
+#: images decoded per timed call of the host transform (14c)
+DECODE_IMAGES = 96
+#: the host threads of the file pipeline (the CLI's --read_workers)
+READ_WORKERS = 8
+#: the 14h cut: this many classes of 14b's files (symlinks) for each recipe
+SUB_CLASSES = 50
+
+
+def probe_host():
+    """The decode plan's inputs: libjpeg's header and libraries, Pillow,
+    nvJPEG's header, the cores; and whether the native decoder builds.
+    Returns ``(probe, plan, build_error)``: plan A (the native decoder
+    builds), B (it does not, Pillow is present) or C (neither)."""
+    import shutil
+
+    from semantic_embeddings_torch import native
+
+    probe = {"jpeglib.h": os.path.exists("/usr/include/jpeglib.h")}
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    probe["ldconfig"] = [line.strip() for line in ldconfig.splitlines()
+                         if "libjpeg" in line or "libnvjpeg" in line]
+    try:
+        import PIL
+
+        probe["pillow"] = PIL.__version__
+    except ImportError:
+        probe["pillow"] = None
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    header = os.path.normpath(os.path.join(os.path.dirname(nvcc), "..", "include", "nvjpeg.h"))
+    probe["nvjpeg.h"] = header if os.path.exists(header) else None
+    probe["nproc"] = os.cpu_count()
+    probe["affinity"] = len(os.sched_getaffinity(0))
+    try:
+        native.loader()
+        build_error = None
+    except RuntimeError as e:
+        build_error = str(e)
+    plan = "A" if build_error is None else ("B" if probe["pillow"] else "C")
+    return probe, plan, build_error
+
+
+def write_cub(root, seed=0):
+    """A CUB-200-2011 layout from ``seed``: ``images/<class>/<n>.jpg``,
+    ``images.txt``, ``image_class_labels.txt``, ``train_test_split.txt`` and
+    ``classes.txt``; CUB_CLASSES classes of CUB_TRAIN + CUB_TEST images,
+    shorter sides of 300-500 px and aspects of 0.75-1.33 (CUB's photos),
+    each a class template (12 x 12 colors, so that the classes differ and
+    the loss can fall) with the image's own noise, upsampled; the first
+    image grayscale.  Written with Pillow, in threads."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    templates = rng.integers(30, 225, (CUB_CLASSES, 12, 12, 3))
+    jobs, lines = [], {"images": [], "labels": [], "split": [], "classes": []}
+    i = 0
+    for c in range(1, CUB_CLASSES + 1):
+        folder = f"{c:03d}.Species_{c}"
+        lines["classes"].append(f"{c} {folder}")
+        for k in range(CUB_TRAIN + CUB_TEST):
+            i += 1
+            short, aspect = int(rng.integers(300, 501)), float(rng.uniform(0.75, 1.33))
+            w, h = ((round(short * aspect), short) if aspect >= 1
+                    else (short, round(short / aspect)))
+            small = np.clip(templates[c - 1] + rng.integers(-30, 31, (12, 12, 3)), 0, 255)
+            fn = f"{folder}/{folder.split('.')[1]}_{k:04d}.jpg"
+            jobs.append((os.path.join(root, "images", fn), small.astype(np.uint8), (w, h),
+                         i == 1))
+            lines["images"].append(f"{i} {fn}")
+            lines["labels"].append(f"{i} {c}")
+            lines["split"].append(f"{i} {1 if k < CUB_TRAIN else 0}")
+
+    def write(job):
+        path, small, size, gray = job
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        img = Image.fromarray(small).resize(size, Image.BILINEAR)
+        (img.convert("L") if gray else img).save(path, quality=90)
+        return os.path.getsize(path)
+
+    with ThreadPoolExecutor(READ_WORKERS) as pool:
+        nbytes = sum(pool.map(write, jobs))
+    for name, key in (("images.txt", "images"), ("image_class_labels.txt", "labels"),
+                      ("train_test_split.txt", "split"), ("classes.txt", "classes")):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines[key]) + "\n")
+    return len(jobs), nbytes
+
+
+def write_subset(src, dst, n_classes):
+    """A copy of ``src``'s layout with its first ``n_classes`` classes, the
+    image files as symlinks into ``src``."""
+    os.makedirs(os.path.join(dst, "images"), exist_ok=True)
+    keep = set(range(1, n_classes + 1))
+    with open(os.path.join(src, "image_class_labels.txt")) as f:
+        ids = {line.split()[0] for line in f if int(line.split()[1]) in keep}
+    for name in ("images.txt", "image_class_labels.txt", "train_test_split.txt"):
+        with open(os.path.join(src, name)) as f, open(os.path.join(dst, name), "w") as g:
+            g.writelines(line for line in f if line.split()[0] in ids)
+    for entry in sorted(os.listdir(os.path.join(src, "images")))[:n_classes]:
+        os.symlink(os.path.join(src, "images", entry), os.path.join(dst, "images", entry))
+
+
+def write_taxonomy_cub(path):
+    """A two-level tree over CUB's 200 class ids: root 1000, 20 superclasses
+    500..519, ten leaves each (1..200)."""
+    with open(path, "w") as f:
+        for s in range(20):
+            f.write(f"1000 {500 + s}\n")
+            for leaf in range(10):
+                f.write(f"{500 + s} {10 * s + leaf + 1}\n")
+
+
+def decode_rates(root, decoder, card):
+    """Host decode rates of CUB's transforms through ``FileDataset._compose``
+    (the pipeline's own host work, no prefetch): the test transform
+    (shorter side 512, center crop 448) and the train transform (random
+    crop), on 1 thread and on READ_WORKERS threads, DECODE_IMAGES images a
+    call, the best of 2 calls.  Returns ``{transform: {threads: img/s}}``."""
+    from semantic_embeddings_torch.data import get_data_generator
+
+    ds = get_data_generator("cub", root)
+    ds.use_native = decoder == "native"
+    rates = {}
+    for transform, files, train in (("test", ds.test_img_files, False),
+                                    ("train", ds.train_img_files, True)):
+        files = list(files[:DECODE_IMAGES])
+        for threads in (1, READ_WORKERS):
+            ds.read_workers, ds._pool = threads, None
+            seconds = []
+            for k in range(2):
+                t0 = time.perf_counter()
+                batch = ds._compose(files, train, np.random.default_rng(k))
+                seconds.append(time.perf_counter() - t0)
+            check(batch.shape == (len(files), 448, 448, 3), batch.shape)
+            rates.setdefault(transform, {})[threads] = len(files) / min(seconds)
+            print(f"decode {decoder} {transform} transform, {threads} thread(s): "
+                  f"{len(files) / min(seconds):.1f} img/s (calls "
+                  + ", ".join(f"{s:.3f}" for s in seconds) + f" s)  [{card}]")
+    return rates
+
+
+def composite_rate(state, step, ds, device, card, epoch, n_warm=5, n_profiled=8):
+    """Train steps fed by the file pipeline (prefetch thread, host decode,
+    pinned copy): the img/s of the steps after ``n_warm`` over one epoch,
+    then ``n_profiled`` more under ``torch.profiler`` for the device's busy
+    share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = torch.Generator(device=device).manual_seed(0)
+    n_warm = min(n_warm, ds.steps_per_epoch(CUB_BATCH) // 4)
+    n = 0
+    for n, raw in enumerate(ds.train_batches(CUB_BATCH, epoch, 0)):
+        if n == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        step(state, raw, 0.01, rng)
+    torch.cuda.synchronize()
+    timed_steps = n + 1 - n_warm
+    wall = (time.perf_counter() - t0) / timed_steps * 1e3
+    batches = ds.train_batches(CUB_BATCH, epoch + 1, 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _, raw in zip(range(n_profiled), batches):
+            step(state, raw, 0.01, rng)
+        torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) / n_profiled * 1e3
+    batches.close()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(kernels, "torch.profiler recorded no GPU kernel")
+    device_ms = sum(e.self_device_time_total for e in kernels) / n_profiled / 1e3
+    # busy share as profile_step takes it: device time over the wall time
+    # without the profiler (which slows the host's side of the step)
+    out = {"wall_ms": wall, "img_per_s": CUB_BATCH / wall * 1e3, "timed_steps": timed_steps,
+           "profiled_wall_ms": profiled_wall, "device_ms": device_ms,
+           "busy": device_ms / wall, "busy_under_profiler": device_ms / profiled_wall}
+    print(f"composite (file pipeline, {ds.read_workers} read workers, "
+          f"{'native' if ds.use_native else 'Pillow'} decoder): {wall:.2f} ms/step "
+          f"({out['img_per_s']:.1f} img/s) over {timed_steps} steps, device {device_ms:.2f} "
+          f"ms/step, busy share {out['busy']:.3f} (under the profiler {profiled_wall:.2f} "
+          f"ms/step, {out['busy_under_profiler']:.3f})  [{card}]")
+    return out
+
+
+def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
+    """Phase 14: the file datasets and the CUB recipe at 448 px; see the
+    module's docstring.  Returns the numbers for the JSON line."""
+    import torch
+
+    from semantic_embeddings_torch.cli import common, evaluate_classification_accuracy
+    from semantic_embeddings_torch.data import get_data_generator
+    from semantic_embeddings_torch.models.resnet import use_plain_conv_bn_stats
+    from semantic_embeddings_torch.ops import fused_cosine_loss
+    from semantic_embeddings_torch.train import make_train_step, new_train_state
+
+    out = {}
+    t_phase = time.perf_counter()
+
+    # -- 14a. the host's JPEG libraries and the decode plan -------------
+    phase("14a probe the host's JPEG libraries, choose the decode plan")
+    probe, plan, build_error = probe_host()
+    for key, value in probe.items():
+        print(f"probe {key}: {value}")
+    if build_error:
+        print("finding: the native decoder does not build on this host:\n"
+              + "\n".join(build_error.splitlines()[:12]))
+    check(plan != "C", "neither libjpeg nor Pillow on this host (plan C: an nvJPEG "
+                       "decoder, which is not written)")
+    decoder = "native" if plan == "A" else "pillow"
+    print(f"decode plan {plan}: the file datasets decode with "
+          f"{'the native decoder' if plan == 'A' else 'Pillow (use_native = False)'}")
+    out.update(probe=probe, plan=plan, decoder=decoder,
+               native_build_error=build_error and build_error.splitlines()[-12:])
+
+    # -- 14b. a CUB-layout directory from the seed ----------------------
+    phase(f"14b write a CUB layout: {CUB_CLASSES} classes x ({CUB_TRAIN} train + "
+          f"{CUB_TEST} test), shorter sides 300-500 px")
+    cub = os.path.join(tmp, "cub")
+    t0 = time.perf_counter()
+    n_files, nbytes = write_cub(cub)
+    print(f"wrote {n_files} JPEGs ({nbytes / 2**20:.1f} MiB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 14c. the host decode rates -------------------------------------
+    phase(f"14c host decode rates ({decoder}), CUB's test and train transforms")
+    rates = decode_rates(cub, decoder, card)
+    out["decode_img_per_s"] = rates
+    if plan == "A" and probe["pillow"]:
+        ds = get_data_generator("cub", cub)
+        files = ds.test_img_files[:DECODE_IMAGES]
+        native_batch = ds._compose(files, False, np.random.default_rng(0))
+        ds.use_native = False
+        pillow_batch = ds._compose(files, False, np.random.default_rng(0))
+        diff = np.abs(native_batch.astype(np.int16) - pillow_batch).mean()
+        print(f"native center crops vs Pillow's: mean |diff| {diff:.3f} (bound 12)")
+        check(diff < 12, diff)
+        out["native_vs_pillow_mean_abs_diff"] = float(diff)
+
+    # -- 14d. the recipe, in its own process ----------------------------
+    phase(f"14d learn_image_embeddings --dataset cub (resnet-50 @ 448, batch {CUB_BATCH}, "
+          f"--bf16, {CUB_EPOCHS} epochs) in its own process; 14e beside it")
+    feat_path, model_path = os.path.join(tmp, "cub_feat.pickle"), os.path.join(tmp, "cub.pt")
+    argv = ["--dataset", "cub", "--data_root", cub, "--embedding", "onehot",
+            "--loss", "inv_corr", "--fused_loss", "--architecture", CUB_ARCH,
+            "--lr_schedule", "SGDR", "--sgdr_base_len", "12", "--sgdr_mul", "2",
+            "--sgdr_max_lr", "0.05", "--batch_size", str(CUB_BATCH), "--bf16",
+            "--epochs", str(CUB_EPOCHS), "--read_workers", str(READ_WORKERS),
+            "--queue_size", "6", "--decoder", decoder, "--feature_dump", feat_path,
+            "--model_dump", model_path, "--device", device.type]
+    # the CLI's main in a process of its own, which prints its launches
+    runner = (
+        "import json, sys, torch\n"
+        "from semantic_embeddings_torch.cli import learn_image_embeddings as m\n"
+        "from semantic_embeddings_torch.ops import conv3x3 as CC, cosine_loss as C\n"
+        "state = m.main(sys.argv[1:])\n"
+        "if torch.cuda.is_available():\n"
+        "    torch.cuda.synchronize()\n"
+        "print('LAUNCHES ' + json.dumps({'steps': state.step,"
+        " 'cosine_loss_fwd': C.launches_fwd, 'cosine_loss_bwd': C.launches_bwd,"
+        " 'conv3x3_bn_stats': CC.launches_conv_bn_stats,"
+        " 'conv3x3_filter_grad': CC.launches_filter_grad}))\n")
+    sys.stdout.flush()
+    t_recipe = time.perf_counter()
+    recipe = subprocess.Popen([sys.executable, "-c", runner, *argv], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # -- 14e. one step on a file batch: kernels vs plain vs f64 ---------
+    phase("14e one resnet-50 @ 448 step on a file-pipeline batch: kernel vs plain vs "
+          "f64, f32 (TF32 off) and bf16")
+    ds = get_data_generator("cub", cub)
+    common.apply_pipeline_args(ds, argparse.Namespace(
+        read_workers=READ_WORKERS, queue_size=6, decoder=decoder))
+    embedding = np.eye(CUB_CLASSES, dtype=np.float32)
+    prepare = ds.make_prepare(device)
+
+    def cub_model(seed):
+        model, spec = common.build_embedding_model(CUB_CLASSES, CUB_ARCH, "inv_corr", 0,
+                                                   seed=seed)
+        return new_train_state(model.to(device)), spec
+
+    def cub_step(state, spec, prep, plain=False, autocast_dtype=None):
+        """The CLI's --fused_loss step for --embedding onehot (no cls head)."""
+        loss = ((lambda tgt, z: C.PlainCosineLoss.apply(z, tgt)) if plain
+                else (lambda tgt, z: fused_cosine_loss(z, tgt)))
+        return make_train_step(state.model.twin("linear"), prep, loss_name="inv_corr",
+                               class_embedding=embedding, num_classes=CUB_CLASSES,
+                               l2_penalty_fn=spec.l2_penalty, clipnorm=10.0,
+                               loss_fn_override=loss, autocast_dtype=autocast_dtype)
+
+    raw = next(iter(ds.train_batches(CUB_BATCH, 0, 0)))
+    check(raw["image"].shape == (CUB_BATCH, 448, 448, 3) and raw["image"].is_pinned(),
+          (raw["image"].shape, raw["image"].is_pinned()))
+
+    def prepare_64(raw, rng, train):
+        images, labels_ = prepare(raw, rng, train)
+        return images.double(), labels_
+
+    def one_step(state, spec, prep, plain=False, autocast_dtype=None):
+        # the same augmentation draws for every run: a fresh generator
+        rng = torch.Generator(device=device).manual_seed(7)
+        _, metrics = cub_step(state, spec, prep, plain, autocast_dtype)(state, raw, 0.05, rng)
+        torch.cuda.synchronize()
+        return metrics["loss"].item()
+
+    state_k, spec = cub_model(seed=3)
+    before = copy.deepcopy(state_k.model.state_dict())
+    state_p = copy.deepcopy(state_k)
+    use_plain_conv_bn_stats(state_p.model)
+    state_64 = new_train_state(copy.deepcopy(state_p.model).double())
+    reset_counts()
+    loss_k = one_step(state_k, spec, prepare)
+    step_counts = read_counts()
+    loss_p = one_step(state_p, spec, prepare, plain=True)
+    loss_64 = one_step(state_64, spec, prepare_64, plain=True)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"f32 loss kernel {loss_k:.9f} plain {loss_p:.9f} f64 {loss_64:.9f}; kernel vs "
+          f"plain {rel:.3g} relative; launches of the kernel step {step_counts}")
+    check(rel <= 1e-5, rel)
+    check(step_counts == {"cosine_loss_fwd": 1, "cosine_loss_bwd": 1,
+                          "conv3x3_bn_stats": 16, "conv3x3_filter_grad": 16}, step_counts)
+    f32_dist = check_against_f64(before, state_64.model, state_k.model, state_p.model,
+                                 "f32 ")
+    del state_p
+    bf16_k, _ = cub_model(seed=3)
+    bf16_p = copy.deepcopy(bf16_k)
+    use_plain_conv_bn_stats(bf16_p.model)
+    loss_k16 = one_step(bf16_k, spec, prepare, autocast_dtype=torch.bfloat16)
+    loss_p16 = one_step(bf16_p, spec, prepare, plain=True, autocast_dtype=torch.bfloat16)
+    rel16 = abs(loss_k16 - loss_p16) / abs(loss_p16)
+    print(f"bf16 loss kernel {loss_k16:.9f} plain {loss_p16:.9f} (f64 {loss_64:.9f}); "
+          f"kernel vs plain {rel16:.3g} relative")
+    check(rel16 <= 1e-2, rel16)
+    bf16_dist = check_against_f64(before, state_64.model, bf16_k.model, bf16_p.model, "bf16 ")
+    out["step_vs_f64"] = {
+        "f32": {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_f64": loss_64,
+                "kernel_vs_plain_rel": rel, "distance": f32_dist},
+        "bf16": {"loss_kernel": loss_k16, "loss_plain": loss_p16,
+                 "kernel_vs_plain_rel": rel16, "distance": bf16_dist},
+        "launches_per_step": step_counts}
+    del state_64, bf16_k, bf16_p, before
+    torch.cuda.empty_cache()
+
+    # 14d's result
+    stdout, stderr = recipe.communicate()
+    recipe_s = time.perf_counter() - t_recipe
+    print(f"14d learn_image_embeddings exit {recipe.returncode}, done {recipe_s:.1f} s after "
+          f"its start\n{stdout.strip()}")
+    if recipe.returncode:
+        print(stderr[-4000:])
+    check(recipe.returncode == 0, "the CUB recipe failed")
+    n_losses = finite_losses("learn_image_embeddings --dataset cub", stdout)
+    launches = json.loads(re.search(r"^LAUNCHES (.*)$", stdout, re.M).group(1))
+    steps = CUB_EPOCHS * -(-CUB_CLASSES * CUB_TRAIN // CUB_BATCH)
+    val = -(-CUB_CLASSES * CUB_TEST // CUB_BATCH)
+    # fit validates each epoch; the final validation and the onehot
+    # features' pass each run the test batches once more
+    want = {"steps": steps, "cosine_loss_fwd": steps, "cosine_loss_bwd": steps,
+            "conv3x3_bn_stats": RN50_CONVS * (steps + (CUB_EPOCHS + 2) * val),
+            "conv3x3_filter_grad": RN50_CONVS * steps}
+    check(launches == want, (launches, want))
+    pipeline = f"file pipeline: {READ_WORKERS} read workers, a queue of 6 batches, " + (
+        "native" if plan == "A" else "Pillow") + " decoder"
+    check(pipeline in stdout, f"the CLI did not print {pipeline!r}")
+    print(f"{n_losses} printed losses, all finite; launches {launches} (16 + 16 conv "
+          f"kernels a step); {pipeline!r}")
+    out["recipe"] = {"seconds": recipe_s, "launches": launches, "losses_printed": n_losses}
+
+    # -- 14f. throughput at batch 24: device-only and composite ---------
+    phase(f"14f resnet-50 @ 448 bf16 step at batch {CUB_BATCH}: device-only and fed by "
+          "the file pipeline")
+    step = cub_step(state_k, spec, prepare, autocast_dtype=torch.bfloat16)
+    resident = [{"image": r["image"].to(device), "label": r["label"]}
+                for _, r in zip(range(8), ds.train_batches(CUB_BATCH, 0, 0))]
+    device_only = profile_step(state_k, step, resident,
+                               f"cub device-only bf16, batch {CUB_BATCH} [{card}]",
+                               n=4, batch=CUB_BATCH)
+    composite = composite_rate(state_k, step, ds, device, card, epoch=1)
+    per_core = rates["train"][1]
+    cores = device_only["img_per_s"] / per_core
+    print(f"device-only {device_only['img_per_s']:.1f} img/s, composite "
+          f"{composite['img_per_s']:.1f} img/s ({composite['img_per_s'] / device_only['img_per_s']:.3f} "
+          f"of it); host cores the step needs: device img/s / decode img/s per core = "
+          f"{device_only['img_per_s']:.1f} / {per_core:.1f} = {cores:.2f} "
+          f"(this host: {probe['affinity']})  [{card}]")
+    out["throughput"] = {"device_only": device_only, "composite": composite,
+                         "decode_img_per_s_per_core": per_core, "host_cores_needed": cores}
+    del state_k, step, resident
+    torch.cuda.empty_cache()
+
+    # -- 14g + 14h: stage 3 on 14d's dumps, two more recipes ------------
+    phase("14g stage 3 on 14d's dumps; 14h learn_classifier --dataset cub and "
+          "learn_image_embeddings --dataset nab-large (own processes, at once)")
+    taxonomy = os.path.join(tmp, "cub_taxonomy.parent-child.txt")
+    write_taxonomy_cub(taxonomy)
+    # the class ids the taxonomy names, in the dataset's label order (what
+    # an embedding's ind2label gives; the recipe's targets are onehot)
+    classes_from = os.path.join(tmp, "cub_classes.pickle")
+    with open(classes_from, "wb") as f:
+        pickle.dump({"ind2label": list(range(1, CUB_CLASSES + 1))}, f)
+    sub_cub, sub_nab = os.path.join(tmp, "cub_sub"), os.path.join(tmp, "nab_sub")
+    write_subset(cub, sub_cub, SUB_CLASSES)
+    write_subset(cub, sub_nab, SUB_CLASSES)
+    cls_dump = os.path.join(tmp, "cub_classifier.pt")
+    common_flags = ["--batch_size", str(CUB_BATCH), "--bf16", "--read_workers", "4",
+                    "--queue_size", "4", "--decoder", decoder, "--device", device.type]
+    outs = run_clis({
+        "retrieval": ("evaluate_retrieval", [
+            "--dataset", "cub", "--data_root", cub, "--hierarchy", taxonomy,
+            "--classes_from", classes_from, "--feat", feat_path, "--plot_max", "100",
+            "--device", device.type]),
+        "classification": ("evaluate_classification_accuracy", [
+            "--dataset", "cub", "--data_root", cub, "--hierarchy", taxonomy,
+            "--classes_from", classes_from, "--model", model_path, "--layer", "l2norm", "--prob_features", "1",
+            "--batch_size", str(CUB_BATCH), "--decoder", decoder, "--device", device.type]),
+        "classifier": ("learn_classifier", [
+            "--dataset", "cub", "--data_root", sub_cub, "--architecture", CUB_ARCH,
+            "--label_smoothing", "0.1", "--lr_schedule", "SGDR", "--sgdr_max_lr", "0.05",
+            "--epochs", "1", "--model_dump", cls_dump, *common_flags]),
+        "nab_large": ("learn_image_embeddings", [
+            "--dataset", "nab-large", "--data_root", sub_nab, "--embedding", "onehot",
+            "--loss", "inv_corr", "--cls_weight", "0.1", "--fused_loss",
+            "--architecture", CUB_ARCH, "--lr_schedule", "SGDR", "--sgdr_base_len",
+            "60", "--sgdr_mul", "3", "--sgdr_max_lr", "0.5", "--epochs", "1",
+            "--max_decay", "0.1", *common_flags]),
+    })
+    retrieval = parse_table(outs["retrieval"])
+    accuracy = parse_table(outs["classification"])
+    for table in (retrieval, accuracy):
+        for row in table.values():
+            check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in row.values()), row)
+    for name in ("classifier", "nab_large"):
+        finite_losses(name, outs[name])
+        check("epoch 1/1" in outs[name], f"{name} ran no epoch")
+    print(f"retrieval {retrieval}; classification {accuracy}")
+    out["stage3"] = {"retrieval": retrieval, "classification": accuracy}
+    table = run_cli("evaluate_classification_accuracy", "--dataset", "cub", "--data_root",
+                    sub_cub, "--model", cls_dump, "--layer", "prob", "--prob_features", "1",
+                    "--batch_size", str(CUB_BATCH), "--decoder", decoder, "--device", device.type)
+    out["classifier_accuracy"] = parse_table(table)
+    # the augmented feature pass of the SVM mode (which needs scikit-learn):
+    # two passes over the training files with the host's train transforms
+    model, _ = common.rebuild_model_from_checkpoint(model_path, device)
+    aug_ds = get_data_generator("cub", cub)
+    common.apply_pipeline_args(aug_ds, argparse.Namespace(
+        read_workers=READ_WORKERS, queue_size=6, decoder=decoder))
+    x_train, y_train = evaluate_classification_accuracy.train_features(
+        aug_ds, model, device, "l2norm", augmentation_epochs=2, batch_size=CUB_BATCH)
+    n_train = CUB_CLASSES * CUB_TRAIN
+    check(x_train.shape == (2 * n_train, CUB_CLASSES) and np.isfinite(x_train).all()
+          and len(y_train) == 2 * n_train, (x_train.shape, len(y_train)))
+    moved = float(np.abs(x_train[:n_train] - x_train[n_train:]).max())
+    check(moved > 0, "the two augmented passes gave the same features")
+    print(f"augmented training features {x_train.shape} over 2 passes; the passes differ "
+          f"by up to {moved:.3g}")
+    out["augmented_features"] = {"shape": list(x_train.shape), "max_pass_diff": moved}
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 14i. serving 14d's model, JPEG bodies --------------------------
+    phase(f"14i serve 14d's model (--decode_threads 4, {decoder} decoder): a JPEG body "
+          "against the npy body of its decoded pixels")
+    from semantic_embeddings_torch.cli import serve_model
+    from semantic_embeddings_torch.serving import ServingClient
+
+    args = serve_model.build_parser().parse_args([
+        "--checkpoint", model_path, "--layer", "l2norm", "--input_size", "448",
+        "--target_size", "512", "--dataset", "cub", "--decode_threads", "4",
+        "--decoder", decoder, "--port", "0", "--max_batch", "4", "--device", device.type])
+    srv = serve_model.make_server(args).start()
+    try:
+        client = ServingClient(f"http://127.0.0.1:{srv.port}")
+        same = []
+        for path in ds.test_img_files[:4]:
+            with open(path, "rb") as f:
+                blob = f.read()
+            pixels = srv.preproc.decode_jpeg(blob)
+            got = client.predict_jpeg(blob)
+            want = client.predict(pixels[None], wire_dtype=np.uint8)
+            check(got.shape == (1, CUB_CLASSES) and np.isfinite(got).all(), got.shape)
+            same.append(bool(np.array_equal(got, want)))
+    finally:
+        srv.stop()
+    check(all(same), same)
+    print(f"{len(same)} JPEG bodies: answers bitwise equal to the npy bodies of the "
+          f"pixels the server's {decoder} decoder gives")
+    out["serving_jpeg_bitwise"] = same
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+def check_against_f64(before, model_64, model_k, model_p, label=""):
+    """Holds one train step through the kernels (``model_k``) and one
+    through the plain versions (``model_p``), both from the state dict
+    ``before``, to the plain versions' step in f64 (``model_64``): tensor by
+    tensor, in f64, the distance of each from the f64 step in units of that
+    tensor's f64 update (BN running statistics: in absolute terms); the
+    kernel step may be no farther than twice the plain step's farthest
+    tensor.  Returns the worst and median distances."""
+    sd_64, sd_k, sd_p = (m.state_dict() for m in (model_64, model_k, model_p))
+    param_names = {n for n, _ in model_k.named_parameters()}
+    dist = {"kernel": {}, "plain": {}}
+    for n, old in before.items():
+        ref = sd_64[n].double()
+        scale = (ref - old.double()).abs().max().item() if n in param_names else 1.0
+        for path, got in (("kernel", sd_k[n]), ("plain", sd_p[n])):
+            dist[path][n] = (got.double() - ref).abs().max().item() / max(scale, 1e-30)
+    out = {}
+    for what, names in (("parameter", param_names), ("BN statistic", set(before) - param_names)):
+        worst = {path: max(d[n] for n in names) for path, d in dist.items()}
+        median = {path: statistics.median(d[n] for n in names) for path, d in dist.items()}
+        far = sorted(names, key=lambda n: -dist["kernel"][n])[:3]
+        print(f"{label}{what} distance from f64 (of the update for parameters): worst "
+              f"kernel {worst['kernel']:.3g}, plain {worst['plain']:.3g}; median kernel "
+              f"{median['kernel']:.3g}, plain {median['plain']:.3g}; farthest "
+              + ", ".join(f"{n} {dist['kernel'][n]:.3g}/{dist['plain'][n]:.3g}"
+                          for n in far))
+        bad = [n for n in names if dist["kernel"][n] > 2 * worst["plain"] + 1e-7]
+        check(not bad, [(n, dist["kernel"][n], worst["plain"]) for n in bad[:10]])
+        out[what] = {"worst": worst, "median": median}
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1768,7 +2328,7 @@ def main(argv=None):
                 conv_err[dtype][key] = max(conv_err[dtype].get(key, 0.0), value)
             print(f"{case} {name}: max |err| " + ", ".join(
                 f"{k} {v:.3g}" for k, v in errs.items()))
-            if case not in CC.STAGE_SHAPES:
+            if case not in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448:
                 continue
             flop = 2 * b * h * w * 9 * c * f
             item = x.element_size()
@@ -2116,26 +2676,8 @@ def main(argv=None):
     print(f"loss kernel {m_k['loss'].item():.9f} plain {m_p['loss'].item():.9f} "
           f"f64 {loss_64:.9f}; kernel vs plain {loss_rel:.3g} relative")
     check(loss_rel <= 1e-5, loss_rel)
-    sd = [st.model.state_dict() for st in (state_k, state_p, state_64)]
-    param_names = {n for n, _ in state_k.model.named_parameters()}
-    dist = {"kernel": {}, "plain": {}}
-    for n, old in before.items():
-        ref = sd[2][n]
-        scale = (ref - old.double()).abs().max().item() if n in param_names else 1.0
-        for path, got in (("kernel", sd[0][n]), ("plain", sd[1][n])):
-            dist[path][n] = (got.double() - ref).abs().max().item() / max(scale, 1e-30)
-    for what, names in (("parameter", param_names), ("BN statistic", set(before) - param_names)):
-        worst = {path: max(d[n] for n in names) for path, d in dist.items()}
-        median = {path: statistics.median(d[n] for n in names) for path, d in dist.items()}
-        far = sorted(names, key=lambda n: -dist["kernel"][n])[:3]
-        print(f"{what} distance from f64 (of the update for parameters): worst "
-              f"kernel {worst['kernel']:.3g}, plain {worst['plain']:.3g}; median kernel "
-              f"{median['kernel']:.3g}, plain {median['plain']:.3g}; farthest "
-              + ", ".join(f"{n} {dist['kernel'][n]:.3g}/{dist['plain'][n]:.3g}"
-                          for n in far))
-        bad = [n for n in names if dist["kernel"][n] > 2 * worst["plain"] + 1e-7]
-        check(not bad, [(n, dist["kernel"][n], worst["plain"]) for n in bad[:10]])
-    del before, state_p, state_64, sd, m_k, m_p, m_64
+    check_against_f64(before, state_64.model, state_k.model, state_p.model)
+    del before, state_p, state_64, m_k, m_p, m_64
     torch.cuda.empty_cache()
 
     # -- 10. ResNet-50 throughput, kernels and plain, f32 and bf16 --------
@@ -2195,6 +2737,12 @@ def main(argv=None):
     finetune_launches = {"phase1": p13["finetune"]["phase1"]["launches"],
                          "phase2": p13["finetune"]["phase2_launches"]}
 
+    # -- 14. the file datasets, the CUB recipe at 448 px ----------------
+    p14 = phase14(device, card, tmp, CC, C, reset_counts, read_counts)
+    check("jax" not in sys.modules and not any(
+        m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
+    cub_launches = p14["recipe"]["launches"]
+
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
     for part, line in (("fwd", 40), ("bwd", 48)):
@@ -2210,6 +2758,8 @@ def main(argv=None):
             # phase 13c: --finetune of resnet-50, 4 steps a phase
             "launches_finetune": {ph: c[f"cosine_loss_{part}"]
                                   for ph, c in finetune_launches.items()},
+            # phase 14d: the CUB recipe at 448 px, its own process
+            "launches_cub_recipe": cub_launches[f"cosine_loss_{part}"],
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -2257,6 +2807,8 @@ def main(argv=None):
                if name == "conv3x3_bn_stats" else {}),
             "launches_classifier": p13["classifier"]["launches"][name],
             "launches_finetune": {ph: c[name] for ph, c in finetune_launches.items()},
+            # phase 14d: the CUB recipe at 448 px (batch 24), its own process
+            "launches_cub_recipe": cub_launches[name],
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -2270,12 +2822,14 @@ def main(argv=None):
             "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound_ms"],
             "library_ms_bf16": t16["library_ms"],
             "by_shape": {f"{case} {str(dtype)[6:]}": conv_times[name, case, dtype]
-                         for case in CC.STAGE_SHAPES for dtype in (f32, bf16)},
+                         for case in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448
+                         for dtype in (f32, bf16)},
         })
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
-                      "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13}))
+                      "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13,
+                      "phase14": p14}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -57,12 +57,34 @@ def add_common_train_arguments(group):
                             "(file datasets; not used by in-memory ones).")
     group.add_argument("--queue_size", type=int, default=100,
                        help="Maximum size of data queue (file datasets).")
+    add_decoder_argument(group)
     group.add_argument("--gpu_merge", action="store_true", default=False,
                        help="Accepted for interface parity.")
     group.add_argument("--bn_per_replica", action="store_true", default=False,
                        help="Per-replica BatchNorm statistics (not ported yet).")
     group.add_argument("--spatial", type=int, default=1,
                        help="Spatial partitioning factor (not ported yet).")
+
+
+def add_decoder_argument(group):
+    group.add_argument("--decoder", choices=("native", "pillow"), default="native",
+                       help="JPEG decoder of the file datasets: the native "
+                            "C++ decoder (built with g++ against libjpeg at "
+                            "first use; a failed build is an error) or Pillow.")
+
+
+def apply_pipeline_args(dataset, args):
+    """Wires ``--read_workers`` / ``--queue_size`` / ``--decoder`` onto a
+    file dataset (in-memory datasets have none of them).  ``queue_size``
+    counts batches, as Keras's ``max_queue_size`` does."""
+    if hasattr(dataset, "read_workers"):
+        dataset.read_workers = getattr(args, "read_workers", dataset.read_workers)
+        dataset.queue_size = getattr(args, "queue_size", dataset.queue_size)
+        dataset.use_native = getattr(args, "decoder", "native") == "native"
+        print(f"file pipeline: {dataset.read_workers} read workers, a queue of "
+              f"{dataset.queue_size} batches, "
+              f"{'native' if dataset.use_native else 'Pillow'} decoder")
+    return dataset
 
 
 def reject_unported(flags):

@@ -59,18 +59,29 @@ def nn_classification(dataset, centroids, model, device, layer=None, batch_size=
     return torch.argsort(dists, dim=-1, stable=True).cpu().numpy()
 
 
+def train_features(dataset, model, device, layer=None, augmentation_epochs=1,
+                   batch_size=1):
+    """Features of the training images, ``augmentation_epochs`` passes in
+    order, with the train-time augmentation (the host's and the device's)
+    when there is more than one pass; and their labels."""
+    augment = augmentation_epochs > 1
+    x_train = common.extract_by_tap(
+        model, dataset.make_prepare(device, augment_train=augment),
+        dataset.train_eval_batches(max(batch_size, 10), augment=augment,
+                                   epochs=augmentation_epochs),
+        device, layer=layer, train_branch=True)
+    y_train = np.tile(np.asarray(dataset.labels_train), augmentation_epochs)
+    return x_train, y_train
+
+
 def train_and_predict(dataset, model, device, layer=None, normalize=False,
                       augmentation_epochs=1, C=1.0, batch_size=1):
     """Linear-SVM ranking over extracted features."""
     from sklearn.svm import LinearSVC
 
-    augment = augmentation_epochs > 1
     sys.stderr.write("Extracting features...\n")
-    x_train = common.extract_by_tap(
-        model, dataset.make_prepare(device, augment_train=augment),
-        dataset.train_eval_batches(max(batch_size, 10), epochs=augmentation_epochs),
-        device, layer=layer, train_branch=True)
-    y_train = np.tile(np.asarray(dataset.labels_train), augmentation_epochs)
+    x_train, y_train = train_features(dataset, model, device, layer,
+                                      augmentation_epochs, batch_size)
     x_test = _test_features(model, dataset, device, layer, batch_size)
 
     if normalize:
@@ -149,6 +160,7 @@ def build_parser():
     group.add_argument("--device", type=str, default="cuda",
                        help="Device to run on (cuda, cuda:N or cpu). A CUDA "
                             "device that is not present is an error.")
+    common.add_decoder_argument(group)
     group = parser.add_argument_group("Features")
     group.add_argument("--architecture", type=str, default="simple",
                        help="Architecture of checkpoints without metadata "
@@ -183,6 +195,7 @@ def main(argv=None):
     else:
         embed_labels = None
     dataset = get_data_generator(args.dataset, args.data_root, classes=embed_labels)
+    common.apply_pipeline_args(dataset, args)
 
     id_type = str if args.str_ids else int
     hierarchy = (ClassHierarchy.from_file(args.hierarchy, is_a_relations=args.is_a,

@@ -95,6 +95,7 @@ def main(argv=None):
     elif args.class_list:
         class_list = common.read_class_list(args.class_list)
     dataset = get_data_generator(args.dataset, args.data_root, classes=class_list)
+    common.apply_pipeline_args(dataset, args)
     common.check_label_range(dataset, dataset.num_classes, what="centroid table")
 
     generator = torch.Generator().manual_seed(0)

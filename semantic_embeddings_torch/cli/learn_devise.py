@@ -64,6 +64,7 @@ def build_parser():
                        help="Margin of the hinge ranking loss.")
     group.add_argument("--read_workers", type=int, default=8)
     group.add_argument("--queue_size", type=int, default=100)
+    common.add_decoder_argument(group)
     group.add_argument("--device", type=str, default="cuda",
                        help="Device to run on (cuda, cuda:N or cpu). A CUDA "
                             "device that is not present is an error.")
@@ -87,6 +88,7 @@ def main(argv=None):
     embed_labels, embedding = common.load_class_embedding(args.embedding)
     embedding = embedding / np.linalg.norm(embedding, axis=-1, keepdims=True)
     dataset = get_data_generator(args.dataset, args.data_root, classes=embed_labels)
+    common.apply_pipeline_args(dataset, args)
     common.check_label_range(dataset, embedding.shape[0])
 
     model, spec = common.build_embedding_model(   # linear output head

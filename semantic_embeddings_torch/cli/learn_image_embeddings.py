@@ -143,6 +143,7 @@ def main(argv=None):
     # Class embeddings ('onehot' -> identity).
     embed_labels, embedding = common.load_class_embedding(args.embedding)
     dataset = get_data_generator(args.dataset, args.data_root, classes=embed_labels)
+    common.apply_pipeline_args(dataset, args)
     if embedding is None:
         embedding = np.eye(dataset.num_classes, dtype=np.float32)
 

@@ -90,6 +90,7 @@ def main(argv=None):
 
     class_list = common.read_class_list(args.class_list) if args.class_list else None
     dataset = get_data_generator(args.dataset, args.data_root, classes=class_list)
+    common.apply_pipeline_args(dataset, args)
     common.check_label_range(dataset, dataset.num_classes, what="label-embedding table")
 
     generator = torch.Generator().manual_seed(0)

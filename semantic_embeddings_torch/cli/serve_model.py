@@ -77,6 +77,8 @@ def build_parser():
                      help="Pending-image cap; beyond it requests get HTTP "
                           "503 + Retry-After instead of queueing unbounded "
                           "(default: 16 full batches).")
+    srv.add_argument("--decode_threads", type=int, default=4,
+                     help="Threads of the native JPEG decoder a request uses.")
     srv.add_argument("--warmup", action="store_true", default=False,
                      help="Run every batch bucket once before accepting "
                           "traffic (cuDNN algorithm choice, kernel builds).")
@@ -95,6 +97,10 @@ def build_parser():
     prep.add_argument("--target_size", type=int, default=None,
                       help="Shorter-side resize target for JPEG requests "
                            "before the center crop (default: crop size).")
+    prep.add_argument("--decoder", choices=("native", "pillow"), default="native",
+                      help="JPEG decoder of request bodies: the native C++ decoder "
+                           "(built with g++ against libjpeg at first use; a failed "
+                           "build is an error) or Pillow.")
     prep.add_argument("--device_preproc", action="store_true", default=False,
                       help="Transfer uint8 pixels and run the mean/std "
                            "normalization on the device: a quarter of the "
@@ -236,7 +242,10 @@ def make_server(args):
 
         engine_dtype = np.float32
     preproc = Preprocessor(meta["input_size"], args.input_channels, mean=mean, std=std,
-                           target_size=args.target_size, device_norm=args.device_preproc)
+                           target_size=args.target_size, device_norm=args.device_preproc,
+                           decoder=args.decoder, n_threads=args.decode_threads)
+    print(f"JPEG bodies decode with the {'native' if args.decoder == 'native' else 'Pillow'} "
+          "decoder", flush=True)
     # an artifact of a fixed batch takes that batch only
     fixed = meta.get("fixed_batch")
     engine = BatchingEngine(

@@ -121,10 +121,13 @@ class InMemoryDataset(DatasetBase):
         for i, v in zip(idx, valid):
             yield {"idx": i.astype(np.int32), "valid": v}
 
-    def train_eval_batches(self, batch_size, epochs=1):
+    def train_eval_batches(self, batch_size, augment=False, epochs=1):
         """Ordered masked batches over the training set, ``epochs`` passes
         (SVM-mode feature extraction); consume with ``prepare(raw, rng,
-        train=True)`` from ``make_prepare(augment_train=...)``."""
+        train=True)`` from ``make_prepare(augment_train=augment)``.  The
+        batches carry indices only, so ``augment`` changes nothing here: the
+        device's prepare augments (a file dataset's host applies its
+        train-time transforms)."""
         for _ in range(epochs):
             yield from (
                 {"idx": i.astype(np.int32), "valid": v}

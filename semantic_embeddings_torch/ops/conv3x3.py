@@ -377,8 +377,14 @@ STAGE_SHAPES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
 #: shapes whose planes (H*W) take each copy width of the bf16 filter-gradient
 #: kernel: 8 elements (16 bytes), 4, and 1 (H*W = 49: repacked planes)
 ALIGN_CASES = [(4, 8, 8, 24, 80), (4, 14, 14, 32, 64), (4, 7, 7, 40, 72)]
+#: the mid 3x3 conv of each ResNet-50 stage at 448 px, batch 24 (the
+#: CosineLoss.md CUB recipe): planes of 12,544 to 196 pixels, N*H*W up to
+#: 301,056 for the filter gradient's split
+STAGE_SHAPES_448 = [(24, 112, 112, 64, 64), (24, 56, 56, 128, 128),
+                    (24, 28, 28, 256, 256), (24, 14, 14, 512, 512)]
 CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
-                              (1, 5, 3, 70, 130), (3, 5, 10, 16, 40)] + ALIGN_CASES
+                              (1, 5, 3, 70, 130), (3, 5, 10, 16, 40)] + ALIGN_CASES \
+    + STAGE_SHAPES_448
 
 #: Tolerances of each kernel's result against its plain version on the same
 #: inputs (check_inputs: x and dy of N(0, 1), He-scaled w, so y is O(1)).

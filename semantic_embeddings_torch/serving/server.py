@@ -12,8 +12,10 @@ Counterpart of the JAX package's ``serving/server.py``; stdlib
       server applies the configured mean/std normalization unless
       ``"normalized": true`` is set in the payload.
     * ``application/x-npy``: a serialized numpy array, as ``instances``.
-    * ``image/jpeg``: raw JPEG bytes, decoded with Pillow (shorter side
-      resized, center crop to the model input), then normalized.
+    * ``image/jpeg``: raw JPEG bytes, decoded by the native decoder
+      (``native.decode_mem_batch``) or, with ``decoder="pillow"``, by
+      Pillow (shorter side resized, center crop to the model input), then
+      normalized.
   Response: ``{"predictions": ...}`` JSON, or ``application/x-npy`` when the
   request sets ``Accept: application/x-npy`` and the model returns one array.
   A bad request gets 400, a full queue 503 with ``Retry-After``, a failure
@@ -47,7 +49,10 @@ def _leaves(tree):
 class Preprocessor:
     """Host-side request preprocessing: JPEG decode and normalization.
 
-    ``device_norm``: the mean/std normalization runs on the device (in the
+    ``decoder``: ``"native"`` decodes JPEG bodies with the native decoder
+    (bilinear resize of the shorter side to ``target_size``, center crop;
+    ``n_threads`` decode threads), as the JAX package's server does;
+    ``"pillow"`` with Pillow (its default resampling).  ``device_norm``: the mean/std normalization runs on the device (in the
     engine's fn, ``serve_model --device_preproc``), and this side hands on
     raw uint8 pixels.  Pre-normalized arrays are refused in that mode (the
     device would normalize them again), and so is any value that is not an
@@ -55,7 +60,9 @@ class Preprocessor:
     """
 
     def __init__(self, input_size, input_channels=3, mean=None, std=None,
-                 target_size=None, device_norm=False):
+                 target_size=None, device_norm=False, decoder="native", n_threads=4):
+        if decoder not in ("native", "pillow"):
+            raise ValueError(f"decoder must be 'native' or 'pillow', not {decoder!r}")
         self.input_size = int(input_size)
         self.input_channels = int(input_channels)
         self.mean = None if mean is None else np.asarray(mean, np.float32)
@@ -64,6 +71,8 @@ class Preprocessor:
         # crop size itself, the reference's test-time convention)
         self.target_size = int(target_size or input_size)
         self.device_norm = bool(device_norm)
+        self.decoder = decoder
+        self.n_threads = int(n_threads)
 
     def normalize(self, x):
         x = np.asarray(x, np.float32)
@@ -73,13 +82,19 @@ class Preprocessor:
             x = x / self.std
         return x
 
-    def from_jpeg(self, blob):
-        try:
-            from PIL import Image
-        except ImportError:
-            raise PreprocessError(
-                "JPEG bodies need Pillow, which is not installed; the native "
-                "JPEG decoder is not ported yet to the PyTorch package") from None
+    def decode_jpeg(self, blob):
+        """One JPEG body -> (input_size, input_size, 3) uint8 pixels."""
+        if self.decoder == "native":
+            from .. import native
+
+            imgs, ok = native.decode_mem_batch(
+                [blob], [self.target_size], [1], False, self.input_size,
+                self.input_size, self.n_threads)
+            if not ok[0]:
+                raise PreprocessError("could not decode JPEG body")
+            return imgs[0]
+        from PIL import Image
+
         try:
             pil = Image.open(io.BytesIO(blob)).convert("RGB")
         except Exception as e:  # noqa: BLE001 - any decode failure is a bad body
@@ -90,7 +105,10 @@ class Preprocessor:
         img = np.asarray(pil, dtype=np.uint8)
         y0 = max(0, (img.shape[0] - self.input_size) // 2)
         x0 = max(0, (img.shape[1] - self.input_size) // 2)
-        img = img[y0:y0 + self.input_size, x0:x0 + self.input_size]
+        return img[y0:y0 + self.input_size, x0:x0 + self.input_size]
+
+    def from_jpeg(self, blob):
+        img = self.decode_jpeg(blob)
         if self.device_norm:
             return img[None]  # uint8; the device normalizes
         return self.normalize(img[None].astype(np.float32))
@@ -218,6 +236,7 @@ class ServingServer:
     def __init__(self, engine, preproc, meta, host="127.0.0.1", port=8000,
                  request_timeout=60.0):
         self.engine = engine
+        self.preproc = preproc
         handler = make_handler(engine, preproc, meta, request_timeout)
         self.httpd = _Listener((host, port), handler)
         self.httpd.daemon_threads = True

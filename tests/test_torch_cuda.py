@@ -578,3 +578,43 @@ def test_learner_clis_run_on_the_card(device, tmp_path, learner):
     again = common.extract_test_features(model, get_data_generator("synthetic-10-64-32"),
                                          device, 16, pick=0)
     np.testing.assert_allclose(again, feats, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("color_mode", ["rgb", "bgr"])
+def test_file_prepare_on_the_card_equals_the_cpu(device, tmp_path, color_mode):
+    """A file dataset's device side (copy from pinned memory, color
+    distortion, normalization, flips, erasing) on the card against the
+    CPU's, for the same batch and the same draws.  Tolerance: the same f32
+    operations; the per-image contrast mean sums in another order."""
+    from _torch_files_common import write_nab
+
+    from semantic_embeddings_torch.data.datasets import NABDataset
+
+    root = write_nab(str(tmp_path))
+    ds = NABDataset(root, cropsize=(40, 36), default_target_size=44, distort_colors=True,
+                    randerase_prob=1.0, color_mode=color_mode)
+    ds.colordistort_params = dict(ds.colordistort_params, fast_mode=False)  # all four orders
+    ds.use_native = False  # the device side is under test; any host with Pillow
+    raw = next(iter(ds.train_batches(6, epoch=0, seed=3)))
+    assert raw["image"].is_pinned()
+    b, h, w, _ = raw["image"].shape
+    cpu_draws = ds.draw_augment(b, h, w, torch.Generator().manual_seed(1))
+
+    def on(dev):
+        return {
+            "color": {k: v.to(dev) for k, v in cpu_draws["color"].items()},
+            "flip": cpu_draws["flip"].to(dev),
+            "erase": tuple(v.to(dev) for v in cpu_draws["erase"]),
+        }
+
+    ds.draw_augment = lambda *args: on("cpu")
+    want, want_y = ds.make_prepare("cpu")(raw, None, True)
+    ds.draw_augment = lambda *args: on(device)
+    got, got_y = ds.make_prepare(device)(raw, None, True)
+    assert got.device.type == "cuda" and got.shape == (b, h, w, 3)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got_y.cpu(), want_y)
+    test = next(iter(ds.test_batches(6)))
+    torch.testing.assert_close(ds.make_prepare(device)(test, None, False)[0].cpu(),
+                               ds.make_prepare("cpu")(test, None, False)[0],
+                               rtol=1e-6, atol=1e-6)

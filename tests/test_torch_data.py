@@ -42,8 +42,11 @@ def test_registry_synthetic_sizes_and_classes():
     ds = get_data_generator("synthetic-10-64-32", classes=list(range(100, 110)))
     assert (ds.num_classes, ds.num_train, ds.num_test) == (10, 64, 32)
     assert ds.class_indices[103] == 3
-    with pytest.raises(ValueError, match="not yet ported"):
+    # the file datasets are ported: a missing directory is the error now
+    with pytest.raises(FileNotFoundError):
         get_data_generator("ilsvrc", "/nonexistent")
+    with pytest.raises(ValueError, match="Unknown dataset"):
+        get_data_generator("no-such-dataset", "/nonexistent")
 
 
 @pytest.mark.parametrize("size", [(32, 32), (9, 14)])

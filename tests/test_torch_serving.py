@@ -596,3 +596,60 @@ def test_serve_cli_cuda_without_gpu_raises(checkpoint_pair):
     args = serve_model.build_parser().parse_args(["--checkpoint", path])
     with pytest.raises(SystemExit, match="no CUDA device"):
         serve_model.make_server(args)
+
+
+# -- JPEG bodies through the native decoder -------------------------------------
+
+
+@pytest.mark.parametrize("size,target", [((300, 420), None), ((90, 60), 72), ((50, 50), 200)])
+def test_jpeg_body_pixels_equal_the_jax_servers(tmp_path, size, target):
+    """A JPEG body through the port's server preprocessing gives the same
+    uint8 pixels as the JAX server's ``from_jpeg`` (both decode with the
+    native decoder: resize of the shorter side, center crop), and over
+    HTTP the answer of the same pixels sent as an npy body."""
+    from PIL import Image
+
+    from semantic_embeddings_tpu.serving.server import Preprocessor as JPreprocessor
+
+    rng = np.random.default_rng(sum(size))
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, size + (3,)).astype(np.uint8)).save(
+        buf, "JPEG", quality=85)
+    blob = buf.getvalue()
+    ours = Preprocessor(48, target_size=target, device_norm=True, n_threads=2)
+    ref = JPreprocessor(48, target_size=target, device_norm=True, n_threads=2)
+    got = ours.from_jpeg(blob)
+    assert got.dtype == np.uint8 and got.shape == (1, 48, 48, 3)
+    np.testing.assert_array_equal(got, ref.from_jpeg(blob))
+    mean, std = [100.0, 110.0, 120.0], [50.0, 60.0, 70.0]
+    np.testing.assert_array_equal(
+        Preprocessor(48, mean=mean, std=std, target_size=target).from_jpeg(blob),
+        JPreprocessor(48, mean=mean, std=std, target_size=target).from_jpeg(blob))
+
+    eng = BatchingEngine(lambda x: torch.from_numpy(x.astype(np.float64)).sum(dim=(1, 2, 3)),
+                         (48, 48, 3), max_batch=4, timeout_ms=1.0, dtype=np.uint8)
+    srv = ServingServer(eng, Preprocessor(48, device_norm=True, target_size=target),
+                        {}, host="127.0.0.1", port=0).start()
+    try:
+        c = ServingClient(f"http://127.0.0.1:{srv.port}")
+        np.testing.assert_array_equal(c.predict_jpeg(blob),
+                                      c.predict(got, wire_dtype=np.uint8))
+    finally:
+        srv.stop()
+
+
+def test_jpeg_decoder_choice():
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.full((40, 60, 3), 90, np.uint8)).save(buf, "PNG")
+    png = buf.getvalue()  # Pillow reads it, libjpeg does not
+    with pytest.raises(PreprocessError, match="could not decode JPEG"):
+        Preprocessor(32).from_jpeg(png)
+    assert Preprocessor(32, decoder="pillow", device_norm=True).from_jpeg(png).shape == (
+        1, 32, 32, 3)
+    with pytest.raises(ValueError, match="decoder"):
+        Preprocessor(32, decoder="libjpeg")
+    args = serve_model.build_parser().parse_args(
+        ["--checkpoint", "m.pt", "--decoder", "pillow", "--decode_threads", "2"])
+    assert (args.decoder, args.decode_threads) == ("pillow", 2)
