@@ -162,7 +162,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    step's img/s at batch 24 with the batch resident on the card and fed by
    the file pipeline, the busy share under ``torch.profiler``, and the host
    cores the step needs (device img/s over decode img/s per core); (g)
-   ``evaluate_retrieval`` and ``evaluate_classification_accuracy`` on (d)'s
+   ``evaluate_retrieval`` (the default ``--plot_max``, past the 199 other
+   test images: P@k clamps as the JAX package's does) and
+   ``evaluate_classification_accuracy`` (the default ``--decoder auto``,
+   whose choice it checks) on (d)'s
    dumps over a two-level taxonomy of the 200 classes, and the SVM mode's
    augmented feature pass (2 passes with the host's train transforms); (h)
    ``learn_classifier --dataset cub --label_smoothing 0.1`` and
@@ -172,6 +175,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``evaluate_classification_accuracy --layer prob``; (i) serve (d)'s model
    with ``--decode_threads``: a JPEG body's answer equals, bitwise, the
    answer to the npy body of the pixels the server's decoder gives.
+15. Checkpoint interop and the host-side CLIs, at full width: (a) probe
+   ``h5py``, ``matplotlib`` and ``tensorboard`` (nothing is installed); (b)
+   write phase 8's ResNet-50 as a JAX package model dump
+   (``save_jax_checkpoint``: the pickle around the Flax msgpack of the
+   train state), time its read, rebuild it through
+   ``rebuild_model_from_checkpoint``: every tensor and the eval forward
+   bitwise equal to the source's (16 ``conv3x3_bn_stats`` launches), and
+   ``evaluate_classification_accuracy`` on it and on the source in their
+   own processes gives the same table; (c) ``learn_image_embeddings
+   --finetune`` from a JAX weight dump of it (a 50-d embedding, so the
+   100-d top is skipped; batch 32, ``--finetune_init 1``, 3 steps a phase,
+   ``--log_dir``): the backbone loads whole, the BN running statistics keep
+   their initial values, the launches of all four kernels by phase, and
+   TensorBoard events where ``tensorboard`` imports; (d) export phase 8's
+   ResNet-50 and phase 5's resnet-110-wfc to Keras h5 and import them back
+   (through h5 files and both CLIs where ``h5py`` imports, else
+   ``export_layers`` straight to ``map_layers``): every tensor and the eval
+   forward bitwise equal to the source's; (e) ``compute_class_embedding
+   --device`` on phase 5's taxonomy: E E^T within 1e-10 of the
+   similarities and of the host run's, unitsphere and approx_sim; (f)
+   ``plot_recall_precision`` on phase 5's feature dump (where
+   ``matplotlib`` imports) and ``encode_hierarchy`` on a tree written from
+   the seed.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -272,14 +298,19 @@ def time_ms(fn, iters=200, warmup=20):
 def device_ms(fn, iters=50, attempts=4):
     """Device time of one call of ``fn``: the summed duration of the GPU
     kernels it launches, from ``torch.profiler``, without the gaps in which
-    the device waits for the host.
+    the device waits for the host.  Returns the time and the reading's
+    record: ``records_lost`` in each of its two windows and ``rescaled``.
 
     The profiler now and then loses some or all of a window's kernel
-    records, and the time then reads low.  Every call of ``fn`` launches
-    the same kernels, so a reading takes two windows of ``iters`` calls and
-    is kept only when both recorded the same number of kernels, a non-zero
-    multiple of ``iters``; otherwise both are taken again, and after
-    ``attempts`` the run fails."""
+    records, and a sum then reads low.  Every call of ``fn`` launches the
+    same kernels, so each kernel's time a call is its mean record times its
+    launches a call (its records over ``iters``, rounded).  A reading takes
+    two windows of ``iters`` calls and is kept when, in both, every kernel
+    has lost at most a tenth of its records and launches as often a call;
+    otherwise both are taken again, and after ``attempts`` the run fails.
+    Where no record was lost the time is the windows' plain sum over
+    ``iters``; else ``rescaled`` is true.  A kernel whose records all
+    vanish in both windows is not seen."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -289,18 +320,29 @@ def device_ms(fn, iters=50, attempts=4):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        return (sum(e.count for e in kernels),
-                sum(e.self_device_time_total for e in kernels) / iters / 1e3)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count > 0]
+        launches = {e.key: round(e.count / iters) for e in kernels}
+        whole = bool(kernels) and all(
+            launches[e.key] >= 1 and launches[e.key] * iters - iters // 10 <= e.count
+            <= launches[e.key] * iters for e in kernels)
+        lost = sum(launches[e.key] * iters - e.count for e in kernels)
+        ms = sum(e.self_device_time_total / e.count * launches[e.key] for e in kernels) / 1e3
+        return whole, launches, lost, ms
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        (n1, t1), (n2, t2) = window(), window()
-        if n1 == n2 and n1 > 0 and n1 % iters == 0:
-            return (t1 + t2) / 2
-        print(f"torch.profiler recorded {n1} and {n2} GPU kernels for twice "
-              f"{iters} calls (attempt {attempt + 1}); taken again")
+        (ok1, l1, lost1, t1), (ok2, l2, lost2, t2) = window(), window()
+        if ok1 and ok2 and l1 == l2:
+            record = {"records_lost": [lost1, lost2], "rescaled": lost1 + lost2 > 0}
+            if record["rescaled"]:
+                print(f"torch.profiler lost {lost1} and {lost2} GPU kernel records of "
+                      f"twice {iters} calls; each kernel's mean record is scaled by its "
+                      f"{l1} launches a call")
+            return (t1 + t2) / 2, record
+        print(f"torch.profiler lost {lost1} and {lost2} GPU kernel records of twice "
+              f"{iters} calls, or the kernels differ (attempt {attempt + 1}); taken again")
     raise RuntimeError("torch.profiler lost kernel records in every attempt")
 
 
@@ -440,10 +482,15 @@ def run_cli(module, *argv):
 def parse_table(text):
     """``{row: {metric: value}}`` from a CLI's printed performance table
     (a "--" cell is left out)."""
-    lines = [line for line in text.splitlines() if " | " in line]
-    header = [cell.strip() for cell in lines[0].split(" | ")][1:]
+    lines = text.splitlines()
+    # the table's header stands on the line above its rule of dashes (other
+    # lines may hold " | ", as a compiler's message does)
+    rule = max(i for i, line in enumerate(lines) if line and set(line) == {"-"})
+    header = [cell.strip() for cell in lines[rule - 1].split(" | ")][1:]
     rows = {}
-    for line in lines[1:]:
+    for line in lines[rule + 1:]:
+        if " | " not in line:
+            break
         cells = [cell.strip() for cell in line.split(" | ")]
         rows[cells[0]] = {m: float(v) for m, v in zip(header, cells[1:]) if v != "--"}
     return rows
@@ -2074,12 +2121,12 @@ def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
     outs = run_clis({
         "retrieval": ("evaluate_retrieval", [
             "--dataset", "cub", "--data_root", cub, "--hierarchy", taxonomy,
-            "--classes_from", classes_from, "--feat", feat_path, "--plot_max", "100",
-            "--device", device.type]),
+            "--classes_from", classes_from, "--feat", feat_path, "--device", device.type]),
+        # the default --decoder auto: the native decoder where it builds, else Pillow
         "classification": ("evaluate_classification_accuracy", [
             "--dataset", "cub", "--data_root", cub, "--hierarchy", taxonomy,
             "--classes_from", classes_from, "--model", model_path, "--layer", "l2norm", "--prob_features", "1",
-            "--batch_size", str(CUB_BATCH), "--decoder", decoder, "--device", device.type]),
+            "--batch_size", str(CUB_BATCH), "--device", device.type]),
         "classifier": ("learn_classifier", [
             "--dataset", "cub", "--data_root", sub_cub, "--architecture", CUB_ARCH,
             "--label_smoothing", "0.1", "--lr_schedule", "SGDR", "--sgdr_max_lr", "0.05",
@@ -2091,6 +2138,12 @@ def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
             "60", "--sgdr_mul", "3", "--sgdr_max_lr", "0.5", "--epochs", "1",
             "--max_decay", "0.1", *common_flags]),
     })
+    chosen = f"{'native' if plan == 'A' else 'Pillow'} decoder (--decoder auto)"
+    check(chosen in outs["classification"], f"--decoder auto did not choose: {chosen}")
+    check(plan == "A" or "native decoder unavailable (" in outs["classification"],
+          "--decoder auto fell back without the JAX package's message")
+    print(f"evaluate_classification_accuracy with the default --decoder auto: {chosen}")
+    out["decoder_auto"] = chosen
     retrieval = parse_table(outs["retrieval"])
     accuracy = parse_table(outs["classification"])
     for table in (retrieval, accuracy):
@@ -2154,6 +2207,313 @@ def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
     out["serving_jpeg_bitwise"] = same
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+# phase 15: checkpoint interop and the host-side CLIs.  15c's --finetune:
+# ResNet-50 @ 224, batch 32, 3 steps a phase, one validation batch, a
+# 50-d embedding (the source's top is 100-d, so it is skipped)
+FT_BATCH, FT_STEPS, FT_VAL, FT_EMBED = 32, 3, 1, 50
+
+
+def same_forward(model_a, model_b, images, reset_counts, read_counts):
+    """Eval forwards of two models on ``images``: whether every output is
+    bitwise equal, and the kernel launches of ``model_b``'s forward."""
+    import torch
+
+    with torch.inference_mode():
+        out_a = model_a(images)
+        reset_counts()
+        out_b = model_b(images)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    out_a = out_a if isinstance(out_a, tuple) else (out_a,)
+    out_b = out_b if isinstance(out_b, tuple) else (out_b,)
+    return all(torch.equal(a, b) for a, b in zip(out_a, out_b)), counts
+
+
+def same_weights(model_a, model_b):
+    """The names of the ``state_dict`` entries that differ (none: bitwise)."""
+    import torch
+
+    b = model_b.state_dict()
+    return [k for k, v in model_a.state_dict().items()
+            if k not in b or not torch.equal(v.cpu(), b[k].cpu())]
+
+
+def phase15(device, card, tmp, hierarchy, feat_path, slice1_dump, rn50_ckpt,
+            reset_counts, read_counts):
+    """Phase 15: checkpoint interop (the JAX package's model and weight
+    dumps, Keras h5 export and import) and the host-side CLIs, at full
+    width; see the module's docstring.  Returns the numbers for the JSON
+    line."""
+    import torch
+
+    from semantic_embeddings_torch.cli import (
+        common, compute_class_embedding, encode_hierarchy, export_keras_weights,
+        import_keras_weights, learn_image_embeddings, plot_recall_precision)
+    from semantic_embeddings_torch.embeddings import load_embeddings, save_embeddings
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy, semantic_distance_matrix
+    from semantic_embeddings_torch.train import state as tstate
+
+    out = {}
+    t_phase = time.perf_counter()
+
+    # -- 15a. what the card's host has ------------------------------------
+    phase("15a probe: h5py, matplotlib, tensorboard on this host")
+    probe = {}
+    for name in ("h5py", "matplotlib", "tensorboard"):
+        try:
+            probe[name] = __import__(name).__version__
+        except ImportError:
+            probe[name] = None
+        print(f"probe {name}: {probe[name] or 'not importable'}")
+    out["probe"] = probe
+
+    # -- 15b. a JAX model dump of phase 8's ResNet-50 ---------------------
+    phase("15b phase 8's resnet-50 as a JAX package model dump: read, rebuilt, "
+          "evaluate_classification_accuracy")
+    source, meta = common.rebuild_model_from_checkpoint(rn50_ckpt, device)
+    state = tstate.new_train_state(source)
+    tstate.load_checkpoint(rn50_ckpt, state)  # the velocity and counters too
+    jax_dump = os.path.join(tmp, "resnet50_jax.ckpt")
+    t0 = time.perf_counter()
+    tstate.save_jax_checkpoint(jax_dump, state, meta)
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(jax_dump) / 1e6
+    t0 = time.perf_counter()
+    tree, jax_meta = tstate.read_jax_checkpoint(jax_dump)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rebuilt, _ = common.rebuild_model_from_checkpoint(jax_dump, device)
+    rebuild_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in rebuilt.parameters())
+    print(f"JAX model dump of {n_params:,} parameters: {mb:.1f} MB written in {write_s:.3f} s; "
+          f"read (pickle + msgpack) in {read_s:.4f} s, {mb / read_s:.0f} MB/s; rebuilt on the "
+          f"card in {rebuild_s:.2f} s")
+    check(jax_meta == meta, (jax_meta, meta))
+    check(tstate.checkpoint_format(jax_dump) == "jax_checkpoint", "format")
+    check(not same_weights(source, rebuilt), same_weights(source, rebuilt))
+    images = torch.randn(64, SERVE_SIZE, SERVE_SIZE, 3,
+                         generator=torch.Generator().manual_seed(15)).to(device)
+    equal, counts = same_forward(source, rebuilt, images, reset_counts, read_counts)
+    check(equal and counts["conv3x3_bn_stats"] == RN50_CONVS, (equal, counts))
+    print(f"eval forward of the rebuilt JAX dump at batch 64: bitwise equal to the source "
+          f"checkpoint's; launches {counts}")
+    del tree, state, rebuilt
+    name = f"synthetic-100-{RN50_TRAIN}-{RN50_TEST}-{SERVE_SIZE}"
+    argv = ["--dataset", name, "--data_root", tmp, "--layer", "prob", "--prob_features", "1",
+            "--batch_size", str(RN50_BATCH), "--device", device.type]
+    outs = run_clis({
+        "jax_dump": ("evaluate_classification_accuracy", argv + ["--model", jax_dump]),
+        "port_checkpoint": ("evaluate_classification_accuracy", argv + ["--model", rn50_ckpt])})
+    tables = {k: list(parse_table(v).values()) for k, v in outs.items()}  # rows: file stems
+    check(tables["jax_dump"] == tables["port_checkpoint"], tables)
+    out["jax_checkpoint"] = {
+        "mb": mb, "write_s": write_s, "read_s": read_s, "read_mb_per_s": mb / read_s,
+        "rebuild_s": rebuild_s, "launches": counts, "forward_bitwise": equal,
+        "evaluate_classification_accuracy": tables["jax_dump"][0]}
+
+    # -- 15c. --finetune from a JAX weight dump ---------------------------
+    phase(f"15c learn_image_embeddings --finetune <JAX weight dump>: resnet-50 @ 224, "
+          f"batch {FT_BATCH}, --finetune_init 1, {FT_STEPS} steps a phase")
+    weights = os.path.join(tmp, "resnet50_jax.msgpack")
+    tstate.save_jax_weights(weights, source)
+    check(tstate.checkpoint_format(weights) == "jax_weights", "format")
+    emb50 = os.path.join(tmp, "embedding50.pickle")
+    e = np.random.default_rng(15).normal(size=(100, FT_EMBED))
+    save_embeddings(emb50, list(range(100)), e / np.linalg.norm(e, axis=1, keepdims=True))
+    from semantic_embeddings_torch import train as T
+
+    record, load, finetune = {}, T.load_weights_by_name, common.finetune
+
+    def load_checked(path, model):
+        before = {n: b.clone() for n, b in model.named_buffers()}
+        loaded, skipped = load(path, model)
+        record.update(loaded=loaded, skipped=skipped, statistics_kept=all(
+            torch.equal(b, before[n]) for n, b in model.named_buffers()))
+        return loaded, skipped
+
+    def finetune_counted(args, state, warm_step, eval_step, dataset):
+        reset_counts()
+        t0 = time.perf_counter()
+        state = finetune(args, state, warm_step, eval_step, dataset)
+        torch.cuda.synchronize()
+        record["phase1_s"] = time.perf_counter() - t0
+        record["phase1"] = read_counts()
+        reset_counts()
+        record["t_phase2"] = time.perf_counter()
+        return state
+
+    T.load_weights_by_name, common.finetune = load_checked, finetune_counted
+    log_dir = os.path.join(tmp, "finetune_logs")
+    tee = _Tee(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(tee):
+            state = learn_image_embeddings.main([
+                "--dataset", f"synthetic-100-{FT_STEPS * FT_BATCH}-{FT_VAL * FT_BATCH}-{SERVE_SIZE}",
+                "--data_root", tmp, "--embedding", emb50, "--architecture", "resnet-50",
+                "--loss", "inv_corr", "--cls_weight", "0.1", "--fused_loss",
+                "--lr_schedule", "SGDR", "--sgdr_max_lr", "0.05", "--batch_size",
+                str(FT_BATCH), "--epochs", "1", "--finetune", weights, "--finetune_init", "1",
+                "--log_dir", log_dir, "--device", device.type])
+    finally:
+        T.load_weights_by_name, common.finetune = load, finetune
+    torch.cuda.synchronize()
+    phase2_s = time.perf_counter() - record["t_phase2"]
+    phase2 = read_counts()
+    finite_losses("learn_image_embeddings --finetune <JAX weight dump>", tee.buf.getvalue())
+    sd = state.model.state_dict()
+    params = {n for n, _ in state.model.named_parameters()}
+    backbone = sorted(n for n in params
+                      if n.startswith("backbone.") and not n.startswith("backbone.top."))
+    # every backbone parameter but the 50-d top; of the heads only the
+    # 100-way cls_top's bias has the source's shape (the JAX rule: path and shape)
+    want_loaded = sorted(backbone + ["cls_top.bias"])
+    printed = re.search(r"Loaded (\d+) of (\d+) tensors by name", tee.buf.getvalue())
+    check(printed and int(printed.group(1)) == len(want_loaded)
+          and int(printed.group(2)) == len(sd), (printed and printed.groups(), len(backbone)))
+    check(sorted(record["loaded"]) == want_loaded,
+          sorted(set(want_loaded) ^ set(record["loaded"])))
+    check(record["statistics_kept"], "the JAX weight dump moved BN running statistics")
+    check({"backbone/top/kernel", "backbone/top/bias", "cls_top/kernel"}
+          <= set(record["skipped"]), record["skipped"][:8])
+    want1 = {"cosine_loss_fwd": FT_STEPS, "cosine_loss_bwd": FT_STEPS,
+             "conv3x3_bn_stats": RN50_CONVS * (FT_STEPS + FT_VAL), "conv3x3_filter_grad": 0}
+    want2 = {"cosine_loss_fwd": FT_STEPS, "cosine_loss_bwd": FT_STEPS,
+             "conv3x3_bn_stats": RN50_CONVS * (FT_STEPS + 2 * FT_VAL),
+             "conv3x3_filter_grad": RN50_CONVS * FT_STEPS}
+    check(record["phase1"] == want1 and phase2 == want2, (record["phase1"], phase2))
+    print(f"--finetune from the JAX weight dump: loaded {len(backbone)} backbone parameters "
+          f"of {len(sd)} entries, BN running statistics kept their initial values, skipped "
+          f"{[k for k in record['skipped'] if '/' in k]}; phase 1 {record['phase1_s']:.2f} s, "
+          f"launches {record['phase1']}; phase 2 {phase2_s:.2f} s, launches {phase2} "
+          f"({FT_STEPS} steps + validation a phase, f32, batch {FT_BATCH}) [{card}]")
+    # --log_dir: metrics.jsonl, and TensorBoard events where tensorboard imports
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    events = [n for n in os.listdir(log_dir) if n.startswith("events.out.tfevents")]
+    check(len(logged) == 1 and math.isfinite(logged[0]["loss"]), logged)
+    check(bool(events) == (probe["tensorboard"] is not None), events)
+    print(f"--log_dir: {len(logged)} epoch in metrics.jsonl, TensorBoard event files {events}")
+    out["finetune_jax"] = {"loaded": len(backbone), "entries": len(sd),
+                           "skipped": record["skipped"], "phase1": record["phase1"],
+                           "phase2": phase2, "phase1_s": record["phase1_s"],
+                           "phase2_s": phase2_s}
+    del state
+    torch.cuda.empty_cache()
+
+    # -- 15d. Keras h5: export, then import -------------------------------
+    have_h5 = probe["h5py"] is not None
+    phase("15d export_keras_weights -> import_keras_weights: resnet-50 (phase 8) and "
+          "resnet-110-wfc (phase 5), " + ("through h5 files and both CLIs" if have_h5 else
+                                          "h5py missing: export_layers -> map_layers"))
+    out["keras"] = {"through_h5": have_h5}
+    for arch, ckpt in (("resnet-50", rn50_ckpt), ("resnet-110-wfc", slice1_dump)):
+        model, meta = common.rebuild_model_from_checkpoint(ckpt, device)
+        cls_classes = meta.get("cls_classes", 0)
+        t0 = time.perf_counter()
+        if have_h5:
+            h5 = os.path.join(tmp, f"{arch}.h5")
+            export_keras_weights.main(["--model", ckpt, "--out", h5])
+            export_s = time.perf_counter() - t0
+            imported_path = os.path.join(tmp, f"{arch}_imported.pt")
+            t0 = time.perf_counter()
+            import_keras_weights.main([
+                "--h5", h5, "--architecture", arch, "--embed_dim", str(meta["embed_dim"]),
+                "--cls_classes", str(cls_classes), "--out", imported_path,
+                "--device", device.type])
+            imported, _ = common.rebuild_model_from_checkpoint(imported_path, device)
+        else:
+            from semantic_embeddings_torch import convert
+
+            layers = export_keras_weights.export_layers(
+                convert.state_dict_to_flax(model), arch, cls_classes)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            imported, _, skipped = import_keras_weights.import_layers(
+                {name: arrays for name, _, arrays in layers}, arch, meta["embed_dim"],
+                cls_classes=cls_classes, device=device)
+            check(not skipped, skipped)
+            imported.eval()
+        import_s = time.perf_counter() - t0
+        differ = same_weights(model, imported)
+        size = SERVE_SIZE if arch == "resnet-50" else 32
+        images = torch.randn(32, size, size, 3,
+                             generator=torch.Generator().manual_seed(16)).to(device)
+        equal, counts = same_forward(model, imported, images, reset_counts, read_counts)
+        check(not differ and equal, (arch, differ[:5], equal))
+        if arch == "resnet-50":
+            check(counts["conv3x3_bn_stats"] == RN50_CONVS, counts)
+        print(f"{arch}: exported in {export_s:.2f} s, imported in {import_s:.2f} s; every "
+              f"tensor and the eval forward at batch 32 bitwise equal to the source; "
+              f"launches {counts} [{card}]")
+        out["keras"][arch] = {"export_s": export_s, "import_s": import_s, "launches": counts,
+                              "weights_bitwise": not differ, "forward_bitwise": equal}
+        del model, imported
+    torch.cuda.empty_cache()
+
+    # -- 15e. compute_class_embedding --device ------------------------------
+    phase("15e compute_class_embedding --device (float64 on the card) vs the host")
+    labels = list(range(100))
+    target = 1.0 - semantic_distance_matrix(ClassHierarchy.from_file(hierarchy, id_type=int),
+                                            labels)
+    out["class_embedding"] = {}
+    for method in ("unitsphere", "approx_sim"):
+        products = {}
+        # the card is the default, and a bare --device (the JAX package's flag)
+        # means it too; --device cpu runs host LAPACK
+        for where, extra in (("card", ["--device"]), ("host", ["--device", "cpu"])):
+            path = os.path.join(tmp, f"emb_{method}_{where}.pickle")
+            t0 = time.perf_counter()
+            compute_class_embedding.main(["--hierarchy", hierarchy, "--out", path,
+                                          "--method", method, *extra])
+            seconds = time.perf_counter() - t0
+            got_labels, emb = load_embeddings(path)
+            check(got_labels == labels, "labels")
+            products[where] = (emb @ emb.T, seconds)
+        err = float(np.abs(products["card"][0] - target).max())
+        err_host = float(np.abs(products["card"][0] - products["host"][0]).max())
+        check(err <= 1e-10 and err_host <= 1e-10, (method, err, err_host))
+        print(f"{method} --device: max |E E^T - S| {err:.3g}, vs the host's E E^T "
+              f"{err_host:.3g}; card {products['card'][1]:.2f} s, host "
+              f"{products['host'][1]:.2f} s (the CLI, 100 classes)")
+        out["class_embedding"][method] = {"vs_target": err, "vs_host": err_host}
+
+    # -- 15f. plot_recall_precision, encode_hierarchy -------------------------
+    phase("15f plot_recall_precision on phase 5's feature dump (ranking on the card); "
+          "encode_hierarchy")
+    if probe["matplotlib"] is not None:
+        png = os.path.join(tmp, "recall_precision.png")
+        t0 = time.perf_counter()
+        curves = plot_recall_precision.main([
+            "--dataset", DATASET, "--data_root", tmp, "--feat", feat_path, "--bins", "20",
+            "--out", png, "--device", device.type])
+        (levels, precisions, mean_ap), = curves.values()
+        check(0.0 <= mean_ap <= 1.0 and 1 <= len(levels) <= 21 and os.path.getsize(png) > 0,
+              (mean_ap, len(levels)))
+        print(f"plot_recall_precision: mAP {mean_ap:.6f} over {len(levels)} recall levels in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out["plot_recall_precision_map"] = mean_ap
+    else:
+        print("matplotlib is not importable on this host: plot_recall_precision not run "
+              "(the CPU tests hold it to the JAX CLI)")
+    tree = os.path.join(tmp, "taxonomy_tree.txt")
+    rng = np.random.default_rng(17)
+    lines = ["root"]
+    for g in range(20):
+        lines.append(f"-- group{g}")
+        lines += [f"---- leaf{g}_{c}" for c in range(int(rng.integers(2, 7)))]
+    with open(tree, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    edges = os.path.join(tmp, "taxonomy_tree.parent-child.txt")
+    encode_hierarchy.main([tree, "--out", edges, "--one_based"])
+    encoded = ClassHierarchy.from_file(edges, id_type=int)
+    check(len(encoded.leaves()) == len(lines) - 21 and len(encoded.nodes) == len(lines),
+          (len(encoded.leaves()), len(encoded.nodes)))
+    out["encode_hierarchy_nodes"] = len(encoded.nodes)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15 took {out['seconds']:.1f} s")
     return out
 
 
@@ -2253,7 +2613,7 @@ def main(argv=None):
     # Per call, CUDA events around it (what a caller waits: at this size
     # the device mostly waits for the host's launch), and the device time
     # of its kernels alone (torch.profiler).
-    times, dev_times, cos_bound = {}, {}, {}
+    times, dev_times, dev_records, cos_bound = {}, {}, {}, {}
     for dtype, (z, t, g) in path_inputs.items():
         name = str(dtype)[6:]
         # each input read once, each output written once; ~4 operations an
@@ -2270,8 +2630,10 @@ def main(argv=None):
         }
         for part, (kernel, plain) in calls.items():
             times[part, dtype] = (time_ms(kernel), time_ms(plain))
-            dev_times[part, dtype] = (device_ms(kernel), device_ms(plain))
-            (k, p), (kd, pd) = times[part, dtype], dev_times[part, dtype]
+            (kd, kr), (pd, pr) = device_ms(kernel), device_ms(plain)
+            dev_times[part, dtype] = (kd, pd)
+            dev_records[part, dtype] = {"kernel": kr, "plain": pr}
+            k, p = times[part, dtype]
             print(f"time (100, 100) {name} {part}: per call kernel {k * 1e3:.2f} us, "
                   f"plain {p * 1e3:.2f} us; device time kernel {kd * 1e3:.2f} us, "
                   f"plain {pd * 1e3:.2f} us" + (
@@ -2296,9 +2658,9 @@ def main(argv=None):
         "bwd": lambda: torch.autograd.grad(torch.nn.functional.cosine_embedding_loss(
             zg, t, ones, reduction="none"), zg, g),
     }
-    lib_times = {part: (time_ms(fn), device_ms(fn)) for part, fn in library.items()}
-    floor = (time_ms(lambda: torch.cuda._sleep(0)), device_ms(lambda: torch.cuda._sleep(0)))
-    for part, (ms, dev) in lib_times.items():
+    lib_times = {part: (time_ms(fn), *device_ms(fn)) for part, fn in library.items()}
+    floor = (time_ms(lambda: torch.cuda._sleep(0)), *device_ms(lambda: torch.cuda._sleep(0)))
+    for part, (ms, dev, _) in lib_times.items():
         print(f"library (100, 100) f32 {part}: cosine_embedding_loss"
               + (" forward + backward" if part == "bwd" else "")
               + f" per call {ms * 1e3:.2f} us, device time {dev * 1e3:.2f} us  [{card}]")
@@ -2354,7 +2716,8 @@ def main(argv=None):
             for kernel_name, (kernel, plain, library, nbytes) in calls.items():
                 ms, plain_ms = time_ms(kernel, 20, 3), time_ms(plain, 20, 3)
                 lib_ms = time_ms(library, 20, 3) if library else None
-                dev, plain_dev = device_ms(kernel, 5), device_ms(plain, 5)
+                (dev, dev_record), (plain_dev, plain_record) = (device_ms(kernel, 5),
+                                                                device_ms(plain, 5))
                 # f32: the least time for f32-exact products is 3xTF32 on
                 # the tensor cores; the f32 FMA units' time stands beside it
                 bound_ms, bound_by = bound(flop, nbytes, "3xtf32" if dtype == f32 else name)
@@ -2362,6 +2725,7 @@ def main(argv=None):
                 conv_times[kernel_name, case, dtype] = {
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "device_ms": dev, "plain_device_ms": plain_dev,
+                    "device_ms_records": {"kernel": dev_record, "plain": plain_record},
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "fma_bound_ms": fma_ms, "share_of_bound": bound_ms / ms,
                     "instance": instances[f"{kernel_name} {name}"]}
@@ -2743,6 +3107,20 @@ def main(argv=None):
         m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
     cub_launches = p14["recipe"]["launches"]
 
+    # -- 15. checkpoint interop, the host-side CLIs ----------------------
+    p15 = phase15(device, card, tmp, hierarchy, feat_path, model_path, rn50_ckpt,
+                  reset_counts, read_counts)
+    check("jax" not in sys.modules and not any(
+        m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
+    interop = {
+        # 15b: the eval forward of phase 8's ResNet-50 rebuilt from a JAX model dump
+        "launches_jax_checkpoint": p15["jax_checkpoint"]["launches"],
+        # 15c: --finetune from a JAX weight dump, by phase
+        "launches_finetune_jax": {ph: p15["finetune_jax"][ph] for ph in ("phase1", "phase2")},
+        # 15d: the eval forward of the ResNet-50 imported from Keras h5
+        "launches_keras_import": p15["keras"]["resnet-50"]["launches"],
+    }
+
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
     for part, line in (("fwd", 40), ("bwd", 48)):
@@ -2760,6 +3138,9 @@ def main(argv=None):
                                   for ph, c in finetune_launches.items()},
             # phase 14d: the CUB recipe at 448 px, its own process
             "launches_cub_recipe": cub_launches[f"cosine_loss_{part}"],
+            **{key: ({ph: c[f"cosine_loss_{part}"] for ph, c in value.items()}
+                     if key == "launches_finetune_jax" else value[f"cosine_loss_{part}"])
+               for key, value in interop.items()},
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -2771,6 +3152,11 @@ def main(argv=None):
             "launch_floor_ms": floor[0], "launch_floor_device_ms": floor[1],
             "device_ms": dev_times[part, f32][0],
             "plain_device_ms": dev_times[part, f32][1],
+            # per device_ms reading: the profiler records lost in its two
+            # windows, and whether its mean records were rescaled for them
+            "device_ms_records": {**dev_records[part, f32],
+                                  "library": lib_times[part][2],
+                                  "launch_floor": floor[2]},
             "ms_bf16": times[part, bf16][0], "plain_ms_bf16": times[part, bf16][1],
             "bound_ms_bf16": cos_bound[part, bf16][0],
         })
@@ -2809,6 +3195,9 @@ def main(argv=None):
             "launches_finetune": {ph: c[name] for ph, c in finetune_launches.items()},
             # phase 14d: the CUB recipe at 448 px (batch 24), its own process
             "launches_cub_recipe": cub_launches[name],
+            **{key: ({ph: c[name] for ph, c in value.items()}
+                     if key == "launches_finetune_jax" else value[name])
+               for key, value in interop.items()},
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -2816,6 +3205,7 @@ def main(argv=None):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
+            "device_ms_records": t["device_ms_records"],
             "shape": "stage1 (128, 56, 56, 64, 64) f32",
             "fma_bound_ms": t["fma_bound_ms"],
             "instance": t["instance"], "instance_bf16": t16["instance"],
@@ -2829,7 +3219,7 @@ def main(argv=None):
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
                       "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13,
-                      "phase14": p14}))
+                      "phase14": p14, "phase15": p15}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

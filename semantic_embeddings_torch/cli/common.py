@@ -66,11 +66,32 @@ def add_common_train_arguments(group):
                        help="Spatial partitioning factor (not ported yet).")
 
 
+DECODERS = ("auto", "native", "pillow")
+
+
 def add_decoder_argument(group):
-    group.add_argument("--decoder", choices=("native", "pillow"), default="native",
+    group.add_argument("--decoder", choices=DECODERS, default="auto",
                        help="JPEG decoder of the file datasets: the native "
                             "C++ decoder (built with g++ against libjpeg at "
-                            "first use; a failed build is an error) or Pillow.")
+                            "first use; with 'native' a failed build is an "
+                            "error), Pillow, or 'auto': the native decoder "
+                            "where it builds and loads, else Pillow.")
+
+
+def resolve_decoder(decoder):
+    """``'native'`` or ``'pillow'`` for a ``--decoder`` choice.  ``auto``
+    builds and loads the native decoder; where that fails it prints the
+    JAX package's message and takes Pillow, as the JAX loader does."""
+    if decoder != "auto":
+        return decoder
+    from .. import native
+
+    try:
+        native.loader()
+    except RuntimeError as e:
+        print(f"native decoder unavailable ({e}); using PIL fallback")
+        return "pillow"
+    return "native"
 
 
 def apply_pipeline_args(dataset, args):
@@ -80,10 +101,11 @@ def apply_pipeline_args(dataset, args):
     if hasattr(dataset, "read_workers"):
         dataset.read_workers = getattr(args, "read_workers", dataset.read_workers)
         dataset.queue_size = getattr(args, "queue_size", dataset.queue_size)
-        dataset.use_native = getattr(args, "decoder", "native") == "native"
+        decoder = getattr(args, "decoder", "auto")
+        dataset.use_native = resolve_decoder(decoder) == "native"
         print(f"file pipeline: {dataset.read_workers} read workers, a queue of "
               f"{dataset.queue_size} batches, "
-              f"{'native' if dataset.use_native else 'Pillow'} decoder")
+              f"{'native' if dataset.use_native else 'Pillow'} decoder (--decoder {decoder})")
     return dataset
 
 
@@ -237,8 +259,8 @@ def read_class_list(path):
 def add_finetune_arguments(group, init_epochs):
     group.add_argument("--finetune", type=str, default=None,
                        help="Path to pre-trained weights to be fine-tuned (a "
-                            "model, snapshot or weight dump of the port; "
-                            "tensors load by name).")
+                            "model, snapshot or weight dump of the port or of the "
+                            "JAX package; tensors load by name).")
     group.add_argument("--finetune_init", type=int, default=init_epochs,
                        help="Number of initial epochs for training just the "
                             "new layers before fine-tuning.")
@@ -331,22 +353,90 @@ def extract_by_tap(model, prepare, batches, device, layer=None, train_branch=Fal
 
 
 def load_checkpoint_raw(path):
-    """(state_dict, metadata) of a ``--model_dump``/``--snapshot`` file, or
-    of a ``--weight_dump`` (a bare ``state_dict``, no metadata)."""
+    """``(weights, metadata)`` of a checkpoint: a ``state_dict`` and the
+    metadata.  A file of the port (a ``--model_dump`` / ``--snapshot``, or
+    a ``--weight_dump``: a bare ``state_dict`` with no metadata) gives its
+    own; a JAX package model dump or snapshot gives its Flax variables under
+    the port's names and layouts (``convert.flax_tree_to_state_dict``) and
+    its metadata as the JAX package wrote it."""
+    from .. import convert
+    from ..train.state import checkpoint_format, read_jax_checkpoint
+
+    fmt = checkpoint_format(path)
+    if fmt == "jax_checkpoint":
+        state, meta = read_jax_checkpoint(path)
+        return convert.flax_tree_to_state_dict(
+            {"params": state.get("params", {}),
+             "batch_stats": state.get("batch_stats", {})}), meta
+    if fmt == "jax_weights":
+        raise ValueError(f"{path} is a JAX package weight dump (params only, no BatchNorm "
+                         "statistics or metadata); rebuild a model from its model dump, or "
+                         "load the weights by name (--finetune, --init_weights)")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if "model" in payload and isinstance(payload["model"], dict):
         return payload["model"], payload.get("metadata", {})
     return payload, {}
 
 
-def _input_channels(state_dict):
-    """The image channels a checkpoint's model takes: those of its first conv
-    weight (the network's stem: every model registers its network first),
-    whatever the family names it."""
-    for value in state_dict.values():
+def _input_channels(state_dict, build):
+    """The image channels a checkpoint's model takes: those of its stem's
+    weight, the first conv weight of the model ``build(3)`` makes on the
+    meta device (every model registers its network first, and its stem
+    first in it), whatever the family names it.  The checkpoint's own order
+    does not tell: a JAX package tree comes back with sorted names."""
+    with torch.device("meta"):
+        probe = build(3)
+    for key, value in probe.state_dict().items():
         if value.ndim == 4:
-            return int(value.shape[1])
+            return int(state_dict[key].shape[1])
     raise ValueError("Checkpoint has no conv weight in its network")
+
+
+def _build_from_metadata(weights, meta, arch, path, channels):
+    """The model a checkpoint's weights and metadata describe, built with
+    ``channels`` input channels (weights not loaded yet)."""
+    from ..models import CenterLossModel, LabelEmbedModel
+    from ..train.state import has_backbone
+
+    generator = torch.Generator().manual_seed(0)  # any init: the dump overwrites it
+
+    def width(name):
+        """Output width of a dense layer, or None where it is absent."""
+        value = weights.get(name)
+        return None if value is None else int(value.shape[0])
+
+    if not has_backbone(weights):  # a classifier: the bare network
+        top = width("top.weight")
+        if top is None:
+            raise ValueError(f"Cannot infer the classifier output width of {path}")
+        return build_network(top, arch, classification=True, input_channels=channels,
+                             generator=generator).module
+    embed_dim = meta.get("embed_dim")
+    if embed_dim is None:
+        embed_dim = width("backbone.top.weight") or 0
+    learner = meta.get("learner")
+    if learner is not None:
+        backbone = build_network(embed_dim, arch, input_channels=channels,
+                                 generator=generator).module
+        classes = width("prob_head.weight")
+        if learner == "labelembed":
+            return LabelEmbedModel(backbone, classes, generator)
+        if learner == "center_loss":
+            return CenterLossModel(backbone, classes, embed_dim, generator=generator)
+        raise ValueError(f"Checkpoint {path} names an unknown learner {learner!r}")
+    if "loss" not in meta:
+        import warnings
+
+        warnings.warn(
+            f"Checkpoint {path} lacks 'loss' metadata; assuming 'inv_corr' "
+            "(l2norm output).", RuntimeWarning)
+    cls_classes = meta.get("cls_classes", 0)
+    if not cls_classes:
+        cls_classes = width("cls_top.weight") or 0
+    model, _ = build_embedding_model(
+        embed_dim, arch, meta.get("loss", "inv_corr"), cls_classes,
+        input_channels=channels, cls_base=meta.get("cls_base"))
+    return model
 
 
 def rebuild_model_from_checkpoint(path, device, architecture=None):
@@ -355,63 +445,31 @@ def rebuild_model_from_checkpoint(path, device, architecture=None):
     classification head and its ``cls_base`` that the trainer records), a
     baseline learner's model (``learner`` in the metadata), or a classifier
     (a bare network with a softmax ``top``, whose width gives the classes).
-    bf16 is the caller's ``torch.autocast``; the weights stay f32.  Returns
-    ``(model, metadata)``.
+    A JAX package model dump rebuilds the same way from its metadata as the
+    JAX package wrote it.  bf16 is the caller's ``torch.autocast``; the
+    weights stay f32.  Returns ``(model, metadata)``.
     """
-    from ..models import CenterLossModel, LabelEmbedModel
-    from ..train.state import has_backbone
-
-    state_dict, meta = load_checkpoint_raw(path)
+    weights, meta = load_checkpoint_raw(path)
     arch = meta.get("architecture") or architecture
     if arch is None:
         raise ValueError(f"Checkpoint {path} has no architecture metadata; pass "
                          "--architecture.")
-    channels = _input_channels(state_dict)
-    generator = torch.Generator().manual_seed(0)  # any init: the dump overwrites it
-    if not has_backbone(state_dict):  # a classifier: the bare network
-        top = state_dict.get("top.weight")
-        if top is None:
-            raise ValueError(f"Cannot infer the classifier output width of {path}")
-        model = build_network(int(top.shape[0]), arch, classification=True,
-                              input_channels=channels, generator=generator).module
-        model.load_state_dict(state_dict, strict=True)
-        return model.to(device).eval(), meta
-    embed_dim = meta.get("embed_dim")
-    if embed_dim is None:
-        top = state_dict.get("backbone.top.weight")
-        embed_dim = int(top.shape[0]) if top is not None else 0
-    learner = meta.get("learner")
-    if learner is not None:
-        backbone = build_network(embed_dim, arch, input_channels=channels,
-                                 generator=generator).module
-        classes = int(state_dict["prob_head.weight"].shape[0])
-        if learner == "labelembed":
-            model = LabelEmbedModel(backbone, classes, generator)
-        elif learner == "center_loss":
-            model = CenterLossModel(backbone, classes, embed_dim, generator=generator)
-        else:
-            raise ValueError(f"Checkpoint {path} names an unknown learner {learner!r}")
-        model.load_state_dict(state_dict, strict=True)
-        return model.to(device).eval(), meta
-    if "loss" not in meta:
-        import warnings
 
-        warnings.warn(
-            f"Checkpoint {path} lacks 'loss' metadata; assuming 'inv_corr' "
-            "(l2norm output).", RuntimeWarning)
-    cls_classes = meta.get("cls_classes", 0)
-    if not cls_classes and "cls_top.weight" in state_dict:
-        cls_classes = int(state_dict["cls_top.weight"].shape[0])
-    model, _ = build_embedding_model(
-        embed_dim, arch, meta.get("loss", "inv_corr"), cls_classes,
-        input_channels=channels, cls_base=meta.get("cls_base"))
-    model.load_state_dict(state_dict, strict=True)
+    def build(channels):
+        return _build_from_metadata(weights, meta, arch, path, channels)
+
+    model = build(_input_channels(weights, build))
+    model.load_state_dict(weights, strict=True)
     return model.to(device).eval(), meta
 
 
 class MetricsLogger:
     """Per-epoch metrics log for ``--log_dir``: ``metrics.jsonl``, one JSON
-    object per epoch.  The directory is recreated at start."""
+    object per epoch, and TensorBoard scalar events (``epoch_<metric>`` at
+    step ``epoch``, the reference's ``keras.callbacks.TensorBoard`` tags)
+    through ``torch.utils.tensorboard`` where the ``tensorboard`` package
+    imports; without it the JSONL alone, as the JAX package's logger falls
+    back.  The directory is recreated at start."""
 
     def __init__(self, log_dir):
         import shutil
@@ -420,8 +478,18 @@ class MetricsLogger:
             shutil.rmtree(log_dir, ignore_errors=True)
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
+        self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:  # no tensorboard package: JSONL only
+            return
+        self._tb = SummaryWriter(log_dir)
 
     def __call__(self, epoch, metrics):
         vals = {k: float(v) for k, v in metrics.items()}
         with open(self.path, "a") as f:
             f.write(json.dumps({"epoch": epoch, **vals}) + "\n")
+        if self._tb is not None:
+            for k, v in vals.items():
+                self._tb.add_scalar(f"epoch_{k}", v, epoch)
+            self._tb.flush()

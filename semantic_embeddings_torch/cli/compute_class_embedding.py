@@ -1,16 +1,19 @@
 """CLI: compute semantic class embeddings from a taxonomy.
 
 The port's own copy of ``semantic_embeddings_tpu/cli/compute_class_embedding.py``
-(host numpy; the JAX CLI's ``--device`` option is left out).  Flag-compatible
-with the original ``compute_class_embedding.py:176-250``:
+(host numpy, but for the Cholesky or the eigendecomposition, which run in
+float64 on the CUDA device through ``torch.linalg`` unless ``--device cpu``
+is given).  Flag-compatible with the original
+``compute_class_embedding.py:176-250``:
 
     python -m semantic_embeddings_torch.cli.compute_class_embedding \
         --hierarchy H --out E.pickle [--is_a] [--str_ids] [--class_list F] \
-        [--method unitsphere|approx_sim|spheres|mds] [--num_dim D] [--norm]
+        [--method unitsphere|approx_sim|spheres|mds] [--num_dim D] [--norm] \
+        [--device [cuda|cpu]]
 
 The similarity matrix is assembled with the vectorized grouped-GEMM path and
 the unit-sphere placement is one Cholesky factorization instead of n
-sequential triangular solves.
+sequential triangular solves (on the card unless ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..embeddings import (
     unitsphere_embedding,
 )
 from ..hierarchy import ClassHierarchy, semantic_distance_matrix
+from .common import resolve_device
 
 METHODS = ["unitsphere", "approx_sim", "spheres", "mds"]
 
@@ -79,6 +83,13 @@ def build_parser():
         help="Force L2-normalization of computed embeddings "
              "(most useful in combination with the approx_sim method).",
     )
+    parser.add_argument(
+        "--device", nargs="?", const="cuda", default="cuda",
+        help="Where the heavy linear algebra (unitsphere's Cholesky, approx_sim's "
+             "eigendecomposition) runs in float64: a CUDA device (the default; a bare "
+             "--device, the JAX package's flag, means cuda too), or cpu for host "
+             "LAPACK. Without a GPU, cuda is an error.",
+    )
     return parser
 
 
@@ -101,6 +112,9 @@ def target_classes(hierarchy, class_list_path, id_type):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    # None: host LAPACK through numpy
+    linalg_device = device if device.type == "cuda" else None
     id_type = str if args.str_ids else int
 
     hierarchy = ClassHierarchy.from_file(
@@ -118,9 +132,9 @@ def main(argv=None):
             sem_class_dist, args.num_dim if args.num_dim else len(labels) - 1
         )
     elif args.method == "unitsphere":
-        embedding = unitsphere_embedding(1.0 - sem_class_dist)
+        embedding = unitsphere_embedding(1.0 - sem_class_dist, device=linalg_device)
     elif args.method == "approx_sim":
-        embedding = sim_approx(1.0 - sem_class_dist, args.num_dim)
+        embedding = sim_approx(1.0 - sem_class_dist, args.num_dim, device=linalg_device)
     else:
         raise ValueError(f"Unknown method: {args.method}")
     elapsed = time.time() - start

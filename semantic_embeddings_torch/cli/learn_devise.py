@@ -47,8 +47,8 @@ def build_parser():
                        choices=ARCHITECTURES)
     group.add_argument("--init_weights", type=str, default=None,
                        help="Path to a weights file (a model, snapshot or "
-                            "weight dump of the port) to initialize the model "
-                            "with; tensors load by name.")
+                            "weight dump of the port or of the JAX package) to "
+                            "initialize the model with; tensors load by name.")
     group.add_argument("--init_epochs", type=int, default=25,
                        help="Epochs for the linear transformation layer only.")
     group.add_argument("--ft_epochs", type=int, default=75,

@@ -33,6 +33,8 @@ import torch
 
 
 def build_parser():
+    from . import common
+
     parser = argparse.ArgumentParser(
         description="Serves a trained model over HTTP with dynamic "
                     "micro-batching.",
@@ -97,10 +99,11 @@ def build_parser():
     prep.add_argument("--target_size", type=int, default=None,
                       help="Shorter-side resize target for JPEG requests "
                            "before the center crop (default: crop size).")
-    prep.add_argument("--decoder", choices=("native", "pillow"), default="native",
+    prep.add_argument("--decoder", choices=common.DECODERS, default="auto",
                       help="JPEG decoder of request bodies: the native C++ decoder "
-                           "(built with g++ against libjpeg at first use; a failed "
-                           "build is an error) or Pillow.")
+                           "(built with g++ against libjpeg at first use; with "
+                           "'native' a failed build is an error), Pillow, or 'auto': "
+                           "the native decoder where it builds and loads, else Pillow.")
     prep.add_argument("--device_preproc", action="store_true", default=False,
                       help="Transfer uint8 pixels and run the mean/std "
                            "normalization on the device: a quarter of the "
@@ -241,11 +244,12 @@ def make_server(args):
             return forward(to_device(batch, device))
 
         engine_dtype = np.float32
+    decoder = common.resolve_decoder(args.decoder)
     preproc = Preprocessor(meta["input_size"], args.input_channels, mean=mean, std=std,
                            target_size=args.target_size, device_norm=args.device_preproc,
-                           decoder=args.decoder, n_threads=args.decode_threads)
-    print(f"JPEG bodies decode with the {'native' if args.decoder == 'native' else 'Pillow'} "
-          "decoder", flush=True)
+                           decoder=decoder, n_threads=args.decode_threads)
+    print(f"JPEG bodies decode with the {'native' if decoder == 'native' else 'Pillow'} "
+          f"decoder (--decoder {args.decoder})", flush=True)
     # an artifact of a fixed batch takes that batch only
     fixed = meta.get("fixed_batch")
     engine = BatchingEngine(

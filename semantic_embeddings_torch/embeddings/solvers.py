@@ -1,8 +1,9 @@
 """Analytic class-embedding solvers.
 
-The port's own copy of ``semantic_embeddings_tpu/embeddings/solvers.py``, on
-host numpy only (that module's option to run the factorizations on a JAX
-device is left out).
+The port's own copy of ``semantic_embeddings_tpu/embeddings/solvers.py``:
+host numpy, or with ``device`` a CUDA device the two factorizations
+(Cholesky and the symmetric eigendecomposition) in float64 on that device
+through ``torch.linalg``, where that module runs them on the JAX device.
 
 Places ``n`` classes in an embedding space so that dot products (or Euclidean
 distances) reproduce taxonomy-derived (dis)similarities.  Functional parity
@@ -24,7 +25,19 @@ from __future__ import annotations
 import numpy as np
 
 
-def unitsphere_embedding(class_sim):
+def _cuda_f64(a, device):
+    """``a`` as a float64 tensor on the CUDA ``device``; without a GPU this
+    raises: the ``device`` path never falls back to the host."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"device={device} is not a CUDA device that is present "
+                           "(device=None runs on the host)")
+    return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+
+def unitsphere_embedding(class_sim, device=None):
     """n-dimensional unit-sphere embedding with exact dot-product similarities.
 
     Parameters
@@ -32,6 +45,10 @@ def unitsphere_embedding(class_sim):
     class_sim:
         (n, n) symmetric positive-definite similarity matrix with unit
         diagonal (e.g. ``1 - lcs_height``).
+    device:
+        A CUDA device (``torch.device`` or its name) to run the Cholesky
+        factorization on in float64 (``torch.linalg.cholesky_ex``); None
+        runs LAPACK on the host.
 
     Returns
     -------
@@ -48,6 +65,13 @@ def unitsphere_embedding(class_sim):
     if class_sim.shape[0] == 0:
         raise ValueError("Empty class_sim given.")
     try:
+        if device is not None:
+            import torch
+
+            emb, info = torch.linalg.cholesky_ex(_cuda_f64(class_sim, device))
+            if int(info) != 0:
+                raise np.linalg.LinAlgError("matrix not positive definite")
+            return emb.cpu().numpy()
         return np.linalg.cholesky(class_sim)
     except np.linalg.LinAlgError as err:
         raise RuntimeError(
@@ -56,12 +80,17 @@ def unitsphere_embedding(class_sim):
         ) from err
 
 
-def sim_approx(class_sim, num_dim=None):
+def sim_approx(class_sim, num_dim=None, device=None):
     """Low-dimensional embedding approximating dot-product similarities.
 
     Eigendecomposition path of the original ``compute_class_embedding.py:44-71``:
     factor ``S = Q diag(L) Q^T``, embed as ``Q * sqrt(L)``, keep the
     ``num_dim`` leading eigenvector columns.
+
+    ``device``, a CUDA device, runs the symmetric eigendecomposition in
+    float64 there (``torch.linalg.eigh`` also sorts the eigenvalues
+    ascending, so the column selection below does not depend on the
+    backend; the eigenvectors' signs may).
     """
     class_sim = np.asarray(class_sim, dtype=np.float64)
     if class_sim.ndim != 2 or class_sim.shape[0] != class_sim.shape[1]:
@@ -72,7 +101,13 @@ def sim_approx(class_sim, num_dim=None):
     if class_sim.shape[0] == 0:
         raise ValueError("Empty class_sim given.")
 
-    eigval, eigvec = np.linalg.eigh(class_sim)
+    if device is not None:
+        import torch
+
+        eigval, eigvec = (t.cpu().numpy()
+                          for t in torch.linalg.eigh(_cuda_f64(class_sim, device)))
+    else:
+        eigval, eigvec = np.linalg.eigh(class_sim)
     if np.any(eigval < 0):
         raise RuntimeError("Given class_sim is not positive semi-definite.")
     emb = eigvec * np.sqrt(eigval)[None, :]

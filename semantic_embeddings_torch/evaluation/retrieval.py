@@ -144,8 +144,11 @@ def _device_metric_fn(evaluator, normalize, device, topk=None):
         cum_l = torch.cumsum(lcs, dim=1)
         out = {}
         for k in ks:
-            out[f"P@{k} (WUP)"] = cum_w[:, k - 1] / bw[:, k - 1]
-            out[f"P@{k} (LCS_HEIGHT)"] = cum_l[:, k - 1] / bl[:, k - 1]
+            # a k past an array's end reads its last column, as jnp's
+            # gather clamps; each array is clamped to its own length
+            ic, ib = min(k, cum_w.shape[1]) - 1, min(k, bw.shape[1]) - 1
+            out[f"P@{k} (WUP)"] = cum_w[:, ic] / bw[:, ib]
+            out[f"P@{k} (LCS_HEIGHT)"] = cum_l[:, ic] / bl[:, ib]
         if compute_ahp:
             m = cum_w.shape[1]
             clip = None if isinstance(compute_ahp, bool) else int(compute_ahp)

@@ -618,3 +618,31 @@ def test_file_prepare_on_the_card_equals_the_cpu(device, tmp_path, color_mode):
     torch.testing.assert_close(ds.make_prepare(device)(test, None, False)[0].cpu(),
                                ds.make_prepare("cpu")(test, None, False)[0],
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["unitsphere", "approx_sim"])
+def test_compute_class_embedding_device_on_the_card(device, tmp_path, method):
+    """``compute_class_embedding`` factors in float64 on the card, by
+    default and on a bare ``--device`` (the JAX package's flag): E E^T
+    within 1e-10 of the similarities, and of the ``--device cpu`` run's
+    E E^T (not E itself: eigenvector signs differ between backends)."""
+    from semantic_embeddings_torch.cli import compute_class_embedding
+    from semantic_embeddings_torch.embeddings import load_embeddings
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy, semantic_distance_matrix
+
+    edges = tmp_path / "h.txt"
+    edges.write_text("".join(f"1000 {100 + g}\n" + "".join(
+        f"{100 + g} {5 * g + c}\n" for c in range(5)) for g in range(8)))
+    products = {}
+    for name, extra in (("card", []), ("bare flag", ["--device"]),
+                        ("host", ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.pickle")
+        compute_class_embedding.main(["--hierarchy", str(edges), "--out", out,
+                                      "--method", method, *extra])
+        labels, emb = load_embeddings(out)
+        products[name] = emb @ emb.T
+    target = 1.0 - semantic_distance_matrix(ClassHierarchy.from_file(str(edges), id_type=int),
+                                            labels)
+    for name in ("card", "bare flag"):
+        assert np.abs(products[name] - target).max() <= 1e-10
+        assert np.abs(products[name] - products["host"]).max() <= 1e-10

@@ -104,9 +104,12 @@ def test_clis_match(tmp_path, tree_path, flags, capsys):
             "".join(f"{c} extra\n" for c in leaves[::-2]))
         flags[flags.index("CLASSES")] = str(tmp_path / "classes.txt")
     dumps = []
-    for main, name in ((cli.main, "ours"), (jcli.main, "theirs")):
+    # the port factors on the card unless --device cpu; the JAX CLI on the host
+    # unless its --device flag is given
+    for main, name, device in ((cli.main, "ours", ["--device", "cpu"]),
+                               (jcli.main, "theirs", [])):
         out = str(tmp_path / f"{name}.pickle")
-        main(["--hierarchy", hierarchy, "--out", out] + flags)
+        main(["--hierarchy", hierarchy, "--out", out] + flags + device)
         with open(out, "rb") as f:
             dumps.append(pickle.load(f))
     ours, theirs = dumps

@@ -1,7 +1,7 @@
 """The port's native JPEG decoder against the JAX package's: bitwise equal
 batches and success flags for the same files, targets and seeds (both are
 built from one source with the same g++ flags on this host); a failed build
-raises."""
+raises, and ``--decoder auto`` then decodes with Pillow."""
 
 import os
 import shutil
@@ -121,3 +121,59 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path):
         tnative.loader(source, tmp_path / "build")
     assert not any(p.suffix == ".so" for p in (tmp_path / "build").rglob("*"))
     assert os.path.exists(tnative.SOURCE)  # the repository's source is untouched
+
+
+def _broken_loader(tmp_path, monkeypatch):
+    """Makes every build of the decoder fail, as on a host without libjpeg."""
+    source = tmp_path / "sed_decode.cpp"
+    source.write_text(tnative.SOURCE.read_text().replace(
+        "#include <jpeglib.h>", "#include <no_such_header_for_this_test.h>"))
+    build = tnative.loader
+    monkeypatch.setattr(tnative, "loader", lambda: build(source, tmp_path / "build"))
+
+
+def test_auto_decoder_takes_pillow_where_the_build_fails(tmp_path, monkeypatch, capsys):
+    """``--decoder auto`` prints the JAX loader's message and gives Pillow's
+    batches bitwise (the JAX package's Pillow path); ``--decoder native``
+    raises with g++'s output."""
+    from argparse import Namespace
+
+    from _torch_files_common import write_nab
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.data import CUB_STATS
+    from semantic_embeddings_torch.data.datasets import NABDataset
+    from semantic_embeddings_tpu.data.datasets import NABDataset as JNABDataset
+
+    root = write_nab(str(tmp_path / "cub"), n_classes=3, per_class=3, test_every=3)
+    kw = {"cropsize": (24, 20), "default_target_size": 28, "mean": CUB_STATS[0],
+          "std": CUB_STATS[1]}
+    _broken_loader(tmp_path, monkeypatch)
+    assert common.resolve_decoder("pillow") == "pillow"
+
+    ours = common.apply_pipeline_args(
+        NABDataset(root, **kw), Namespace(read_workers=2, queue_size=2, decoder="auto"))
+    out = capsys.readouterr().out
+    assert "native decoder unavailable (g++ failed" in out
+    assert "no_such_header_for_this_test.h" in out and "; using PIL fallback" in out
+    assert "Pillow decoder (--decoder auto)" in out and ours.use_native is False
+    ref = JNABDataset(root, **kw)
+    ref.use_native = False
+    n = 0
+    for a, b in zip(ours.train_batches(4, epoch=1, seed=3),
+                    ref.train_batches(4, epoch=1, seed=3), strict=True):
+        np.testing.assert_array_equal(a["image"].numpy(), np.asarray(b["image"]))
+        n += 1
+    assert n == 2
+
+    strict = common.apply_pipeline_args(
+        NABDataset(root, **kw), Namespace(read_workers=2, queue_size=2, decoder="native"))
+    assert strict.use_native is True
+    with pytest.raises(RuntimeError, match="no_such_header_for_this_test.h"):
+        next(iter(strict.test_batches(3)))
+
+
+def test_auto_decoder_takes_native_where_it_builds(capsys):
+    from semantic_embeddings_torch.cli import common
+
+    assert common.resolve_decoder("auto") == "native"
+    assert "unavailable" not in capsys.readouterr().out

@@ -154,6 +154,26 @@ def test_evaluate_retrieval_features_matches_jax(tmp_path, normalize, protocol):
             assert abs(full[name] - got[name]) <= METRIC_ATOL, name
 
 
+@pytest.mark.parametrize("n", [12, 40, 100])
+def test_ks_past_the_ranking_clamp_as_jax(tmp_path, n):
+    """P@k for a k past the ranking's N - 1 entries reads P@(N - 1), as the
+    JAX package's gather clamps (both CLIs always ask for k = 100)."""
+    path = _taxonomy(tmp_path)
+    feats = _features(False, n=n)
+    # every one of the 12 classes present, so no optimal curve is zero
+    labels = [int(c) for c in np.random.default_rng(1).permutation(np.arange(n) % 12)]
+    kwargs = dict(ks=(1, 10, 50, 100), compute_ahp=True, compute_ap=True)
+    want, want_q = jretrieval.evaluate_retrieval_features(
+        feats, labels, JClassHierarchy.from_file(path, id_type=int), **kwargs)
+    got, got_q = retrieval.evaluate_retrieval_features(
+        feats, labels, ClassHierarchy.from_file(path, id_type=int), device=CPU, **kwargs)
+    _assert_metrics_close(got, want)
+    for name in want_q:
+        np.testing.assert_allclose(list(got_q[name].values()),
+                                   list(want_q[name].values()), rtol=0, atol=1e-6)
+    assert got["P@100 (WUP)"] == got["P@50 (WUP)"] or n > 50
+
+
 def test_dict_features_pair_labels_by_id(tmp_path):
     """A dump keyed by non-ascending ids pairs labels by id, not by row."""
     path = _taxonomy(tmp_path)
