@@ -198,6 +198,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``plot_recall_precision`` on phase 5's feature dump (where
    ``matplotlib`` imports) and ``encode_hierarchy`` on a tree written from
    the seed.
+16. Data parallelism on the one card, TF32 off, at full width: (a) phase
+   8's recipe (ResNet-50 @ 224, batch 128, f32) for 3 steps through
+   ``fit`` in an NCCL group of world size 1, in a process of its own under
+   a launcher's environment, against the same 3 steps there without a
+   group, before and after (deterministic cuDNN): every parameter and
+   running statistic bitwise equal, 16 / 16 / 1 / 1 launches a step, the
+   times of the three; (b) after a first step that is not kept, phase 9's step on
+   two gloo ranks sharing the card (two processes; NCCL takes one rank a
+   card), 64 rows each, sync BN: no tensor farther from phase 9's f64 step
+   than twice phase 9's one-process f32 step's farthest, the running
+   statistics within 1e-5 relative of the one-process step's and equal on
+   both ranks, each rank's launches those of one step; (c) the same under
+   per-replica BN, held to the one-process ``_GroupedBatchNorm(groups=2)``
+   step and its f64 twin; (d) ``learn_image_embeddings --gpus 2`` in its
+   own processes, without a launcher (the JAX package's message, one card)
+   and under a launcher's environment of world size 1 (an NCCL group);
+   (e) retrieval at ILSVRC val size (phase 5d's 50,000 x 1,000 features)
+   with the database's rows over [cuda:0, cuda:0] (``--db_sharded``) and
+   with the query blocks over them, against one device: the same metrics,
+   every ranking bitwise equal, q/s of each; (f) the serving engine over
+   two replicas of phase 8's ResNet-50 on [cuda:0, cuda:0] against one:
+   outputs within 1e-6, img/s of each.  Two ranks on one card measure
+   neither NCCL nor scaling.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -496,6 +519,17 @@ def parse_table(text):
     return rows
 
 
+def protocol_features(n, d, n_classes):
+    """``bench_retrieval.py``'s synthetic features: unit rows, class i's
+    shifted by 2 along axis i; and their labels."""
+    rng = np.random.default_rng(0)
+    labels = [i % n_classes for i in range(n)]
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    feats[np.arange(n), labels] += 2.0
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    return feats, labels
+
+
 def retrieval_protocol(n, d, n_classes, hierarchy, full_ap, device, card, runs=5,
                        block_size=2048, budget_s=60.0):
     """One protocol of ``bench_retrieval.py:20-71`` through the port's
@@ -512,12 +546,7 @@ def retrieval_protocol(n, d, n_classes, hierarchy, full_ap, device, card, runs=5
     from semantic_embeddings_torch.evaluation.retrieval import evaluate_retrieval_features
 
     def data(n):
-        rng = np.random.default_rng(0)
-        labels = [i % n_classes for i in range(n)]
-        feats = rng.normal(size=(n, d)).astype(np.float32)
-        feats[np.arange(n), labels] += 2.0
-        feats /= np.linalg.norm(feats, axis=1, keepdims=True)
-        return feats, labels
+        return protocol_features(n, d, n_classes)
 
     kwargs = dict(ks=[1, 10, 50, 100], compute_ahp=250, compute_ap=full_ap,
                   normalize=True, block_size=block_size, device=device)
@@ -716,14 +745,14 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts, artifact=N
         srv = serve_model.make_server(args)
         warm = srv.engine.warmup()  # as serve_model.main does for --warmup
         setup_s = time.perf_counter() - t0
-        served, fn, retries = [], srv.engine._fn, []
+        served, (fn,), retries = [], srv.engine._fns, []
 
         def recording(batch):  # each pack's batch is a fresh array
             out = fn(batch)
             served.append((batch, out))
             return out
 
-        srv.engine._fn = recording
+        srv.engine._fns = [recording]
         srv.start()
         url = f"http://127.0.0.1:{srv.port}"
         commands, results = spawn.Queue(), spawn.Queue()
@@ -842,7 +871,7 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts, artifact=N
             gate.wait(120)
             return recording(batch)
 
-        srv.engine._fn = gated
+        srv.engine._fns = [gated]
         zeros = np.zeros((64, *image), srv.engine.dtype)
         held = [srv.engine.submit(zeros)]
         deadline = time.time() + 30
@@ -2517,6 +2546,470 @@ def phase15(device, card, tmp, hierarchy, feat_path, slice1_dump, rn50_ckpt,
     return out
 
 
+def rn50_state(device, seed=0):
+    """ResNet-50 embedding 100 dims + l2norm output + the 100-way cls head,
+    random weights from ``seed``, on ``device``; and its spec."""
+    import torch
+
+    from semantic_embeddings_torch.models import EmbeddingModel, build_network
+    from semantic_embeddings_torch.train import new_train_state
+
+    g = torch.Generator().manual_seed(seed)
+    spec = build_network(100, "resnet-50", generator=g)
+    # the CLI's rule for the cls head, before the (empty) backbone list
+    spec.l2_filters = [(r"^cls_top$", 5e-4)] + list(spec.l2_filters)
+    model = EmbeddingModel(spec.module, output="l2norm", cls_classes=100, generator=g)
+    return new_train_state(model.to(device)), spec
+
+
+def rn50_train_step(state, spec, prepare, embedding, plain=False, autocast_dtype=None):
+    """The CLI's --fused_loss train step (inv_corr + 0.1 cls head, clipnorm
+    10), through the kernels or through the plain versions."""
+    from semantic_embeddings_torch.ops import cosine_loss as C
+    from semantic_embeddings_torch.ops import fused_cosine_loss
+    from semantic_embeddings_torch.train import make_train_step
+
+    model = state.model.twin("linear", cls_input="l2norm")
+    loss = ((lambda tgt, z: C.PlainCosineLoss.apply(z, tgt)) if plain
+            else (lambda tgt, z: fused_cosine_loss(z, tgt)))
+    return make_train_step(
+        model, prepare, loss_name="inv_corr", class_embedding=embedding,
+        num_classes=100, cls_weight=0.1, l2_penalty_fn=spec.l2_penalty,
+        clipnorm=10.0, loss_fn_override=loss, autocast_dtype=autocast_dtype)
+
+
+def reset_launches():
+    from semantic_embeddings_torch.ops import conv3x3 as CC
+    from semantic_embeddings_torch.ops import cosine_loss as C
+
+    C.launches_fwd = C.launches_bwd = 0
+    CC.launches_conv_bn_stats = CC.launches_filter_grad = 0
+
+
+def read_launches():
+    from semantic_embeddings_torch.ops import conv3x3 as CC
+    from semantic_embeddings_torch.ops import cosine_loss as C
+
+    return {"cosine_loss_fwd": C.launches_fwd, "cosine_loss_bwd": C.launches_bwd,
+            "conv3x3_bn_stats": CC.launches_conv_bn_stats,
+            "conv3x3_filter_grad": CC.launches_filter_grad}
+
+
+# phase 16: data parallelism on the one card.  16a: phase 8's recipe for 3
+# steps through fit (then one validation batch), ResNet-50 @ 224, batch 128
+P16_STEPS = 3
+# 16d: learn_image_embeddings --gpus 2 on a 2-step ResNet-50 recipe
+P16_CLI_TRAIN = 2 * RN50_BATCH
+
+
+def p16_fit(device, data, embedding, seed):
+    """Phase 8's --fused_loss recipe from the weights of ``seed`` through
+    ``fit`` for one epoch of ``data``; the state dict on the host, the
+    launches and the seconds."""
+    import torch
+
+    from semantic_embeddings_torch.train import fit, get_lr_schedule, make_eval_step
+
+    state, spec = rn50_state(device, seed)
+    prepare = data.make_prepare(device)
+    eval_step = make_eval_step(state.model, prepare, loss_name="inv_corr",
+                               class_embedding=embedding, num_classes=100, cls_weight=0.1,
+                               l2_penalty_fn=spec.l2_penalty)
+    schedule, _ = get_lr_schedule("SGD", data.num_train, RN50_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    state = fit(state, rn50_train_step(state, spec, prepare, embedding), eval_step, data,
+                schedule, epochs=1, batch_size=RN50_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ({k: v.cpu() for k, v in state.model.state_dict().items()}, read_launches(),
+            seconds)
+
+
+def p16a_worker(job_path, out_path):
+    """16a, in a process of its own under a launcher's environment of world
+    size 1: the 3 steps through ``fit`` without a group (the first run pays
+    the process's first calls), in the NCCL group of one rank that
+    ``initialize_distributed`` joins, and without a group again, each from
+    the same weights; deterministic cuDNN, so that they may be held
+    bitwise."""
+    import torch
+
+    from semantic_embeddings_torch import parallel
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.data import SyntheticDataset
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    common.set_float32_precision()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    device = torch.device("cuda", 0)
+    data = SyntheticDataset(num_classes=100, n_train=P16_STEPS * RN50_BATCH,
+                            n_test=RN50_BATCH, size=224, classes=job["labels"])
+    first = p16_fit(device, data, job["embedding"], seed=2)
+    check(parallel.initialize_distributed(device), "no group joined")
+    backend, world = torch.distributed.get_backend(), parallel.world_size()
+    grouped = p16_fit(device, data, job["embedding"], seed=2)
+    parallel.finalize_distributed()
+    alone = p16_fit(device, data, job["embedding"], seed=2)
+    unequal = [k for k in alone[0] if not (torch.equal(alone[0][k], grouped[0][k])
+                                          and torch.equal(first[0][k], grouped[0][k]))]
+    with open(out_path, "w") as f:
+        json.dump({"backend": backend, "world": world, "unequal": unequal,
+                   "tensors": len(alone[0]),
+                   "launches": {"alone": alone[1], "group": grouped[1]},
+                   "seconds": {"alone_first": first[2], "group": grouped[2],
+                               "alone": alone[2]}}, f)
+
+
+def p16bc_worker(job_path, out_dir):
+    """16b-16c, one of two ranks on the one card, joined by gloo (NCCL takes
+    one rank a card; gloo moves CUDA tensors for ``all_reduce`` and
+    ``broadcast``, all the training path uses): phase 9's step on this
+    rank's 64 rows of its batch of 128, with sync BN, then with per-replica
+    BN; rank 0 saves each state dict.  The launches of each rank, and
+    whether both ranks hold the same tensors after each step."""
+    import torch
+
+    from semantic_embeddings_torch import parallel
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.models import layers
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    parallel.initialize_distributed(device, backend="gloo")
+    common.set_float32_precision()
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    p9 = torch.load(job["phase9"], map_location="cpu", weights_only=True)
+    world, rank = parallel.world_size(), parallel.rank()
+    local = parallel.shard_batch({"x": p9["images"], "y": p9["labels"]})
+
+    def prepare(raw, rng, train):
+        return raw["x"].to(device), raw["y"].to(device)
+
+    out = {"world": world, "backend": torch.distributed.get_backend()}
+    # a first step, not kept, takes the process's first calls (cuDNN, the
+    # kernels' load, the allocator, gloo's first transfers)
+    for mode, groups in (("warm-up", 1), ("sync", 1), ("per_replica", 2)):
+        layers.set_default_bn_groups(groups)
+        state, spec = rn50_state(device, 1)
+        state.model.load_state_dict(p9["before"])
+        reset_launches()
+        t0 = time.perf_counter()
+        state, m = rn50_train_step(state, spec, prepare, job["embedding"])(
+            state, local, 0.1, None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        sd = state.model.state_dict()
+        flat = torch.cat([v.reshape(-1).float() for v in sd.values()])
+        spread = parallel.sum_over_group(
+            (flat - parallel.sum_over_group(flat) / world).abs().max()).item()
+        counts = torch.tensor(list(launches.values()), dtype=torch.float64)
+        out[mode] = {"launches": launches, "ranks_equal": spread == 0.0,
+                     "launches_equal": bool((parallel.sum_over_group(counts)
+                                             == world * counts).all()),
+                     "loss": parallel.sum_over_group(m["loss"]).item() / world,
+                     "seconds": seconds}
+        if rank == 0 and mode != "warm-up":
+            torch.save({k: v.cpu() for k, v in sd.items()}, os.path.join(out_dir, f"p16_{mode}.pt"))
+    layers.set_default_bn_groups(1)
+    if rank == 0:
+        with open(os.path.join(out_dir, "p16bc.json"), "w") as f:
+            json.dump(out, f)
+    parallel.finalize_distributed()
+
+
+def distances_from_f64(before, sd_64, sd):
+    """Per tensor, the distance of ``sd`` from the f64 step ``sd_64``: in
+    units of the tensor's f64 update for parameters, absolute for the BN
+    running statistics (as :func:`check_against_f64` takes it)."""
+    out = {}
+    for n, old in before.items():
+        ref = sd_64[n].double()
+        stat = "running_" in n
+        scale = 1.0 if stat else max((ref - old.double()).abs().max().item(), 1e-30)
+        out[n] = (sd[n].double() - ref).abs().max().item() / scale
+    return out
+
+
+def hold_to_f64(label, before, sd_64, sd_ref, sd_new):
+    """No tensor of ``sd_new`` farther from the f64 step than twice
+    ``sd_ref``'s farthest (parameters and statistics apart); the running
+    statistics of the two within 1e-5 relative.  Returns the worst
+    distances and the statistics' worst relative gap."""
+    ref = distances_from_f64(before, sd_64, sd_ref)
+    new = distances_from_f64(before, sd_64, sd_new)
+    out = {}
+    for what, keep in (("parameter", lambda n: "running_" not in n),
+                       ("BN statistic", lambda n: "running_" in n)):
+        names = [n for n in before if keep(n)]
+        worst_ref, worst_new = max(ref[n] for n in names), max(new[n] for n in names)
+        far = sorted(names, key=lambda n: -new[n])[:3]
+        print(f"{label} {what} distance from f64: worst {worst_new:.3g} (one process "
+              f"{worst_ref:.3g}); farthest " + ", ".join(f"{n} {new[n]:.3g}" for n in far))
+        bad = [n for n in names if new[n] > 2 * worst_ref + 1e-7]
+        check(not bad, [(n, new[n], worst_ref) for n in bad[:10]])
+        out[what] = {"worst": worst_new, "worst_one_process": worst_ref}
+    gap = max((sd_new[n] - sd_ref[n]).abs().max().item()
+              / max(sd_ref[n].abs().max().item(), 1e-30) for n in before if "running_" in n)
+    print(f"{label} running statistics against the one-process step: {gap:.3g} relative")
+    check(gap <= 1e-5, (label, gap))
+    out["statistics_relative_gap"] = gap
+    return out
+
+
+def p16_cli(tmp, emb_path, card):
+    """16d: ``learn_image_embeddings --gpus 2`` in two processes of its own on
+    the one card at once: without a launcher (the JAX package's message;
+    one process trains) and under a launcher's environment of world size 1
+    (the NCCL group of one rank).  Each prints its launches."""
+    import torch
+
+    from semantic_embeddings_torch import parallel
+
+    argv = ["--dataset", f"synthetic-100-{P16_CLI_TRAIN}-{RN50_BATCH}-224", "--data_root", tmp,
+            "--embedding", emb_path, "--loss", "inv_corr", "--cls_weight", "0.1",
+            "--fused_loss", "--architecture", "resnet-50", "--batch_size", str(RN50_BATCH),
+            "--epochs", "1", "--lr_schedule", "SGD", "--sgd_lr", "0.01", "--gpus", "2",
+            "--device", "cuda"]
+    runner = (
+        "import json, sys, torch\n"
+        "from semantic_embeddings_torch.cli import learn_image_embeddings as m\n"
+        "from semantic_embeddings_torch.ops import conv3x3 as CC, cosine_loss as C\n"
+        "state = m.main(sys.argv[1:])\n"
+        "torch.cuda.synchronize()\n"
+        "print('LAUNCHES ' + json.dumps({'steps': state.step,"
+        " 'cosine_loss_fwd': C.launches_fwd, 'cosine_loss_bwd': C.launches_bwd,"
+        " 'conv3x3_bn_stats': CC.launches_conv_bn_stats,"
+        " 'conv3x3_filter_grad': CC.launches_filter_grad}))\n")
+    env_launch = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(parallel.mesh.free_port()))
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-c", runner, *argv], cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, env in (("no_launcher", None), ("launcher_world_1", env_launch))}
+    out = {}
+    steps = P16_CLI_TRAIN // RN50_BATCH
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        print(f"16d {name}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s")
+        print("\n".join(line for line in stdout.splitlines() if not line.startswith("LAUNCHES")))
+        if proc.returncode:
+            print(stderr[-4000:])
+        check(proc.returncode == 0, f"16d {name} failed")
+        check("Requested 2 devices but only 1 present; using 1." in stdout, f"16d {name}: message")
+        launches = json.loads(stdout.split("LAUNCHES ", 1)[1].splitlines()[0])
+        print(f"16d {name} launches {launches}")
+        check(launches["steps"] == steps and launches["cosine_loss_fwd"] == steps
+              and launches["cosine_loss_bwd"] == steps
+              and launches["conv3x3_filter_grad"] == RN50_CONVS * steps
+              and launches["conv3x3_bn_stats"] > RN50_CONVS * steps, launches)
+        out[name] = {"launches": launches, "nccl": "(nccl)" in stdout}
+    check(out["launcher_world_1"]["nccl"] and not out["no_launcher"]["nccl"], out)
+    print(f"16d: --gpus 2 trained on the one card in both; the launcher's run joined an "
+          f"NCCL group of one rank  [{card}]")
+    return out
+
+
+def p16_retrieval(device, card, taxonomy_1000):
+    """16e: ILSVRC val size (50,000 x 1,000, phase 5d's features), the
+    database's rows over [cuda:0, cuda:0] against the replicated database
+    on one device and the query blocks over both: per-query values equal,
+    the rankings of every query bitwise equal; q/s of each (median of 3)."""
+    import torch
+
+    from semantic_embeddings_torch.evaluation import retrieval as R
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy
+
+    hierarchy = ClassHierarchy.from_file(taxonomy_1000, id_type=int)
+    feats, labels = protocol_features(50_000, 1000, 1000)
+    n = len(feats)
+    kwargs = dict(ks=[1, 10, 50, 100], compute_ahp=250, compute_ap=False, normalize=True,
+                  block_size=2048)
+    runs = {"replicated_one_device": dict(device=device),
+            "queries_over_2": dict(devices=[device, device]),
+            "db_sharded_over_2": dict(devices=[device, device], db_sharded=True)}
+    results, rates = {}, {}
+    for name, extra in runs.items():
+        R.evaluate_retrieval_features(feats, labels, hierarchy, **kwargs, **extra)  # warm-up
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            results[name] = R.evaluate_retrieval_features(feats, labels, hierarchy, **kwargs,
+                                                          **extra)
+            walls.append(time.perf_counter() - t0)
+        rates[name] = n / statistics.median(walls)
+    ref_means, ref_pq = results["replicated_one_device"]
+    gaps = {}
+    for name, (means, pq) in results.items():
+        gaps[name] = max(float(np.abs(np.array(list(pq[m].values()))
+                                      - np.array(list(ref_pq[m].values()))).max())
+                         for m in ref_pq)
+    # the database's shards rank every query as the whole database does, so
+    # their metrics are the same numbers; the split query blocks take other
+    # GEMM shapes, whose sums may round otherwise at near-ties
+    check(results["db_sharded_over_2"][0] == ref_means and gaps["db_sharded_over_2"] == 0.0,
+          ("16e db_sharded", gaps, results["db_sharded_over_2"][0], ref_means))
+    check(gaps["queries_over_2"] <= 1e-6, ("16e queries over 2", gaps))
+    database = torch.from_numpy(feats / np.linalg.norm(feats, axis=1, keepdims=True)).to(device)
+    rank = R._db_sharded_ranker(database, [device, device], True, 250)
+    differ = 0
+    for start in range(0, n, 2048):
+        q_index = torch.arange(start, min(start + 2048, n), device=device)
+        want = R._ranked(R._similarities(database[q_index], database, True), q_index, 250)
+        differ += int((rank(database[q_index], q_index) != want).any(dim=1).sum())
+    print(f"16e retrieval {n} x 1000, top-k protocol: q/s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; largest per-query gap from one device {gaps}; database-sharded rankings "
+          f"differing from the replicated ones in {differ} of {n} queries  [{card}]")
+    check(differ == 0, f"16e: {differ} rankings differ")
+    return {"qps": rates, "rankings_differing": differ, "n": n, "per_query_gaps": gaps,
+            "mAHP@250 (LCS_HEIGHT)": ref_means["AHP@250 (LCS_HEIGHT)"]}
+
+
+def p16_serving(device, card, rn50_ckpt):
+    """16f: the serving engine over two replicas of phase 8's ResNet-50 on
+    [cuda:0, cuda:0] against one, max batch 64: the l2norm outputs of 256
+    images in requests of 64 within 1e-6, img/s of each (in turns one, two,
+    two, one) and the conv kernel's launches a call."""
+    import torch
+
+    from semantic_embeddings_torch.cli import serve_model
+    from semantic_embeddings_torch.serving import BatchingEngine
+
+    args = serve_model.build_parser().parse_args(
+        ["--checkpoint", rn50_ckpt, "--layer", "l2norm", "--input_size", "224",
+         "--device", "cuda"])
+    fns = [serve_model._device_fn(serve_model.build_model_fn(args, device)[0], device, None,
+                                  None, False) for _ in range(2)]
+    images = np.random.default_rng(16).normal(size=(256, 224, 224, 3)).astype(np.float32)
+    engines = {"one": BatchingEngine(fns[:1], (224, 224, 3), max_batch=64),
+               "two": BatchingEngine(fns, (224, 224, 3), max_batch=64)}
+    check(engines["two"].buckets == [2, 4, 8, 16, 32, 64], engines["two"].buckets)
+    outs, rates, launches = {}, {}, {}
+    for name in ("one", "two", "two", "one"):
+        engine = engines[name]
+        engine.warmup([64])
+        with engine:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs[name] = np.concatenate([engine.predict(images[i:i + 64], timeout=120)
+                                         for i in range(0, 256, 64)])
+            rates.setdefault(name, []).append(256 / (time.perf_counter() - t0))
+            launches[name] = read_launches()["conv3x3_bn_stats"] // 4
+    err = float(np.abs(outs["two"] - outs["one"]).max())
+    print(f"16f serving resnet-50 @ 224, requests of 64: img/s one device "
+          f"{rates['one']}, two replicas on cuda:0 {rates['two']}; max |two - one| "
+          f"{err:.3g}; conv3x3_bn_stats launches a call {launches}  [{card}]")
+    check(err <= 1e-6, err)
+    check(launches == {"one": RN50_CONVS, "two": 2 * RN50_CONVS}, launches)
+    return {"img_per_s": rates, "max_abs_diff": err, "conv_launches_per_call": launches}
+
+
+def phase16(device, card, tmp, p9_path, embedding, labels, emb_path, rn50_ckpt,
+            taxonomy_1000):
+    """Data parallelism on the one card (TF32 off, full width): 16a-16f."""
+    import torch
+
+    from semantic_embeddings_torch import parallel
+    from semantic_embeddings_torch.models import layers
+    from semantic_embeddings_torch.models.resnet import use_plain_conv_bn_stats
+    from semantic_embeddings_torch.train import new_train_state
+
+    t_phase = time.perf_counter()
+    out = {}
+    phase(f"16a-c resnet-50 @ 224, batch {RN50_BATCH}: {P16_STEPS} steps through fit in an "
+          "NCCL group of one rank vs none (own process); phase 9's step on two gloo ranks "
+          "on the card, sync and per-replica BN (two processes)")
+    job = os.path.join(tmp, "p16_job.pickle")
+    with open(job, "wb") as f:
+        pickle.dump({"embedding": embedding, "labels": labels, "phase9": p9_path}, f)
+    out_a = os.path.join(tmp, "p16a.json")
+    # 16c's one-process references first, alone on the card (an f64
+    # ResNet-50 step at batch 128 takes tens of GiB): _GroupedBatchNorm
+    # (groups=2) through the kernels in f32, and through the plain versions
+    # in f64
+    p9 = torch.load(p9_path, map_location="cpu", weights_only=True)
+    before = p9["before"]
+    layers.set_default_bn_groups(2)
+    try:
+        grouped = {}
+        for name, dtype in (("kernel", torch.float32), ("f64", torch.float64)):
+            state, spec = rn50_state(device, 1)
+            state.model.load_state_dict(before)
+            if dtype == torch.float64:
+                use_plain_conv_bn_stats(state.model)
+                state = new_train_state(state.model.double())
+
+            def prepare(raw, rng, train, dtype=dtype):
+                return raw["x"].to(device, dtype), raw["y"].to(device)
+
+            rn50_train_step(state, spec, prepare, embedding, plain=dtype == torch.float64)(
+                state, {"x": p9["images"], "y": p9["labels"]}, 0.1, None)
+            grouped[name] = {k: v.cpu() for k, v in state.model.state_dict().items()}
+            del state
+    finally:
+        layers.set_default_bn_groups(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # then 16a's process and 16b-c's two side by side
+    with ThreadPoolExecutor(2) as pool:
+        run_a = pool.submit(parallel.launch, p16a_worker, 1, job, out_a)
+        run_bc = pool.submit(parallel.launch, p16bc_worker, 2, job, tmp)
+        run_a.result()
+        run_bc.result()
+    with open(out_a) as f:
+        a = json.load(f)
+    print(f"16a: fit alone {a['seconds']['alone_first']:.2f} s (the process's first), in a "
+          f"{a['backend']} group of {a['world']} {a['seconds']['group']:.2f} s, alone again "
+          f"{a['seconds']['alone']:.2f} s; {len(a['unequal'])} of {a['tensors']} "
+          f"tensors differ; launches {a['launches']}  [{card}]")
+    check(a["backend"] == "nccl" and a["world"] == 1, a)
+    check(not a["unequal"], a["unequal"][:10])
+    want = {"cosine_loss_fwd": P16_STEPS, "cosine_loss_bwd": P16_STEPS,
+            "conv3x3_bn_stats": RN50_CONVS * (P16_STEPS + 1),
+            "conv3x3_filter_grad": RN50_CONVS * P16_STEPS}
+    check(a["launches"]["alone"] == want and a["launches"]["group"] == want, a["launches"])
+    out["16a"] = a
+    with open(os.path.join(tmp, "p16bc.json")) as f:
+        bc = json.load(f)
+    check(bc["world"] == 2 and bc["backend"] == "gloo", bc)
+    print(f"16b-c: each rank's first step, not kept, {bc['warm-up']['seconds']:.2f} s")
+    one_step = {"cosine_loss_fwd": 1, "cosine_loss_bwd": 1, "conv3x3_bn_stats": RN50_CONVS,
+                "conv3x3_filter_grad": RN50_CONVS}
+    refs = {"sync": (p9["f64"], p9["kernel"]), "per_replica": (grouped["f64"], grouped["kernel"])}
+    for mode, label in (("sync", "16b sync BN"), ("per_replica", "16c per-replica BN")):
+        r = bc[mode]
+        sd = torch.load(os.path.join(tmp, f"p16_{mode}.pt"), map_location="cpu",
+                        weights_only=True)
+        print(f"{label}: two gloo ranks on the card, {r['seconds']:.2f} s for the step "
+              f"(rank 0), loss {r['loss']:.9f}, ranks equal {r['ranks_equal']}, launches "
+              f"of each rank {r['launches']} (equal on both: {r['launches_equal']})  "
+              f"[{card}; gloo through the host: neither NCCL nor scaling]")
+        check(r["ranks_equal"], f"{label}: the ranks differ")
+        check(r["launches"] == one_step and r["launches_equal"], r)
+        sd_64, sd_one = refs[mode]
+        r["vs_f64"] = hold_to_f64(label, before, sd_64, sd_one, sd)
+        out["16b" if mode == "sync" else "16c"] = r
+    del p9, before, grouped
+    torch.cuda.empty_cache()
+
+    phase("16d learn_image_embeddings --gpus 2 on the one card, without a launcher and "
+          "under one of world size 1 (own processes)")
+    out["16d"] = p16_cli(tmp, emb_path, card)
+    phase("16e retrieval at ILSVRC val size: --db_sharded over [cuda:0, cuda:0] vs replicated")
+    out["16e"] = p16_retrieval(device, card, taxonomy_1000)
+    torch.cuda.empty_cache()
+    phase("16f the serving engine over two replicas on [cuda:0, cuda:0] vs one device")
+    out["16f"] = p16_serving(device, card, rn50_ckpt)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def check_against_f64(before, model_64, model_k, model_p, label=""):
     """Holds one train step through the kernels (``model_k``) and one
     through the plain versions (``model_p``), both from the state dict
@@ -2916,40 +3409,17 @@ def main(argv=None):
     phase("8 slice 2: resnet-50 @ 224 px, batch 128, f32")
     from semantic_embeddings_torch.cli.common import extract_test_features
     from semantic_embeddings_torch.data import SyntheticDataset
-    from semantic_embeddings_torch.models import EmbeddingModel, build_network
     from semantic_embeddings_torch.models.resnet import use_plain_conv_bn_stats
     from semantic_embeddings_torch.train import (
         fit, get_lr_schedule, make_eval_step, new_train_state)
 
     def rn50_model(seed=0):
-        """ResNet-50 embedding 100 dims + l2norm output + the 100-way cls
-        head, random weights from ``seed``, on the card; and its spec."""
-        g = torch.Generator().manual_seed(seed)
-        spec = build_network(100, "resnet-50", generator=g)
-        # the CLI's rule for the cls head, before the (empty) backbone list
-        spec.l2_filters = [(r"^cls_top$", 5e-4)] + list(spec.l2_filters)
-        model = EmbeddingModel(spec.module, output="l2norm", cls_classes=100,
-                               generator=g)
-        return new_train_state(model.to(device)), spec
+        return rn50_state(device, seed)
 
     def rn50_step(state, spec, prepare, plain=False, autocast_dtype=None):
-        """The CLI's --fused_loss train step (inv_corr + 0.1 cls head,
-        clipnorm 10), through the kernels or through the plain versions."""
-        model = state.model.twin("linear", cls_input="l2norm")
-        return make_train_step(
-            model, prepare, loss_name="inv_corr", class_embedding=embedding,
-            num_classes=100, cls_weight=0.1, l2_penalty_fn=spec.l2_penalty,
-            clipnorm=10.0, loss_fn_override=plain_loss if plain else kernel_loss,
-            autocast_dtype=autocast_dtype)
+        return rn50_train_step(state, spec, prepare, embedding, plain, autocast_dtype)
 
-    def reset_counts():
-        C.launches_fwd = C.launches_bwd = 0
-        CC.launches_conv_bn_stats = CC.launches_filter_grad = 0
-
-    def read_counts():
-        return {"cosine_loss_fwd": C.launches_fwd, "cosine_loss_bwd": C.launches_bwd,
-                "conv3x3_bn_stats": CC.launches_conv_bn_stats,
-                "conv3x3_filter_grad": CC.launches_filter_grad}
+    reset_counts, read_counts = reset_launches, read_launches
 
     state, rn_spec = rn50_model()
     rn50_data = SyntheticDataset(num_classes=100, n_train=RN50_TRAIN,
@@ -3041,7 +3511,14 @@ def main(argv=None):
           f"f64 {loss_64:.9f}; kernel vs plain {loss_rel:.3g} relative")
     check(loss_rel <= 1e-5, loss_rel)
     check_against_f64(before, state_64.model, state_k.model, state_p.model)
-    del before, state_p, state_64, m_k, m_p, m_64
+    # phase 16 takes this step again on two ranks: its state, batch and results
+    images_9, labels_9 = rn_prepare(raw, None, True)
+    p9_path = os.path.join(tmp, "phase9.pt")
+    torch.save({"before": {k: v.cpu() for k, v in before.items()},
+                "images": images_9.cpu(), "labels": labels_9.cpu(),
+                "kernel": {k: v.cpu() for k, v in state_k.model.state_dict().items()},
+                "f64": {k: v.cpu() for k, v in state_64.model.state_dict().items()}}, p9_path)
+    del before, state_p, state_64, m_k, m_p, m_64, images_9, labels_9
     torch.cuda.empty_cache()
 
     # -- 10. ResNet-50 throughput, kernels and plain, f32 and bf16 --------
@@ -3121,6 +3598,21 @@ def main(argv=None):
         "launches_keras_import": p15["keras"]["resnet-50"]["launches"],
     }
 
+    # -- 16. data parallelism on the one card -----------------------------
+    p16 = phase16(device, card, tmp, p9_path, embedding, labels, emb_path, rn50_ckpt,
+                  taxonomy_1000)
+    check("jax" not in sys.modules and not any(
+        m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
+    data_parallel = {
+        # 16a: fit's 3 steps + a validation batch in an NCCL group of one rank
+        "fit_3_steps_nccl_world_1": p16["16a"]["launches"]["group"],
+        # 16b-c: phase 9's step on each of two gloo ranks (64 rows each)
+        "step_each_of_2_ranks_sync_bn": p16["16b"]["launches"],
+        "step_each_of_2_ranks_per_replica_bn": p16["16c"]["launches"],
+        # 16d: the CLI's --gpus 2 on one card, without and under a launcher
+        **{f"cli_gpus_2_{k}": v["launches"] for k, v in p16["16d"].items()},
+    }
+
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
     for part, line in (("fwd", 40), ("bwd", 48)):
@@ -3141,6 +3633,9 @@ def main(argv=None):
             **{key: ({ph: c[f"cosine_loss_{part}"] for ph, c in value.items()}
                      if key == "launches_finetune_jax" else value[f"cosine_loss_{part}"])
                for key, value in interop.items()},
+            # phase 16: the data-parallel paths
+            "launches_data_parallel": {k: v[f"cosine_loss_{part}"]
+                                       for k, v in data_parallel.items()},
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -3198,6 +3693,11 @@ def main(argv=None):
             **{key: ({ph: c[name] for ph, c in value.items()}
                      if key == "launches_finetune_jax" else value[name])
                for key, value in interop.items()},
+            # phase 16: the data-parallel paths; 16f a serving call on two replicas
+            "launches_data_parallel": {
+                **{k: v[name] for k, v in data_parallel.items()},
+                **({"serving_call_two_replicas": p16["16f"]["conv_launches_per_call"]["two"]}
+                   if name == "conv3x3_bn_stats" else {})},
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -3219,7 +3719,7 @@ def main(argv=None):
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
                       "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13,
-                      "phase14": p14, "phase15": p15}))
+                      "phase14": p14, "phase15": p15, "phase16": p16}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -22,6 +22,9 @@ never ``jax``.
                 semantic_embeddings_torch.cli.learn_image_embeddings`` and
                 the JAX package's other CLIs: evaluation, the baseline
                 learners, ``export_model``, ``serve_model``).
+- ``parallel`` — data parallelism: process groups (``--gpus``), batch
+                slices, the collectives of the gradient and of sync BN,
+                device lists for retrieval and serving.
 - ``serving`` — the batching engine, HTTP server and client.
 - ``convert`` — Flax variable tree <-> ``state_dict`` bridge.
 

@@ -4,6 +4,7 @@ that the trainer uses)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -11,6 +12,7 @@ import pickle
 import numpy as np
 import torch
 
+from .. import parallel
 from ..embeddings import save_features
 from ..models import EmbeddingModel, build_network
 from ..train import LOSS_OUTPUT, new_train_state
@@ -51,7 +53,9 @@ def add_common_train_arguments(group):
                        help="Device to run on (cuda, cuda:N or cpu). A CUDA "
                             "device that is not present is an error.")
     group.add_argument("--gpus", type=int, default=1,
-                       help="Number of devices to be used (only 1 is ported).")
+                       help="Number of cards to train on, one process each "
+                            "(spawned here, or started by a launcher such as "
+                            "torchrun); fewer present: those that are.")
     group.add_argument("--read_workers", type=int, default=8,
                        help="Number of parallel data pre-processing threads "
                             "(file datasets; not used by in-memory ones).")
@@ -61,9 +65,13 @@ def add_common_train_arguments(group):
     group.add_argument("--gpu_merge", action="store_true", default=False,
                        help="Accepted for interface parity.")
     group.add_argument("--bn_per_replica", action="store_true", default=False,
-                       help="Per-replica BatchNorm statistics (not ported yet).")
+                       help="Compute BatchNorm statistics per data-parallel "
+                            "rank (the reference's per-tower BN under "
+                            "multi_gpu_model) instead of the default "
+                            "global-batch sync BN. See PARITY.md.")
     group.add_argument("--spatial", type=int, default=1,
-                       help="Spatial partitioning factor (not ported yet).")
+                       help="Spatial partitioning factor (refused: one card "
+                            "has no second device to split an image over).")
 
 
 DECODERS = ("auto", "native", "pillow")
@@ -217,19 +225,21 @@ def extract_test_features(model, dataset, device, batch_size=100, pick=None,
 def dump_artifacts(args, state, model, dataset, device, cls_weight=0.0,
                    meta=None, features=None, autocast_dtype=None):
     """--model_dump / --weight_dump / --feature_dump handling.  Model dumps
-    carry the model configuration in their metadata."""
+    carry the model configuration in their metadata.  In a process group
+    every rank takes part in the feature extraction and rank 0 writes."""
     from ..train.state import save_checkpoint, save_weights
 
     metadata = {"architecture": getattr(args, "architecture", None)}
     if meta:
         metadata.update(meta)
+    main = parallel.is_main()
 
-    if getattr(args, "weight_dump", None):
+    if getattr(args, "weight_dump", None) and main:
         try:
             save_weights(args.weight_dump, state.model)
         except OSError as e:
             print(f"An error occurred while saving the model weights: {e}")
-    if getattr(args, "model_dump", None):
+    if getattr(args, "model_dump", None) and main:
         try:
             save_checkpoint(args.model_dump, state, metadata)
         except OSError as e:
@@ -239,7 +249,8 @@ def dump_artifacts(args, state, model, dataset, device, cls_weight=0.0,
             model, dataset, device,
             batch_size=getattr(args, "val_batch_size", 100) or 100,
             pick=0 if cls_weight > 0 else None, autocast_dtype=autocast_dtype)
-        save_features(args.feature_dump, feats)
+        if main:
+            save_features(args.feature_dump, feats)
 
 
 def read_class_list(path):
@@ -292,12 +303,134 @@ def finetune(args, state, warm_step, eval_step, dataset):
 
 
 def reject_unported_parallel(args):
-    """Refuses the multi-device flags, which are not ported yet."""
-    reject_unported([
-        ("--gpus > 1", args.gpus > 1),
-        ("--spatial", args.spatial > 1),
-        ("--bn_per_replica", args.bn_per_replica),
-    ])
+    """Refuses ``--spatial``, which splits one image's rows over devices:
+    one card has no second device to split an image over, and ``--remat``
+    already halves ResNet-50's peak memory."""
+    if args.spatial > 1:
+        raise SystemExit(
+            "--spatial is not ported yet to the PyTorch package: one card has no "
+            "second device to split an image over, and --remat already halves "
+            "ResNet-50's peak memory.")
+
+
+def mesh_size(gpus, available=None):
+    """The data-parallel degree ``--gpus`` gives when ``available`` devices
+    are present (None: any number, as the CPU offers): fewer present, it
+    prints the JAX package's message (rank 0 of a launcher's ranks) and
+    takes those that are."""
+    n = max(1, int(gpus))
+    if available is not None and n > available:
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(f"Requested {n} devices but only {available} present; using {available}.")
+        n = available
+    return n
+
+
+def set_bn_mode(n, bn_per_replica=False):
+    """BatchNorm over an ``n``-way data-parallel run: one group a rank under
+    ``--bn_per_replica``, else one group (global-batch, sync statistics),
+    with the JAX package's NOTE saying so."""
+    from ..models.layers import set_default_bn_groups
+
+    set_default_bn_groups(n if bn_per_replica else 1)
+    if bn_per_replica:
+        if n > 1:
+            print(f"BatchNorm: per-replica statistics over {n} shards")
+    elif n > 1:
+        print(
+            f"NOTE: --gpus {n} uses global-batch (sync) BatchNorm statistics; "
+            "the reference's multi_gpu_model computes them per tower. Pass "
+            "--bn_per_replica to reproduce published multi-GPU recipes "
+            "exactly (see PARITY.md / RECIPES.md).")
+
+
+def resolve_mesh(gpus, bn_per_replica=False, available=None):
+    """The JAX package's ``resolve_mesh`` (``--spatial`` is refused before
+    it): maps ``--gpus`` onto the data-parallel degree (:func:`mesh_size`)
+    and sets BatchNorm's mode for it (:func:`set_bn_mode`).  Returns the
+    degree."""
+    n = mesh_size(gpus, available)
+    set_bn_mode(n, bn_per_replica)
+    return n
+
+
+def check_mesh_batch(n, *batch_sizes):
+    """Batch sizes must divide over the ``n``-way data-parallel run."""
+    for b in batch_sizes:
+        if b and b % n:
+            raise SystemExit(
+                f"batch size {b} is not divisible by the {n}-way data axis "
+                f"of the device mesh; choose a multiple of {n}.")
+
+
+def sharded():
+    """The batch iterators' ``shard`` keyword in a group of several ranks
+    (each reads its rows only), else none."""
+    return {"shard": True} if parallel.world_size() > 1 else {}
+
+
+def available_devices(device):
+    """How many devices ``--gpus`` may take: a launcher's ``WORLD_SIZE``;
+    else the visible cards for a CUDA ``--device``; else None (the CPU
+    stands in for any number, each rank a process of its own)."""
+    if parallel.launched():
+        return int(os.environ["WORLD_SIZE"])
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count() if torch.cuda.is_available() else 1
+    return None
+
+
+def spawn_data_parallel(args, main, argv):
+    """``--gpus N`` > 1 with no launcher: runs ``main(argv)`` in N spawned
+    processes, one card each (NCCL; gloo on the CPU), and returns True once
+    all of them have ended.  Returns False where this process trains
+    itself: under a launcher, or on one device."""
+    if parallel.launched() or parallel.in_group():
+        return False
+    n = mesh_size(args.gpus, available_devices(args.device))
+    if n == 1:
+        return False
+    import sys
+
+    print(f"spawning {n} data-parallel processes", flush=True)
+    parallel.launch(main, n, list(sys.argv[1:] if argv is None else argv))
+    return True
+
+
+@contextlib.contextmanager
+def data_parallel(args):
+    """The training process's side of ``--gpus``: under a launcher it joins
+    the group (NCCL for a CUDA ``--device``, gloo on the CPU; a group the
+    caller started is kept), sets BatchNorm's mode for the group's size,
+    and checks the batch sizes divide over it; ranks other than 0 print
+    nothing.  Yields ``(device, world)``: this rank's device and the
+    group's size.  Leaves a group it joined on exit."""
+    joins = parallel.launched() and not parallel.in_group()
+    if joins:
+        world = int(os.environ["WORLD_SIZE"])
+        if 1 < args.gpus < world:
+            raise SystemExit(f"--gpus {args.gpus} asks for fewer ranks than the "
+                             f"launcher's WORLD_SIZE {world}")
+        mesh_size(max(args.gpus, world), world)
+    device = resolve_device(str(parallel.rank_device(args.device)))
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    parallel.initialize_distributed(device)
+    world = parallel.world_size()
+    try:
+        with contextlib.ExitStack() as quiet:
+            if not parallel.is_main():
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            if parallel.in_group():
+                print(f"data parallel: rank {parallel.rank()} of {world} "
+                      f"({torch.distributed.get_backend()})")
+            set_bn_mode(world, args.bn_per_replica)
+            check_mesh_batch(world, args.batch_size, getattr(args, "val_batch_size", None))
+            yield device, world
+    finally:
+        if joins:
+            parallel.finalize_distributed()
 
 
 def resolve_tap(taps, layer):
@@ -336,18 +469,22 @@ def extract_by_tap(model, prepare, batches, device, layer=None, train_branch=Fal
     ``torch.Generator`` seeded with ``seed`` that advances batch by batch,
     so repeated passes over the data see fresh augmentations.
     ``autocast_dtype`` (``torch.bfloat16`` for ``--bf16``) runs the forward
-    under autocast; features come back as f32.
+    under autocast; features come back as f32.  In a process group each
+    rank takes its rows of every batch and every rank gets all the rows
+    back (:func:`..parallel.gather_rows`).
     """
     rng = torch.Generator(device=device).manual_seed(seed)
     model.eval()
     chunks, valids = [], []
     for raw in batches:
-        images, _ = prepare(raw, rng, train_branch)
+        local = parallel.shard_batch(raw)
+        images, _ = prepare(local, rng, train_branch)
         with maybe_autocast(device, autocast_dtype):
-            feats = forward_tap(model, images, layer, pick)
-        chunks.append(feats.float())
+            feats = forward_tap(model, images, layer, pick).float()
+        start, _, n = parallel.local_rows(local, feats.shape[0])
+        chunks.append(parallel.gather_rows(feats, n, start))
         valids.append(np.asarray(raw["valid"]) > 0 if "valid" in raw
-                      else np.ones(len(feats), dtype=bool))
+                      else np.ones(n, dtype=bool))
     fetched = torch.cat(chunks).cpu().numpy()
     return fetched[np.concatenate(valids)]
 
@@ -461,6 +598,12 @@ def rebuild_model_from_checkpoint(path, device, architecture=None):
     model = build(_input_channels(weights, build))
     model.load_state_dict(weights, strict=True)
     return model.to(device).eval(), meta
+
+
+def metrics_logger(args):
+    """The ``--log_dir`` logger, on rank 0 only (None elsewhere, or without
+    the flag)."""
+    return MetricsLogger(args.log_dir) if args.log_dir and parallel.is_main() else None
 
 
 class MetricsLogger:

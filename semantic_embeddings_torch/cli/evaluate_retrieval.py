@@ -15,8 +15,13 @@ from collections import OrderedDict
 
 import numpy as np
 
+from .. import parallel
 from ..data import get_data_generator
-from ..evaluation.retrieval import evaluate_retrieval_features
+from ..evaluation.retrieval import (
+    DB_SHARDED_MESH,
+    DB_SHARDED_PROTOCOL,
+    evaluate_retrieval_features,
+)
 from ..hierarchy import ClassHierarchy
 from . import common
 from .common import str2bool
@@ -141,20 +146,28 @@ def build_parser():
                        help="Device to run on (cuda, cuda:N or cpu). A CUDA "
                             "device that is not present is an error.")
     group.add_argument("--gpus", type=int, default=1,
-                       help="Number of devices to be used (only 1 is ported).")
+                       help="Number of devices: query blocks split over them, "
+                            "the database replicated on each (fewer present: "
+                            "those that are).")
     group.add_argument("--db_sharded", action="store_true", default=False,
-                       help="Shard the database rows across devices (not "
-                            "ported yet).")
+                       help="Split the database rows over the --gpus devices "
+                            "instead of replicating it (exact per-device top-k "
+                            "and a merge on the first; identical rankings). "
+                            "Requires --no_ap and --clip_ahp.")
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    common.reject_unported([
-        ("--gpus > 1", args.gpus > 1),
-        ("--db_sharded", args.db_sharded),
-    ])
     device = common.resolve_device(args.device)
+    n_dev = common.mesh_size(args.gpus, common.available_devices(device))
+    devices = parallel.get_devices(n_dev, device) if n_dev > 1 else None
+    if args.db_sharded:
+        # refused before anything is read, with the library's words
+        if devices is None:
+            raise SystemExit(DB_SHARDED_MESH)
+        if not (args.no_ap and args.clip_ahp):
+            raise SystemExit(DB_SHARDED_PROTOCOL)
     common.set_float32_precision()
 
     if args.classes_from:
@@ -187,7 +200,8 @@ def main(argv=None):
             feat_dump, labels_test, hierarchy, ks=ks,
             compute_ahp=args.clip_ahp if args.clip_ahp else True,
             compute_ap=not args.no_ap, normalize=normalize,
-            block_size=args.block_size, device=device)
+            block_size=args.block_size, device=device, devices=devices,
+            db_sharded=args.db_sharded)
         perf[name] = means
 
     metrics = list(METRICS)

@@ -76,9 +76,20 @@ def build_parser():
 
 
 def main(argv=None):
+    """Trains as the flags say.  ``--gpus N`` > 1 with no launcher runs this
+    in N spawned processes, one card each (then returns None); under a
+    launcher's environment this process is one rank of the group."""
     args = build_parser().parse_args(argv)
     common.reject_unported_parallel(args)
-    device = common.resolve_device(args.device)
+    if common.spawn_data_parallel(args, main, argv):
+        return None
+    with common.data_parallel(args) as (device, _):
+        return train(args, device)
+
+
+def train(args, device):
+    """The run on ``device``: this process's rank of a data-parallel group,
+    or the whole run."""
     common.set_float32_precision()
     if args.val_batch_size is None:
         args.val_batch_size = args.batch_size
@@ -136,12 +147,13 @@ def main(argv=None):
                                  epochs)
     train_step = make_center_loss_train_step(
         model, prepare, trainable_fn=trainable if frozen else None, **step_kw)
-    log_fn = common.MetricsLogger(args.log_dir) if args.log_dir else None
+    log_fn = common.metrics_logger(args)
     state = fit(state, train_step, eval_step, dataset, schedule, epochs=epochs,
                 batch_size=args.batch_size, val_batch_size=args.val_batch_size,
                 decay=decay, verbose=not args.no_progress, log_fn=log_fn)
 
-    report(run_validation(eval_step, state, dataset.test_batches(args.val_batch_size),
+    report(run_validation(eval_step, state,
+                          dataset.test_batches(args.val_batch_size, **common.sharded()),
                           None), dataset, with_accuracy=False)
     features = common.extract_test_features(model, dataset, device, args.val_batch_size,
                                             pick=0) if args.feature_dump else None

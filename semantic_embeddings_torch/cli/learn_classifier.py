@@ -30,6 +30,7 @@ from ..train import (
 from ..train.metrics import balanced_accuracy
 from ..train.optimizer import decay_from_max_decay
 from ..train.schedules import LR_SCHEDULES
+from .. import parallel
 from . import common
 
 
@@ -84,9 +85,20 @@ def build_parser():
 
 
 def main(argv=None):
+    """Trains as the flags say.  ``--gpus N`` > 1 with no launcher runs this
+    in N spawned processes, one card each (then returns None); under a
+    launcher's environment this process is one rank of the group."""
     args = build_parser().parse_args(argv)
     common.reject_unported_parallel(args)
-    device = common.resolve_device(args.device)
+    if common.spawn_data_parallel(args, main, argv):
+        return None
+    with common.data_parallel(args) as (device, _):
+        return train(args, device)
+
+
+def train(args, device):
+    """The run on ``device``: this process's rank of a data-parallel group,
+    or the whole run."""
     common.set_float32_precision()
     autocast_dtype = torch.bfloat16 if args.bf16 else None
     if args.val_batch_size is None:
@@ -130,7 +142,7 @@ def main(argv=None):
     decay = decay_from_max_decay(
         args.max_decay, dataset.num_train // args.batch_size, epochs)
     train_step = make_classifier_train_step(model, prepare, **step_kwargs)
-    log_fn = common.MetricsLogger(args.log_dir) if args.log_dir else None
+    log_fn = common.metrics_logger(args)
     meta = {"architecture": args.architecture, "cls_classes": dataset.num_classes}
 
     state = fit(
@@ -141,7 +153,8 @@ def main(argv=None):
         snapshot_best=args.snapshot_best, verbose=not args.no_progress,
         log_fn=log_fn, snapshot_meta=meta)
 
-    final = run_validation(eval_step, state, dataset.test_batches(args.val_batch_size),
+    final = run_validation(eval_step, state,
+                          dataset.test_batches(args.val_batch_size, **common.sharded()),
                            None)
     preds = final.pop("predictions", None)
     print({k: round(float(v), 6) for k, v in final.items()})
@@ -152,9 +165,11 @@ def main(argv=None):
 
     # the feature dump holds the penultimate features: the avg_pool tap
     if args.feature_dump:
-        save_features(args.feature_dump, common.extract_by_tap(
+        features = common.extract_by_tap(
             model, dataset.make_prepare(device), dataset.test_batches(args.val_batch_size),
-            device, layer="avg_pool", autocast_dtype=autocast_dtype))
+            device, layer="avg_pool", autocast_dtype=autocast_dtype)
+        if parallel.is_main():
+            save_features(args.feature_dump, features)
         args.feature_dump = None
     common.dump_artifacts(args, state, model, dataset, device, meta=meta)
     return state

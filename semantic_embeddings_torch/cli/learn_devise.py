@@ -130,7 +130,7 @@ def main(argv=None):
         print("Fine-tuning all layers")
         decay = decay_from_max_decay(
             args.max_decay, dataset.num_train // args.batch_size, args.ft_epochs)
-        log_fn = common.MetricsLogger(args.log_dir) if args.log_dir else None
+        log_fn = common.metrics_logger(args)
         state = fit(
             state, make_train_step(model, prepare, **step_kwargs), eval_step, dataset,
             PiecewiseSchedule([(0, args.ft_lr)]), epochs=args.ft_epochs,

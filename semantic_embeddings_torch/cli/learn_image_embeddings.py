@@ -131,10 +131,21 @@ def build_parser():
 
 
 def main(argv=None):
+    """Trains as the flags say.  ``--gpus N`` > 1 with no launcher runs this
+    in N spawned processes, one card each (then returns None); under a
+    launcher's environment this process is one rank of the group."""
     args = build_parser().parse_args(argv)
     common.reject_unported_parallel(args)
     common.reject_unported([("--profile_dir", args.profile_dir is not None)])
-    device = common.resolve_device(args.device)
+    if common.spawn_data_parallel(args, main, argv):
+        return None
+    with common.data_parallel(args) as (device, _):
+        return train(args, device)
+
+
+def train(args, device):
+    """The run on ``device``: this process's rank of a data-parallel group,
+    or the whole run."""
     common.set_float32_precision()
     autocast_dtype = torch.bfloat16 if args.bf16 else None
     if args.val_batch_size is None:
@@ -226,7 +237,7 @@ def main(argv=None):
 
     train_step = make_train_step(
         train_model, prepare, **step_kwargs, **train_overrides)
-    log_fn = common.MetricsLogger(args.log_dir) if args.log_dir else None
+    log_fn = common.metrics_logger(args)
 
     state = fit(
         state, train_step, eval_step, dataset, schedule,
@@ -246,7 +257,7 @@ def main(argv=None):
 
     # Final evaluation.
     final = run_validation(
-        eval_step, state, dataset.test_batches(args.val_batch_size), None)
+        eval_step, state, dataset.test_batches(args.val_batch_size, **common.sharded()), None)
     preds = final.pop("predictions", None)
     print({k: round(float(v), 6) for k, v in final.items()})
     if args.cls_weight > 0 and preds is not None:

@@ -81,9 +81,20 @@ def report(final, dataset, with_accuracy=True):
 
 
 def main(argv=None):
+    """Trains as the flags say.  ``--gpus N`` > 1 with no launcher runs this
+    in N spawned processes, one card each (then returns None); under a
+    launcher's environment this process is one rank of the group."""
     args = build_parser().parse_args(argv)
     common.reject_unported_parallel(args)
-    device = common.resolve_device(args.device)
+    if common.spawn_data_parallel(args, main, argv):
+        return None
+    with common.data_parallel(args) as (device, _):
+        return train(args, device)
+
+
+def train(args, device):
+    """The run on ``device``: this process's rank of a data-parallel group,
+    or the whole run."""
     common.set_float32_precision()
     if args.val_batch_size is None:
         args.val_batch_size = args.batch_size
@@ -117,13 +128,14 @@ def main(argv=None):
     epochs = args.epochs if args.epochs else num_epochs
     decay = decay_from_max_decay(args.max_decay, dataset.num_train // args.batch_size,
                                  epochs)
-    log_fn = common.MetricsLogger(args.log_dir) if args.log_dir else None
+    log_fn = common.metrics_logger(args)
     state = fit(state, make_labelembed_train_step(model, prepare, **step_kw), eval_step,
                 dataset, schedule, epochs=epochs, batch_size=args.batch_size,
                 val_batch_size=args.val_batch_size, decay=decay,
                 verbose=not args.no_progress, log_fn=log_fn)
 
-    report(run_validation(eval_step, state, dataset.test_batches(args.val_batch_size),
+    report(run_validation(eval_step, state,
+                          dataset.test_batches(args.val_batch_size, **common.sharded()),
                           None), dataset)
     features = common.extract_test_features(model, dataset, device, args.val_batch_size,
                                             pick=0) if args.feature_dump else None

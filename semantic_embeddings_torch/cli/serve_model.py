@@ -26,6 +26,7 @@ Normalization: ``--dataset`` picks that dataset's channel statistics, or
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -74,7 +75,9 @@ def build_parser():
                           "after the first request arrives.")
     srv.add_argument("--request_timeout_s", type=float, default=60.0)
     srv.add_argument("--gpus", type=int, default=1,
-                     help="Number of devices to serve on (only 1 is ported).")
+                     help="Number of devices to serve on: a replica of the "
+                          "model on each, every device call split over them "
+                          "(fewer present: those that are).")
     srv.add_argument("--max_queue", type=int, default=None,
                      help="Pending-image cap; beyond it requests get HTTP "
                           "503 + Retry-After instead of queueing unbounded "
@@ -216,44 +219,61 @@ def resolve_stats(args):
     return None, None
 
 
-def make_server(args):
+def _device_fn(forward, device, mean, std, device_preproc):
+    """The engine's call on ``device``: the host batch copied there (uint8
+    cast and normalized there with ``device_preproc``: a quarter of the
+    bytes on the wire), then ``forward``, with ``device`` current so that
+    every launch goes to its streams."""
     from ..data.cifar import to_device
+
+    on_card = (torch.cuda.device(device) if device.type == "cuda"
+               else contextlib.nullcontext())
+    mean = torch.as_tensor(0.0 if mean is None else mean, dtype=torch.float32, device=device)
+    std = torch.as_tensor(1.0 if std is None else std, dtype=torch.float32, device=device)
+
+    def fn(batch):
+        with on_card:
+            x = to_device(batch, device)
+            return forward((x.float() - mean) / std if device_preproc else x)
+
+    return fn
+
+
+def make_server(args):
+    from .. import parallel
     from ..serving import BatchingEngine, Preprocessor, ServingServer
     from . import common
 
-    common.reject_unported([("--gpus > 1", args.gpus > 1)])
     device = common.resolve_device(args.device)
     common.set_float32_precision()
-    forward, meta = build_model_fn(args, device)
+    # --gpus N: a replica of the model on each of N devices, every pack split
+    # over them (the CPU stands in for any number of devices)
+    n_dev = common.mesh_size(args.gpus, common.available_devices(device))
+    devices = parallel.get_devices(n_dev, device) if n_dev > 1 else [device]
+    meta = None
     mean, std = resolve_stats(args)
+    fns = []
+    for dev in devices:
+        forward, dev_meta = build_model_fn(args, dev)
+        meta = meta or dev_meta
+        fns.append(_device_fn(forward, dev, mean, std, args.device_preproc))
     meta["mean"], meta["std"] = mean, std
+    if n_dev > 1:
+        meta["devices"] = n_dev
+    engine_dtype = np.uint8 if args.device_preproc else np.float32
     if args.device_preproc:
-        # uint8 on the wire; the cast and the mean/std run on the device
-        mean_dev = torch.as_tensor(mean if mean is not None else 0.0,
-                                   dtype=torch.float32, device=device)
-        std_dev = torch.as_tensor(std if std is not None else 1.0,
-                                  dtype=torch.float32, device=device)
-
-        def fn(batch):
-            return forward((to_device(batch, device).float() - mean_dev) / std_dev)
-
-        engine_dtype = np.uint8
         meta["device_preproc"] = True
-    else:
-        def fn(batch):
-            return forward(to_device(batch, device))
-
-        engine_dtype = np.float32
     decoder = common.resolve_decoder(args.decoder)
     preproc = Preprocessor(meta["input_size"], args.input_channels, mean=mean, std=std,
                            target_size=args.target_size, device_norm=args.device_preproc,
                            decoder=decoder, n_threads=args.decode_threads)
     print(f"JPEG bodies decode with the {'native' if decoder == 'native' else 'Pillow'} "
           f"decoder (--decoder {args.decoder})", flush=True)
-    # an artifact of a fixed batch takes that batch only
+    # an artifact of a fixed batch takes that batch only, on each device
     fixed = meta.get("fixed_batch")
+    fixed = fixed and fixed * n_dev
     engine = BatchingEngine(
-        fn, (meta["input_size"], meta["input_size"], args.input_channels),
+        fns, (meta["input_size"], meta["input_size"], args.input_channels),
         max_batch=fixed or args.max_batch, timeout_ms=args.batch_timeout_ms,
         buckets=[fixed] if fixed else None, max_queue=args.max_queue,
         dtype=engine_dtype)

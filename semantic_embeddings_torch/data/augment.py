@@ -70,6 +70,19 @@ def affine_apply(images, ty, tx, zy, zx, flip):
     return top * (1 - wy) + bot * wy
 
 
+def rows_of(draws, start, stop):
+    """Rows [start, stop) of every tensor in a tree (tuple, list, dict, or
+    None) of per-image draws: a process's share of draws made for its whole
+    global batch."""
+    if draws is None:
+        return None
+    if isinstance(draws, dict):
+        return {k: rows_of(v, start, stop) for k, v in draws.items()}
+    if isinstance(draws, (tuple, list)):
+        return type(draws)(rows_of(v, start, stop) for v in draws)
+    return draws[start:stop]
+
+
 def random_affine_batch(images, generator, *, width_shift=0.0,
                         height_shift=0.0, zoom=0.0, hflip=False):
     """Keras-style random shift / zoom / flip for a batch (B, H, W, C)."""

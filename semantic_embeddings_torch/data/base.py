@@ -109,10 +109,13 @@ class DatasetBase:
             n = len(counts) * counts.max() * self.repeats
         return int(np.ceil(n / batch_size))
 
-    def train_batches(self, batch_size, epoch, seed=0):
+    def train_batches(self, batch_size, epoch, seed=0, shard=False):
+        """Raw batches of one epoch; with ``shard`` this process's rows of
+        each global batch (``..parallel.shard_batch``: ``rows`` says where
+        they lie)."""
         raise NotImplementedError
 
-    def test_batches(self, batch_size):
+    def test_batches(self, batch_size, shard=False):
         raise NotImplementedError
 
     def make_prepare(self):

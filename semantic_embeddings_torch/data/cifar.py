@@ -15,6 +15,7 @@ import pickle
 import numpy as np
 import torch
 
+from .. import parallel
 from . import augment
 from .base import DatasetBase, batched_indices, batched_indices_masked, epoch_permutation
 
@@ -111,15 +112,17 @@ class InMemoryDataset(DatasetBase):
             repeats=self.repeats)
         return batched_indices(perm, batch_size)
 
-    def train_batches(self, batch_size, epoch, seed=0):
+    def train_batches(self, batch_size, epoch, seed=0, shard=False):
         for idx in self._perm_batches(
                 batch_size, epoch, seed, self.labels_train, shuffle=True):
-            yield {"idx": idx.astype(np.int32)}
+            raw = {"idx": idx.astype(np.int32)}
+            yield parallel.shard_batch(raw) if shard else raw
 
-    def test_batches(self, batch_size):
+    def test_batches(self, batch_size, shard=False):
         idx, valid = batched_indices_masked(self.num_test, batch_size)
         for i, v in zip(idx, valid):
-            yield {"idx": i.astype(np.int32), "valid": v}
+            raw = {"idx": i.astype(np.int32), "valid": v}
+            yield parallel.shard_batch(raw) if shard else raw
 
     def train_eval_batches(self, batch_size, augment=False, epochs=1):
         """Ordered masked batches over the training set, ``epochs`` passes
@@ -153,7 +156,9 @@ class InMemoryDataset(DatasetBase):
     def make_prepare(self, device, augment_train=True):
         """Returns ``prepare(raw, rng, train) -> (images, labels)``: NHWC
         float32 normalized images and int64 labels on ``device``; ``rng`` is
-        a ``torch.Generator`` on ``device``."""
+        a ``torch.Generator`` on ``device``.  Of a process's rows of a
+        global batch (``raw["rows"]``) the augmentation is drawn for the
+        whole batch and applied to these rows."""
         device = torch.device(device)
         xtr, ytr, xte, yte = self.device_arrays(device)
         mean = torch.as_tensor(self.mean, device=device)
@@ -166,9 +171,13 @@ class InMemoryDataset(DatasetBase):
                 images = xtr[idx].float()
                 labels = ytr[idx]
                 if augment_train:
-                    images = augment.random_affine_batch(
-                        images, rng, width_shift=ws, height_shift=hs, zoom=zm,
+                    b, h, w, _ = images.shape
+                    start, stop, n = parallel.local_rows(raw, b)
+                    params = augment.draw_affine_params(
+                        n, h, w, rng, width_shift=ws, height_shift=hs, zoom=zm,
                         hflip=hf)
+                    images = augment.affine_apply(
+                        images, *augment.rows_of(params, start, stop))
             else:
                 images = xte[idx].float()
                 labels = yte[idx]

@@ -23,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import parallel
 from . import augment
 from .base import DatasetBase, batched_indices_masked, epoch_permutation
 from .cifar import to_device
@@ -314,12 +315,17 @@ class FileDataset(DatasetBase):
             return rng.integers(lo, hi, size=n).astype(np.int32)
         return np.full(n, base if base and base > 0 else 0, dtype=np.int32)
 
-    def _compose(self, files, train, rng):
-        """One uint8 batch (n, crop_h, crop_w, 3) of ``files``."""
+    def _compose(self, files, train, rng, rows=None):
+        """One uint8 batch (n, crop_h, crop_w, 3) of ``files``; with ``rows``
+        = (start, stop) only those images, at the draws the whole batch
+        takes from ``rng``."""
         n = len(files)
         seeds = rng.integers(1, 2 ** 62, size=n)
+        targets = self._native_targets(n, train, rng) if self.use_native else None
+        if rows is not None:
+            files, seeds = files[rows[0]:rows[1]], seeds[rows[0]:rows[1]]
+            targets = None if targets is None else targets[rows[0]:rows[1]]
         if self.use_native:
-            targets = self._native_targets(n, train, rng)
             if targets is not None:
                 from .. import native
 
@@ -353,7 +359,24 @@ class FileDataset(DatasetBase):
     # Each yields {"image": uint8 tensor (B, H, W, 3), "label": int32 array
     # [, "valid": float32 mask]} from a prefetch thread.
 
-    def train_batches(self, batch_size, epoch, seed=0):
+    def _batch(self, files, labels, train, rng, valid=None, shard=False):
+        """A raw batch of ``files``; with ``shard`` only this process's rows
+        are read and decoded (``rows`` says where they lie)."""
+        rows, n = None, len(files)
+        if shard and parallel.world_size() > 1:
+            start, stop = parallel.process_slice(n)
+            rows = (start, stop)
+            labels = labels[start:stop]
+            valid = None if valid is None else valid[start:stop]
+        raw = {"image": _host_batch(self._compose(files, train, rng, rows)),
+               "label": labels}
+        if valid is not None:
+            raw["valid"] = valid
+        if rows is not None:
+            raw["rows"] = rows + (n,)
+        return raw
+
+    def train_batches(self, batch_size, epoch, seed=0, shard=False):
         rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
         perm = epoch_permutation(
             self._train_labels, rng, shuffle=True,
@@ -366,25 +389,19 @@ class FileDataset(DatasetBase):
             for b in range(n_batches):
                 idx = padded[b * batch_size : (b + 1) * batch_size]
                 files = [self.train_img_files[i] for i in idx]
-                yield {
-                    "image": _host_batch(self._compose(files, True, rng)),
-                    "label": self._train_labels[idx],
-                }
+                yield self._batch(files, self._train_labels[idx], True, rng, shard=shard)
 
         return prefetch(gen(), self.queue_size)
 
-    def test_batches(self, batch_size):
+    def test_batches(self, batch_size, shard=False):
         idx_b, valid_b = batched_indices_masked(self.num_test, batch_size)
         rng = np.random.default_rng(0)
 
         def gen():
             for idx, valid in zip(idx_b, valid_b):
                 files = [self.test_img_files[i] for i in idx]
-                yield {
-                    "image": _host_batch(self._compose(files, False, rng)),
-                    "label": self._test_labels[idx],
-                    "valid": valid,
-                }
+                yield self._batch(files, self._test_labels[idx], False, rng, valid=valid,
+                                  shard=shard)
 
         return prefetch(gen(), self.queue_size)
 
@@ -429,7 +446,9 @@ class FileDataset(DatasetBase):
         """Returns ``prepare(raw, rng, train) -> (images, labels)``: NHWC
         float32 normalized images and int64 labels on ``device``; ``rng`` is
         a ``torch.Generator`` on ``device`` from which :meth:`draw_augment`
-        draws the train-time augmentation."""
+        draws the train-time augmentation (of a process's rows of a global
+        batch, ``raw["rows"]``, drawn for the whole batch and applied to
+        these rows)."""
         device = torch.device(device)
         mean = torch.as_tensor(self.mean, device=device)
         std = torch.as_tensor(self.std, device=device)
@@ -446,7 +465,8 @@ class FileDataset(DatasetBase):
             draws = None
             if train and augment_train:
                 b, h, w, _ = images.shape
-                draws = self.draw_augment(b, h, w, rng)
+                start, stop, n = parallel.local_rows(raw, b)
+                draws = augment.rows_of(self.draw_augment(n, h, w, rng), start, stop)
                 if draws["color"] is not None:
                     images = augment.distort_color_apply(images, **draws["color"])
             images = augment.normalize(images, mean, std, bgr=bgr)

@@ -1,7 +1,8 @@
 """All-pairs retrieval: blockwise GEMM + ranking + metric core on the device.
 
-Counterpart of the JAX package's ``evaluation/retrieval.py`` (its
-single-device path).  The database stays on the device; each block of
+Counterpart of the JAX package's ``evaluation/retrieval.py``: one device,
+or a list of them (``--gpus``) over which the query blocks split with the
+database replicated, or the database's rows split (``--db_sharded``).  The database stays on the device; each block of
 queries takes one (B x d) @ (d x N) GEMM, a stable ranking on the device,
 and the hierarchical-precision math of
 :class:`~semantic_embeddings_torch.evaluation.hierarchical.HPEvaluator` on
@@ -101,9 +102,11 @@ def ranked_classes(sims, q_index, db_classes, topk=None):
 
 
 def _device_metric_fn(evaluator, normalize, device, topk=None):
-    """``block_metrics(queries, database, q_index)`` -> ``{metric: (B,)}``
-    f32 tensors on ``device``: the GEMM, the ranking, the class gathers,
-    the cumulative sums and the metric reductions, all on the device.
+    """``block_metrics(queries, database, q_index, ranked=None)`` ->
+    ``{metric: (B,)}`` f32 tensors on ``device``: the GEMM, the ranking, the
+    class gathers, the cumulative sums and the metric reductions, all on the
+    device.  ``ranked``: the block's ranked database indices, query first,
+    where the caller ranked them (the database-sharded merge).
 
     Assumes the query pinned to rank 0 and dropped (query-id removal with
     the optimal cumulative curve cut at rank 0).  ``topk``: when the metrics
@@ -132,10 +135,12 @@ def _device_metric_fn(evaluator, normalize, device, topk=None):
     best_w, best_l = table(best_w), table(best_l)
     db_classes = table(evaluator.db_classes, torch.int64)
 
-    def block_metrics(queries, database, q_index):
-        sims = _similarities(queries, database, normalize)
-        ranked_cls = ranked_classes(sims, q_index, db_classes, topk)
-        del sims
+    def block_metrics(queries, database, q_index, ranked=None):
+        if ranked is None:
+            sims = _similarities(queries, database, normalize)
+            ranked = _ranked(sims, q_index, topk)
+            del sims
+        ranked_cls = db_classes[ranked[:, 1:]]
         q_cls = db_classes[q_index]
         wup = wup_sim[q_cls[:, None], ranked_cls]
         lcs = lcs_sim[q_cls[:, None], ranked_cls]
@@ -193,9 +198,55 @@ def default_block_size(n):
     return int(min(8192, max(1024, 2 ** int(np.log2(max(1.0, 2e9 / 4.0 / max(n, 1)))))))
 
 
+DB_SHARDED_MESH = "db_sharded needs a mesh"
+DB_SHARDED_PROTOCOL = (
+    "db_sharded requires the top-k prefix protocol "
+    "(compute_ap=False and a clipped compute_ahp): full-sort "
+    "metrics need every rank, which a sharded database cannot "
+    "produce without an all-to-all of the whole sims matrix")
+
+
+def _db_sharded_ranker(database, devices, normalize, topk):
+    """``rank(queries, q_index)`` -> (B, topk + 1) global database indices,
+    query first, with the database's rows split over ``devices``: the rows
+    padded to a multiple of their number (the padding masked to -inf), each
+    device ranks its shard by an exact top-(topk + 1) (each query pinned by
+    +inf on the shard that holds it), and the first device merges the
+    candidates by value descending, then global index ascending.  That is
+    the replicated ranking bit for bit, ties included: each shard's
+    candidates keep index order among equal values, the shards come in row
+    order, and the merge is a stable sort."""
+    n, n_dev = database.shape[0], len(devices)
+    per = -(-n // n_dev)
+    padded = torch.cat([database, database.new_zeros((per * n_dev - n, database.shape[1]))])
+    shards = [padded[i * per:(i + 1) * per].to(dev) for i, dev in enumerate(devices)]
+    k_out = topk + 1
+    first = devices[0]
+
+    def rank(queries, q_index):
+        values, index = [], []
+        for i, (dev, shard) in enumerate(zip(devices, shards)):
+            sims = _similarities(queries.to(dev), shard, normalize)
+            lo = i * per
+            if lo + per > n:  # padded rows never win
+                sims[:, max(n - lo, 0):] = float("-inf")
+            q = q_index.to(dev)
+            mine = (q >= lo) & (q < lo + per)
+            sims[torch.nonzero(mine).squeeze(1), q[mine] - lo] = float("inf")
+            v, j = exact_topk(sims, min(k_out, per))
+            values.append(v.to(first))
+            index.append((j + lo).to(first))
+        values, index = torch.cat(values, dim=1), torch.cat(index, dim=1)
+        order = torch.sort(values, dim=1, descending=True, stable=True).indices
+        return torch.gather(index, 1, order[:, :k_out])
+
+    return rank
+
+
 def evaluate_retrieval_features(features, labels, hierarchy, ks=(1, 10, 50, 100),
                                 compute_ahp=True, compute_ap=True, normalize=False,
-                                block_size=None, *, device):
+                                block_size=None, *, device=None, devices=None,
+                                db_sharded=False):
     """Features -> hierarchical retrieval metrics, computed on ``device``.
 
     ``features``: a feature dump (path or ``{'feat': {id: vector}}``), a
@@ -204,8 +255,21 @@ def evaluate_retrieval_features(features, labels, hierarchy, ks=(1, 10, 50, 100)
     ``block_size``: queries per block; by default a ~2 GB f32 similarity
     block.  Every block is enqueued before anything is fetched, and the
     per-query scalars come back in one transfer.
+    ``devices``: a list of devices (``--gpus N``; the JAX package's mesh)
+    over which each query block is split, the database replicated on each;
+    or with ``db_sharded`` the database's rows split over them
+    (:func:`_db_sharded_ranker`), which takes the top-k prefix protocol
+    (no AP, clipped AHP).  The results come together on the first device.
     Returns ``(means, per_query)`` with the reference's metric names.
     """
+    if devices is None:
+        if db_sharded:
+            raise ValueError(DB_SHARDED_MESH)
+        if device is None:
+            raise ValueError("pass a device or a list of devices")
+        devices = [device]
+    devices = [torch.device(d) for d in devices]
+    device = devices[0]
     ids, feats = load_features(features)
     if ids is not None:
         # dumps key rows by image id, in any order: pair labels by id
@@ -232,14 +296,31 @@ def evaluate_retrieval_features(features, labels, hierarchy, ks=(1, 10, 50, 100)
         topk = limit if limit < n - 1 else None
     if block_size is None:
         block_size = default_block_size(n)
-    block_metrics = _device_metric_fn(evaluator, normalize, device, topk=topk)
-
+    names = evaluator.metric_names
     blocks = []
-    for start in range(0, n, block_size):
-        stop = min(start + block_size, n)
-        q_index = torch.arange(start, stop, device=device)
-        out = block_metrics(database[start:stop], database, q_index)
-        blocks.append(torch.stack([out[name] for name in evaluator.metric_names]))
+    if db_sharded:
+        if topk is None:
+            raise ValueError(DB_SHARDED_PROTOCOL)
+        block_metrics = _device_metric_fn(evaluator, normalize, device, topk=topk)
+        rank = _db_sharded_ranker(database, devices, normalize, topk)
+        for start in range(0, n, block_size):
+            q_index = torch.arange(start, min(start + block_size, n), device=device)
+            out = block_metrics(None, None, q_index,
+                                ranked=rank(database[start:start + block_size], q_index))
+            blocks.append(torch.stack([out[name] for name in names]))
+    else:
+        # the database on every device; each query block split over them
+        copies = {dev: (database.to(dev),
+                        _device_metric_fn(evaluator, normalize, dev, topk=topk))
+                  for dev in dict.fromkeys(devices)}
+        for start in range(0, n, block_size):
+            chunks = torch.arange(start, min(start + block_size, n)).tensor_split(len(devices))
+            for dev, q_index in zip(devices, chunks):
+                if len(q_index):
+                    db, block_metrics = copies[dev]
+                    q_index = q_index.to(dev)
+                    out = block_metrics(db[q_index], db, q_index)
+                    blocks.append(torch.stack([out[name] for name in names]).to(device))
     per_query_arr = torch.cat(blocks, dim=1).cpu().numpy().astype(np.float64)
 
     means = {name: float(vals.mean())

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import parallel
+
 
 def upcast32(x):
     """Upcast-only stability cast: bf16/f16 -> f32, f32 -> f32, f64 -> f64."""
@@ -206,24 +208,52 @@ def rematerialized(block, x):
     return checkpoint(block, x, use_reentrant=False, context_fn=_remat_contexts)
 
 
+#: BatchNorm statistics groups a :class:`KerasBatchNorm` that pins none
+#: takes: 1 is global-batch (sync) BN, the default; ``--bn_per_replica``
+#: sets the data-parallel degree (:func:`set_default_bn_groups`), the
+#: reference's per-tower BN.  Read at every forward.
+DEFAULT_BN_GROUPS = 1
+
+
+def set_default_bn_groups(groups: int):
+    global DEFAULT_BN_GROUPS
+    DEFAULT_BN_GROUPS = max(1, int(groups))
+
+
+def _channels_view(v, ndim):
+    """A per-channel (C,) vector shaped to broadcast over (N, C, ...)."""
+    return v.view((1, -1) + (1,) * (ndim - 2))
+
+
 class KerasBatchNorm(nn.Module):
     """BatchNorm with Keras defaults (momentum 0.99, eps 1e-3) and Flax's
     running-statistics update.
 
-    Normalization runs through ``F.batch_norm`` (cuDNN on the card) over the
-    channel axis 1 of a (N, C, ...) input.  ``F.batch_norm`` would move the
-    running variance towards the *unbiased* batch variance; Flax (and Keras)
-    move it towards the biased one, so the update is corrected right after.
-    ``scale_init(weight, generator)`` draws the scale (ones by default; the
-    WRN's BNs draw :func:`keras_uniform_`).  Under :func:`recomputing` the
-    running statistics stay as they are.
+    One process, one group: normalization runs through ``F.batch_norm``
+    (cuDNN on the card) over the channel axis 1 of a (N, C, ...) input.
+    ``F.batch_norm`` would move the running variance towards the *unbiased*
+    batch variance; Flax (and Keras) move it towards the biased one, so the
+    update is corrected right after.  ``scale_init(weight, generator)``
+    draws the scale (ones by default; the WRN's BNs draw
+    :func:`keras_uniform_`).  Under :func:`recomputing` the running
+    statistics stay as they are.
+
+    In a process group of more than one rank the statistics are the global
+    batch's (sync BN): the local f32 sums of x and x**2 cross the group
+    through :func:`..parallel.all_reduce_sum` and
+    :meth:`forward_from_stats` normalizes with the global count, as Flax's
+    ``nn.BatchNorm`` forms them.  ``groups`` (or :data:`DEFAULT_BN_GROUPS`)
+    above 1 gives each of that many batch groups its own statistics
+    (:class:`_GroupedBatchNorm`'s arithmetic); over W ranks each holds
+    ``groups / W`` of them.
     """
 
     def __init__(self, features, momentum=0.99, epsilon=1e-3, scale_init=None,
-                 generator=None):
+                 generator=None, groups=None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
+        self.groups = groups
         self.weight = nn.Parameter(torch.ones(features))
         if scale_init is not None:
             with torch.no_grad():
@@ -232,11 +262,21 @@ class KerasBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def _groups(self):
+        return self.groups if self.groups is not None else DEFAULT_BN_GROUPS
+
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.epsilon)
+        groups, world = self._groups(), parallel.world_size()
+        if groups > 1:
+            return self._grouped(x, groups, world)
+        if world > 1:
+            xf = upcast32(x)
+            dims = [0] + list(range(2, x.ndim))
+            return self.forward_from_stats(x, xf.sum(dims), (xf * xf).sum(dims))
         m = self.momentum
         if _recomputing():
             # the same call as the first forward's (so autograd saves the
@@ -257,20 +297,29 @@ class KerasBatchNorm(nn.Module):
         return y
 
     def forward_from_stats(self, y, s, ss):
-        """BatchNorm of NCHW ``y`` whose per-channel f32 sums ``s`` = sum(y)
-        and ``ss`` = sum(y**2) over (N, H, W) are given (by the fused conv
-        of :mod:`..ops.conv3x3`).
+        """BatchNorm of (N, C, ...) ``y`` whose per-channel f32 sums ``s`` =
+        sum(y) and ``ss`` = sum(y**2) over every axis but 1 are given (by
+        the fused conv of :mod:`..ops.conv3x3`).
 
         Training uses the batch statistics as Flax's ``nn.BatchNorm`` forms
         them (``use_fast_variance``): mean = s / n and var = max(0, ss / n -
         mean**2), with n = N*H*W; the running statistics move towards that
-        mean and that biased var.  Evaluation uses the running statistics
-        and leaves ``s`` and ``ss`` unused.  The normalization runs in f32
-        (f64 for f64 y) and the result is cast back to y's dtype, as Flax's
-        ``BatchNorm(dtype=bf16)`` does.
+        mean and that biased var.  In a group of W > 1 ranks, s and ss are
+        first summed over the group and n is W times the local count (sync
+        BN); with BN groups above 1 each group takes its own statistics.
+        Evaluation uses the running statistics and leaves ``s`` and ``ss``
+        unused.  The normalization runs in f32 (f64 for f64 y) and the
+        result is cast back to y's dtype, as Flax's ``BatchNorm(dtype=bf16)``
+        does.
         """
         if self.training:
+            groups, world = self._groups(), parallel.world_size()
+            if groups > 1:
+                return self._grouped(y, groups, world, sums=(s, ss))
             n = y.numel() // y.shape[1]
+            if world > 1:
+                s, ss = parallel.all_reduce_sum(torch.stack([s, ss])).unbind(0)
+                n *= world
             mean = s / n
             var = torch.clamp_min(ss / n - mean * mean, 0.0)
             m = self.momentum
@@ -281,8 +330,60 @@ class KerasBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
-        out = (upcast32(y) - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
-        return (out + self.bias.view(1, -1, 1, 1)).to(y.dtype)
+        out = (upcast32(y) - _channels_view(mean, y.ndim)) * _channels_view(mul, y.ndim)
+        return (out + _channels_view(self.bias, y.ndim)).to(y.dtype)
+
+    def _grouped(self, x, groups, world, sums=None):
+        """Training BatchNorm with per-group statistics, the JAX package's
+        ``_GroupedBatchNorm``: the local batch splits into ``groups / world``
+        groups of consecutive rows, each normalized by its own mean and
+        (two-pass, biased) variance; a single local group takes them from
+        ``sums`` where they are given.  The running statistics move by the
+        whole global batch's moments: the mean of the group means, and by
+        the law of total variance the mean of the group variances plus the
+        variance of the group means, from one sum over the group of the
+        group means, their squares and the group variances."""
+        if groups % world:
+            raise ValueError(f"{groups} BatchNorm groups do not divide over {world} ranks")
+        g = groups // world
+        if x.shape[0] % g:
+            raise ValueError(f"batch {x.shape[0]} not divisible by bn groups {g}")
+        xg = upcast32(x).reshape((g, x.shape[0] // g) + tuple(x.shape[1:]))
+        red = [1] + list(range(3, xg.ndim))  # each group's rows and pixels
+        bshape = (g, 1, -1) + (1,) * (x.ndim - 2)
+        if sums is not None and g == 1:
+            n = x.numel() // x.shape[1]
+            gmean = (sums[0] / n)[None]
+            gvar = torch.clamp_min(sums[1] / n - gmean * gmean, 0.0)
+        else:
+            gmean = xg.mean(red)  # (g, C)
+            gvar = ((xg - gmean.view(bshape)) ** 2).mean(red)
+        y = (xg - gmean.view(bshape)) / torch.sqrt(gvar.view(bshape) + self.epsilon)
+        y = y * self.weight.view(bshape[1:]) + self.bias.view(bshape[1:])
+        if not _recomputing():
+            with torch.no_grad():
+                moments = parallel.sum_over_group(torch.stack(
+                    [gmean.sum(0), (gmean * gmean).sum(0), gvar.sum(0)]))
+                bmean = moments[0] / groups
+                bvar = moments[2] / groups + moments[1] / groups - bmean * bmean
+                m = self.momentum
+                self.running_mean.mul_(m).add_(bmean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(bvar, alpha=1.0 - m)
+        return y.reshape(x.shape).to(x.dtype)
+
+
+class _GroupedBatchNorm(KerasBatchNorm):
+    """A :class:`KerasBatchNorm` that always normalizes by groups, even at
+    ``groups=1`` (the JAX package's ``_GroupedBatchNorm``, whose parameter
+    and statistics layout is that of a plain BatchNorm)."""
+
+    def __init__(self, features, groups, **kwargs):
+        super().__init__(features, groups=groups, **kwargs)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return self._grouped(x, self.groups, parallel.world_size())
 
 
 def channel_pad(x, before, after):

@@ -1,6 +1,6 @@
 """Dynamic micro-batching engine for the serving runtime.
 
-Counterpart of the JAX package's ``serving/engine.py`` (single device).
+Counterpart of the JAX package's ``serving/engine.py``.
 Concurrent requests are coalesced into one device call: a dispatcher thread
 drains the request queue until either ``max_batch`` images are pending or
 ``timeout_ms`` has passed since the first queued request, pads the pack to
@@ -67,9 +67,12 @@ class EngineOverloaded(RuntimeError):
     layer answers 503, so that callers back off instead of timing out)."""
 
 
-def default_buckets(max_batch):
-    """Powers of two below ``max_batch``, then ``max_batch`` itself."""
-    buckets, b = [], 1
+def default_buckets(max_batch, multiple=1):
+    """``multiple`` times powers of two below ``max_batch``, then
+    ``max_batch`` itself.  ``multiple`` > 1 is the multi-device case: every
+    call splits its batch evenly over the device replicas, so the smallest
+    bucket is one image each."""
+    buckets, b = [], multiple
     while b < max_batch:
         buckets.append(b)
         b *= 2
@@ -86,33 +89,43 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _concat(trees):
+    """One tree of arrays from trees of equal structure, concatenated along
+    the leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _concat([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_concat([t[i] for t in trees]) for i in range(len(first)))
+    return np.concatenate(trees)
+
+
 def to_host(tree):
     """Numpy copies of a tree of tensors (and arrays).
 
     CUDA tensors are copied into pinned host memory without blocking, then
-    one event recorded after the copies on the current stream is waited on:
-    the copies queue behind the model's kernels on that stream (the
-    kernels' launches go to the current stream of the calling thread), so
-    the results handed back are complete.
+    one event a card, recorded after the copies on its current stream, is
+    waited on: the copies queue behind the model's kernels on that stream
+    (the kernels' launches go to the current stream of the calling
+    thread), so the results handed back are complete.
     """
-    on_cuda = False
+    cards = set()
 
     def start(t):
-        nonlocal on_cuda
         if isinstance(t, torch.Tensor):
             t = t.detach()
             if t.is_cuda:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 host.copy_(t, non_blocking=True)
-                on_cuda = True
+                cards.add(t.device)
                 return host
             return t.cpu()
         return np.asarray(t)
 
     copies = _map(start, tree)
-    if on_cuda:
+    for card in cards:  # the copies queue on each card's current stream
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(card))
         done.synchronize()
     return _map(lambda t: t.numpy() if isinstance(t, torch.Tensor) else t, copies)
 
@@ -123,7 +136,11 @@ class BatchingEngine:
     ``fn``: maps a numpy ``(B, *input_tail)`` batch of ``dtype`` to a tree
     (tensor, tuple, list or dict) of tensors or arrays with leading batch
     dimension ``B``; it is called only with ``B in buckets``, and copies
-    the batch to the device itself.
+    the batch to the device itself.  A list of such callables, one a
+    device replica of the model (``serve_model --gpus``), splits every pack
+    evenly over them: each is called on its share before any output is
+    fetched, and the outputs are concatenated in order.  The buckets are
+    then multiples of their number.
 
     ``dtype`` (default float32): the wire/buffer dtype handed to ``fn``;
     uint8 with device-side normalization (``serve_model --device_preproc``).
@@ -135,14 +152,21 @@ class BatchingEngine:
 
     def __init__(self, fn, input_tail, max_batch=256, timeout_ms=2.0, buckets=None,
                  max_queue=None, dtype=np.float32):
-        self._fn = fn
+        self._fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
         self.input_tail = tuple(input_tail)
         self.dtype = np.dtype(dtype)
         self.max_batch = int(max_batch)
         self.timeout_s = float(timeout_ms) / 1e3
-        self.buckets = sorted(buckets) if buckets else default_buckets(self.max_batch)
+        n_dev = len(self._fns)
+        if self.max_batch % n_dev:
+            raise ValueError(f"max_batch {self.max_batch} must be a multiple of the "
+                             f"{n_dev} device replicas")
+        self.buckets = (sorted(buckets) if buckets
+                        else default_buckets(self.max_batch, multiple=n_dev))
         if self.buckets[-1] < self.max_batch:
             raise ValueError("largest bucket must cover max_batch")
+        if any(b % n_dev for b in self.buckets):
+            raise ValueError(f"every bucket must divide over the {n_dev} device replicas")
         self.max_queue = int(max_queue) if max_queue is not None else 16 * self.max_batch
         self._n_pending = 0
         self._queue = queue.Queue()
@@ -213,6 +237,15 @@ class BatchingEngine:
             raise RuntimeError("engine not started")
         return self.submit(x).result(timeout)
 
+    def _call(self, batch):
+        """The outputs of a bucket-sized batch on the host: one call a device
+        replica on its share, every call issued before any fetch."""
+        if len(self._fns) == 1:
+            return to_host(self._fns[0](batch))
+        shares = np.split(batch, len(self._fns))
+        outs = [fn(share) for fn, share in zip(self._fns, shares)]
+        return _concat([to_host(out) for out in outs])
+
     def warmup(self, buckets=None):
         """Runs every batch bucket once on zeros, so that no live request
         pays for the first call of a shape (cuDNN's algorithm choice, the
@@ -222,7 +255,7 @@ class BatchingEngine:
         for b in sorted(buckets) if buckets else self.buckets:
             x = np.zeros((b,) + self.input_tail, dtype=self.dtype)
             t0 = time.perf_counter()
-            to_host(self._fn(x))
+            self._call(x)
             timings[int(b)] = round(time.perf_counter() - t0, 3)
         return timings
 
@@ -281,7 +314,7 @@ class BatchingEngine:
         with self._lock:
             self._n_pending -= total
         try:
-            out = to_host(self._fn(batch))  # the whole pack, fetched once
+            out = self._call(batch)  # the whole pack, fetched once
         except Exception as e:  # noqa: BLE001 - delivered to every waiter
             with self._lock:
                 self._stats["errors"] += len(pack)

@@ -64,14 +64,17 @@ def label_smoothing(onehot, smoothing):
 
 
 def labelembed_loss(out1, out2, tar, targets, tau=2.0, alpha=0.9, beta=0.5,
-                    valid=None):
+                    valid=None, batch_sum=None):
     """The label-embedding network's composite loss (Sun et al.), per sample.
 
     ``out1``/``out2``: the two classifier heads' logits; ``tar``: the learned
     label-embedding logits of the true class; ``targets``: integer labels.
     ``valid`` (optional, per-row 0/1): the L_emb_o2 term scales each row by
     ``rows / #correct-in-batch``; on a padded eval batch that scale counts
-    the real rows only.
+    the real rows only.  ``batch_sum`` (default: the identity) adds those
+    counts over the rest of the batch where other processes hold it (the
+    sum over a process group), so that a rank's rows take the global
+    batch's scale.
     """
     num_classes = out1.shape[-1]
     onehot = torch.nn.functional.one_hot(targets, num_classes).to(out1.dtype)
@@ -84,18 +87,21 @@ def labelembed_loss(out1, out2, tar, targets, tau=2.0, alpha=0.9, beta=0.5,
 
     mask = (torch.argmax(out2, dim=-1) == targets).to(out1.dtype).detach()
     if valid is None:
-        n_rows = mask.shape[0]
+        n_rows = torch.tensor(float(mask.shape[0]), dtype=out1.dtype, device=out1.device)
     else:
         v = valid.to(out1.dtype)
         mask = mask * v
         n_rows = torch.sum(v)
+    n_correct = torch.sum(mask)
+    if batch_sum is not None:
+        n_rows, n_correct = batch_sum(torch.stack([n_rows, n_correct])).unbind(0)
 
     def xent(logit, prob):
         return torch.sum(prob * torch.log_softmax(logit, dim=-1), dim=-1)
 
     l_o1_emb = -xent(out1, soft_tar)
     l_o2_y = softmax_crossentropy_logits(onehot, out2)
-    l_emb_o2 = -xent(tar, tau2_prob) * mask * (n_rows / (torch.sum(mask) + 1e-8))
+    l_emb_o2 = -xent(tar, tau2_prob) * mask * (n_rows / (n_correct + 1e-8))
     l_re = torch.relu(torch.sum(out2_prob * onehot, dim=-1) - alpha)
 
     return beta * l_o1_y + (1 - beta) * l_o1_emb + l_o2_y + l_emb_o2 + l_re

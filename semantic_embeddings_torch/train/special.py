@@ -3,6 +3,10 @@ network and the center loss (counterpart of the JAX package's
 ``train/special.py``).  Both use the Keras-exact SGD update of
 :func:`.trainer.finish_step`.
 
+In a process group each rank holds its rows of the global batch; the
+label-embedding loss's batch-coupled counts are summed over the group, so
+that every step computes what the JAX package's sharded step does.
+
 ``l2_penalty_fn(model)``: the Keras kernel penalty.  The reference's
 backbones carry their per-architecture regularizers and the learners' added
 heads carry none, so the learners pass a penalty scoped to the backbone.
@@ -15,6 +19,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from . import losses as L
 from .state import TrainState
 from .trainer import finish_step, trainable_indices, valid_mask
@@ -43,7 +48,7 @@ def make_labelembed_train_step(
         model.train()
         _, out1, out2, tar = model(images, labels)
         total = L.labelembed_loss(out1, out2, tar, labels, tau=tau, alpha=alpha,
-                                  beta=beta).mean()
+                                  beta=beta, batch_sum=parallel.sum_over_group).mean()
         if l2_penalty_fn is not None:
             total = total + l2_penalty_fn(model)
         metrics = {"loss": total.detach(),
@@ -69,7 +74,8 @@ def make_labelembed_eval_step(model, prepare, *, tau=2.0, alpha=0.9, beta=0.5,
         model.eval()
         _, out1, out2, tar = model(images, labels)
         per_sample = L.labelembed_loss(out1, out2, tar, labels, tau=tau, alpha=alpha,
-                                       beta=beta, valid=mask)
+                                       beta=beta, valid=mask,
+                                       batch_sum=parallel.sum_over_group)
         out = {
             "emb_loss": (per_sample * mask).sum(),
             "cls_correct": ((torch.argmax(out1, -1) == labels).float() * mask).sum(),

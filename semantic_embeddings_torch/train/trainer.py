@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..data.cifar import to_device
 from . import losses as L
 from .optimizer import adagrad_update, effective_lr, sgd_update
@@ -83,7 +84,9 @@ def finish_step(state, total, trained, lr, *, optimizer="sgd", momentum=0.9,
     velocity, stay bitwise as they were and take no L2 penalty (the JAX
     package's ``trainable_fn`` mask, which zeroes their gradients);
     BatchNorm running statistics move in the forward all the same (Keras
-    2.2's frozen-BN semantics)."""
+    2.2's frozen-BN semantics).  In a process group the gradients are the
+    group's mean (:func:`..parallel.reduce_gradients`), clipped after it is
+    formed, as the JAX package clips the global batch's gradient."""
     state.step += 1
     if not trained:  # nothing to train (a warm-up of a model with no top)
         return
@@ -91,6 +94,8 @@ def finish_step(state, total, trained, lr, *, optimizer="sgd", momentum=0.9,
     params = [params[i] for i in trained]
     slots = [state.velocity[i] for i in trained]
     grads = list(torch.autograd.grad(total, params))
+    # in a process group: the global batch's gradient, before the clip
+    parallel.reduce_gradients(grads)
     if optimizer == "adagrad":
         adagrad_update(params, slots, grads, lr)
     else:
@@ -317,14 +322,24 @@ def make_classifier_eval_step(
 
 def run_validation(eval_step, state, batches, rng):
     """Drives the eval step over an iterator of raw batches; sums on the
-    device and fetches once."""
-    pending = [eval_step(state, raw, rng) for raw in batches]
+    device and fetches once.  In a process group each rank evaluates its
+    rows of every batch (:func:`..parallel.shard_batch`, with their
+    ``valid`` mask), the sums are added over the group once, and the
+    predictions are gathered batch by batch."""
+    pending, rows = [], []
+    for raw in batches:
+        raw = parallel.shard_batch(raw)
+        pending.append(eval_step(state, raw, rng))
+        rows.append(raw.get("rows"))
     preds = [m.pop("pred") for m in pending if "pred" in m]
+    if preds and parallel.world_size() > 1:
+        preds = [parallel.gather_rows(p, n, start)
+                 for p, (start, _, n) in zip(preds, rows)]
     keys = list(pending[0]) if pending else []
-    sums = torch.stack([
+    sums = parallel.sum_over_group(torch.stack([
         torch.stack([torch.as_tensor(m[k], dtype=torch.float32) for m in pending]
                     ).sum() for k in keys
-    ]).cpu().tolist() if keys else []
+    ])).cpu().tolist() if keys else []
     totals = dict(zip(keys, sums))
     count = max(totals.pop("count", 1.0), 1.0)
     out = {}
@@ -365,9 +380,19 @@ def fit(
     ``test_batches(batch_size)`` and ``steps_per_epoch(batch_size)``.  One
     ``torch.Generator`` on the model's device, seeded from ``seed``, draws
     the augmentation of every step.
+
+    In a process group of W ranks every rank starts from rank 0's state,
+    takes its rows of every global batch (``shard=True``: the augmentation
+    is drawn for the whole batch from the shared generator and applied to
+    these rows), and the epoch's metric sums are added over the group once
+    an epoch; snapshots, the progress line and ``log_fn`` are rank 0's.
     """
     val_batch_size = val_batch_size or batch_size
     device = _device_of(state.model)
+    world = parallel.world_size()
+    sharded = {"shard": True} if world > 1 else {}
+    main = parallel.is_main()
+    parallel.broadcast_state(state.model, state.velocity)
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
     # Keras ModelCheckpoint(mode='auto'): metrics whose name contains 'acc'
@@ -383,7 +408,7 @@ def fit(
         epoch_lr = schedule.lr(epoch, global_step)
         n_batches = 0
         metric_sums = None
-        for raw in dataset.train_batches(batch_size, epoch, seed):
+        for raw in dataset.train_batches(batch_size, epoch, seed, **sharded):
             lr = schedule.lr(epoch, global_step) if schedule.per_batch else epoch_lr
             lr = effective_lr(lr, decay, global_step)
             state, metrics = train_step(state, raw, lr, rng)
@@ -399,16 +424,17 @@ def fit(
         train_metrics = {}
         if n_batches:
             keys = list(metric_sums)
-            values = torch.stack([metric_sums[k] for k in keys]).cpu().tolist()
-            train_metrics = {k: v / n_batches for k, v in zip(keys, values)}
+            values = parallel.sum_over_group(
+                torch.stack([metric_sums[k] for k in keys])).cpu().tolist()
+            train_metrics = {k: v / (n_batches * world) for k, v in zip(keys, values)}
 
         val_metrics = run_validation(
-            eval_step, state, dataset.test_batches(val_batch_size), rng)
+            eval_step, state, dataset.test_batches(val_batch_size, **sharded), rng)
         val_metrics.pop("predictions", None)
         schedule.observe(val_metrics)
         state.epoch = epoch + 1
 
-        if snapshot:
+        if snapshot and main:
             meta = {"epoch": epoch + 1, **(snapshot_meta or {})}
             if snapshot_best:
                 monitored = val_metrics.get(snapshot_best)
@@ -423,13 +449,13 @@ def fit(
             else:
                 save_checkpoint(snapshot, state, meta)
 
-        if verbose:
+        if verbose and main:
             msg = " ".join(
                 f"{k}={v:.4f}" for k, v in {**train_metrics, **val_metrics}.items())
             print(
                 f"epoch {epoch + 1}/{epochs} lr={epoch_lr:.5f} "
                 f"[{time.time() - t0:.1f}s {steps_per_epoch} steps] {msg}",
                 flush=True)
-        if log_fn is not None:
+        if log_fn is not None and main:
             log_fn(epoch, {**train_metrics, **val_metrics, "lr": epoch_lr})
     return state

@@ -71,10 +71,12 @@ def test_device_cuda_without_gpu_raises(tmp_path, embedding):
 
 
 @pytest.mark.parametrize("extra", [
-    # --remat, --cls_base, --finetune and every architecture are ported:
-    # each still leaves a flag that is not ported refused
-    ["--gpus", "4", "--remat"], ["--bn_per_replica"], ["--gpus", "2"], ["--spatial", "2"],
-    ["--finetune", "w.pt", "--bn_per_replica"], ["--profile_dir", "trace"],
+    # --remat, --cls_base, --finetune, --gpus, --bn_per_replica and every
+    # architecture are ported: each case still has a flag that is not
+    # ported (--spatial, --profile_dir), which is refused
+    ["--gpus", "4", "--remat", "--spatial", "2"], ["--bn_per_replica", "--profile_dir", "trace"],
+    ["--gpus", "2", "--spatial", "2"], ["--spatial", "2"],
+    ["--finetune", "w.pt", "--bn_per_replica", "--spatial", "2"], ["--profile_dir", "trace"],
     ["--profile_dir", "trace", "--cls_base", "top", "--cls_weight", "0.1"],
     ["--spatial", "2", "--architecture", "wrn-28-10"],
 ])
@@ -123,11 +125,16 @@ def test_evaluate_retrieval_cli_matches_jax(tmp_path, capsys):
         line.split(";")[0] for line in want_csv.splitlines()]
 
 
-@pytest.mark.parametrize("extra", [["--gpus", "2"], ["--db_sharded"]])
+# --gpus and --db_sharded are ported (tests/test_torch_parallel.py); the
+# database-sharded ranking still refuses, with the JAX package's messages,
+# the full-sort protocol and a single device
+@pytest.mark.parametrize("extra", [["--gpus", "2", "--db_sharded"], ["--db_sharded"]])
 def test_evaluate_retrieval_cli_refuses_unported(tmp_path, extra):
     from semantic_embeddings_torch.cli import evaluate_retrieval as tcli
 
-    with pytest.raises(SystemExit, match="not ported yet"):
+    match = "db_sharded requires the top-k prefix" if "--gpus" in extra else (
+        "db_sharded needs a mesh")
+    with pytest.raises(SystemExit, match=match):
         tcli.main(["--dataset", "synthetic-12", "--data_root", str(tmp_path),
                    "--hierarchy", "h.txt", "--feat", "f.pickle", "--device", "cpu",
                    *extra])

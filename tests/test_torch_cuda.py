@@ -646,3 +646,112 @@ def test_compute_class_embedding_device_on_the_card(device, tmp_path, method):
     for name in ("card", "bare flag"):
         assert np.abs(products[name] - target).max() <= 1e-10
         assert np.abs(products[name] - products["host"]).max() <= 1e-10
+
+
+# -- data parallelism on the card ---------------------------------------------
+
+
+def test_fit_in_an_nccl_group_of_one_is_the_run_alone_bitwise(device, tmp_path):
+    """Two rn18 steps through ``fit`` in a process under a launcher's
+    environment of world size 1: in its NCCL group of one rank (the
+    gradient reduce on, BatchNorm on its one-group path) every tensor is
+    bitwise what the run without a group gives; the conv kernels launch
+    as often."""
+    import pickle
+
+    import _torch_parallel_common as ranks
+    from semantic_embeddings_torch import parallel
+
+    out = tmp_path / "out.pickle"
+    parallel.launch(ranks.cuda_fit_alone_and_grouped, 1, str(out))
+    with open(out, "rb") as f:
+        got = pickle.load(f)
+    assert got["backend"] == "nccl" and got["unequal"] == []
+    # 8 fused convs of rn18: 2 steps + 1 validation batch; filter gradients 2 steps
+    assert got["launches"] == [[24, 16], [24, 16]]
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(device, tmp_path):
+    """One rn18 step on two gloo ranks sharing cuda:0, sync BN, each on 8
+    of the batch's 16 rows, against the one-process step on all 16, both
+    held to the one-process step in f64 (plain versions), as
+    ``chip_smoke.py`` phase 16b holds them: no tensor of the two-rank step
+    farther from f64, in units of its f64 update, than twice the
+    one-process f32 step's farthest (early layers' f32 updates sit a few
+    percent of the update from f64 on any path).  Both ranks end bitwise
+    equal; each rank launches both conv kernels 8 times."""
+    import copy
+    import pickle
+
+    import _torch_parallel_common as ranks
+    from semantic_embeddings_torch import parallel
+    from semantic_embeddings_torch.models.resnet import use_plain_conv_bn_stats
+    from semantic_embeddings_torch.train import new_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.normal(size=(16, 32, 32, 3)).astype(np.float32),
+             "y": rng.integers(0, 10, 16).astype(np.int64)}
+    model, spec = ranks.cuda_model(0)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    case = {"state": {k: v.cpu().numpy() for k, v in before.items()}, "batch": batch}
+    with open(tmp_path / "case.pickle", "wb") as f:
+        pickle.dump(case, f)
+    parallel.launch(ranks.cuda_two_ranks_step, 2, str(tmp_path / "case.pickle"),
+                    str(tmp_path / "out.pickle"))
+    with open(tmp_path / "out.pickle", "rb") as f:
+        got = pickle.load(f)
+    assert got["ranks_equal"] and got["launches"] == [8, 8]
+
+    model_64 = copy.deepcopy(model)
+    use_plain_conv_bn_stats(model_64)
+    model_64.double()
+    steps = {}
+    for name, m, dtype in (("f32", model, torch.float32), ("f64", model_64, torch.float64)):
+        def prepare(raw, rng, train, dtype=dtype):
+            return (torch.from_numpy(raw["x"]).to("cuda", dtype),
+                    torch.from_numpy(raw["y"]).cuda())
+
+        state, _ = ranks.cuda_step(m, spec, prepare, plain=dtype == torch.float64)(
+            new_train_state(m), batch, 0.1, None)
+        steps[name] = {k: v.double().cpu() for k, v in state.model.state_dict().items()}
+    two = {k: torch.from_numpy(v).double() for k, v in got["state"].items()}
+    params = {n for n, _ in model.named_parameters()}
+
+    def distance(sd, n):
+        scale = (steps["f64"][n] - before[n].double().cpu()).abs().max().item() if n in params \
+            else 1.0
+        return (sd[n] - steps["f64"][n]).abs().max().item() / max(scale, 1e-30)
+
+    for names in (params, set(before) - params):
+        worst = max(distance(steps["f32"], n) for n in names)
+        far = {n: distance(two, n) for n in names if distance(two, n) > 2 * worst + 1e-7}
+        assert not far, (far, worst)
+
+
+def test_learner_cli_on_every_card_matches_one_card(device, tmp_path):
+    """``learn_image_embeddings --gpus N``, N the visible cards (two or
+    more): the CLI spawns one rank a card, joined by NCCL; after one step
+    of ``simple`` on a global batch of 8 N its model dump, written by rank
+    0, against ``--gpus 1``'s within rounding (four gloo ranks on the CPU:
+    2.4e-7)."""
+    from semantic_embeddings_torch.cli import common, learn_image_embeddings
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+
+    def argv(out, gpus):
+        return ["--dataset", f"synthetic-4-{8 * n}-16-16", "--data_root", str(tmp_path),
+                "--embedding", "onehot", "--architecture", "simple",
+                "--batch_size", str(8 * n), "--epochs", "1", "--lr_schedule", "SGD",
+                "--sgd_lr", "0.05", "--no_progress", "--gpus", str(gpus),
+                "--model_dump", str(tmp_path / f"{out}.pt")]
+
+    learn_image_embeddings.main(argv("one", 1))
+    assert learn_image_embeddings.main(argv("all", n)) is None
+    one, _ = common.load_checkpoint_raw(str(tmp_path / "one.pt"))
+    every, _ = common.load_checkpoint_raw(str(tmp_path / "all.pt"))
+    for k in one:
+        np.testing.assert_allclose(every[k].numpy(), one[k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)

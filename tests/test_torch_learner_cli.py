@@ -225,8 +225,9 @@ def test_learn_center_loss_and_its_dump(tmp_path, fixed):
 
 @pytest.mark.parametrize("cli", [learn_classifier, learn_labelembedding, learn_center_loss])
 def test_learner_clis_refuse_the_multi_device_flags(tmp_path, cli):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(_argv(tmp_path, "--gpus", "2"))
+    # --gpus and --bn_per_replica are ported (tests/test_torch_parallel.py)
+    with pytest.raises(SystemExit, match="--spatial is not ported yet"):
+        cli.main(_argv(tmp_path, "--gpus", "2", "--spatial", "2"))
 
 
 def test_synthetic_dataset_name_takes_an_image_size():

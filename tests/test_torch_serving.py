@@ -526,13 +526,22 @@ def test_serve_cli_bf16_stays_near_f32(checkpoint_pair):
     np.testing.assert_allclose(outs[1], outs[0], rtol=0, atol=0.05)
 
 
-# --artifact is ported (tests/test_torch_export.py); --gpus stays refused
-# with either model source
+# --artifact (tests/test_torch_export.py) and --gpus are ported: --gpus
+# serves over device replicas, with buckets that divide over them; what
+# stays refused is a second model source
 @pytest.mark.parametrize("extra", [["--gpus", "2"], ["--gpus", "2", "--artifact", "model.pt2"]])
 def test_serve_cli_refuses_unported(checkpoint_pair, extra):
     _, _, path = checkpoint_pair
-    with pytest.raises(SystemExit, match="not ported yet"):
-        _serve(path, *extra)
+    if "--artifact" in extra:
+        with pytest.raises(SystemExit, match="exactly one of --artifact / --checkpoint"):
+            _serve(path, *extra)
+        return
+    srv = _serve(path, *extra)
+    try:
+        meta = ServingClient(f"http://127.0.0.1:{srv.port}").meta()
+        assert meta["devices"] == 2 and srv.engine.buckets == [2, 4, 8]
+    finally:
+        srv.stop()
 
 
 def test_serve_cli_resolve_stats():
