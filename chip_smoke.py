@@ -221,6 +221,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    two replicas of phase 8's ResNet-50 on [cuda:0, cuda:0] against one:
    outputs within 1e-6, img/s of each.  Two ranks on one card measure
    neither NCCL nor scaling.
+17. Spatial partitioning (``--spatial``), ``--profile_dir`` and
+   ``pairwise_matrices_device``: (a) both conv kernels, f32 and bf16, on
+   each row block of the CUB recipe's stage shapes (ResNet-50 @ 448, batch
+   24) over S = 2 columns, and of stage 4 over S = 4 (blocks of 4, 4, 4, 2
+   rows), with the halo rows: against their plain halo versions, y bitwise
+   the whole-image launch's rows, the blocks' sums within 1e-6 of the sum of
+   |terms| and dw within 1e-5 of max |dw| of the whole image's; ms per call
+   on the largest block beside the whole-image launch scaled to its rows and
+   the block's bound; (b) the recipe (``--fused_loss``) on two gloo ranks
+   sharing the card as a (1, 2) grid, one f32 step (TF32 off) and then 3
+   bf16 steps, against the same steps in one process from the same weights
+   and batch: the f32 step's loss within 1e-5 relative, its worst parameter
+   no farther from an f64 step than 1.5 times the one-process step's, its
+   running statistics within 1e-5 relative; the bf16 step's loss within
+   2^-8 of the f64 loss, its median parameter within 1.5 times the
+   one-process step's median distance from f64 and its worst within 3 times
+   (bf16's rounding swings a worst tensor); in both the worst running
+   statistic within twice the one-process step's; 16 + 16 halo launches of
+   the conv kernels a step on each rank; seconds a step (the halos go
+   through the host on gloo: no speed claim); (c) ``learn_image_embeddings --profile_dir`` on slice 1's
+   recipe for 40 steps: the trace of steps 10-29 written with the JAX
+   package's message, naming the cosine kernels; (d)
+   ``pairwise_matrices_device`` on the card for a 1,000-leaf tree from the
+   seed: bitwise its CPU run, within 1e-7 of the host path's f64 matrices.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -3042,6 +3066,366 @@ def check_against_f64(before, model_64, model_k, model_p, label=""):
     return out
 
 
+# phase 17: spatial partitioning, --profile_dir, pairwise_matrices_device.
+# 17b: the CosineLoss.md CUB recipe (ResNet-50 @ 448, batch 24, bf16,
+# --fused_loss) on a (1, 2) grid of two gloo ranks sharing the card
+P17_SIZE, P17_BATCH, P17_STEPS = 448, CUB_BATCH, 3
+#: 17d: the leaves of the tree pairwise_matrices_device runs on
+P17_LEAVES = 1000
+
+
+def p17_halo_kernels(device, card, CC):
+    """17a: both kernels, both dtypes, with halo rows at the 448-px
+    recipe's shard shapes (``CC.HALO_CASES``): each held to its plain halo
+    version and to the rows of the whole-image launch
+    (``CC.check_halo_shards``), and timed per call on its largest shard
+    beside the whole-image launch scaled to the same rows and the shard's
+    bound."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    out = {}
+    for case in CC.HALO_CASES:
+        b, h, w, c, f, spatial = case
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            x, wt, dy = CC.check_inputs(case[:5], dtype, gen)
+            err = CC.check_halo_shards(x, wt, dy, spatial)
+            a, b_, top, bottom = CC.row_shards(x, spatial)[0]
+            xs, dys = x[:, :, a:b_].contiguous(), dy[:, :, a:b_].contiguous()
+            rows = b_ - a
+            conv_ms = time_ms(lambda: CC._launch_conv_bn_stats(xs, wt, top, bottom), 20, 3)
+            grad_ms = time_ms(lambda: CC._launch_filter_grad(xs, dys, top, bottom), 20, 3)
+            whole_conv = time_ms(lambda: CC._launch_conv_bn_stats(x, wt), 20, 3)
+            whole_grad = time_ms(lambda: CC._launch_filter_grad(x, dy), 20, 3)
+            # each input read once (the shard, its two halo rows, the
+            # weight or dy), each output written once
+            elem = x.element_size()
+            halo_rows = (top is not None) + (bottom is not None)
+            flop = 2 * b * rows * w * 9 * c * f
+            peak = "bfloat16" if dtype == torch.bfloat16 else "3xtf32"
+            conv_bound = bound(flop, elem * (b * c * (rows + halo_rows) * w + f * c * 9
+                                             + b * f * rows * w) + 8 * f, peak)
+            grad_bound = bound(flop, elem * (b * c * (rows + halo_rows) * w + b * f * rows * w)
+                               + 4 * f * c * 9, peak)
+            key = f"{case} {name}"
+            out[key] = {**err, "shard_rows": rows, "halo_rows": halo_rows,
+                        "conv3x3_bn_stats": {"ms": conv_ms, "whole_scaled_ms":
+                                             whole_conv * rows / h, "bound_ms": conv_bound[0],
+                                             "bound_by": conv_bound[1]},
+                        "conv3x3_filter_grad": {"ms": grad_ms, "whole_scaled_ms":
+                                                whole_grad * rows / h, "bound_ms": grad_bound[0],
+                                                "bound_by": grad_bound[1]}}
+            print(f"17a {key}: shard of {rows} rows + {halo_rows} halo rows: conv+stats "
+                  f"{conv_ms:.4f} ms (whole image scaled {whole_conv * rows / h:.4f}, bound "
+                  f"{conv_bound[0]:.4f}), filter grad {grad_ms:.4f} ms (whole scaled "
+                  f"{whole_grad * rows / h:.4f}, bound {grad_bound[0]:.4f}); y vs plain "
+                  f"{err['y_vs_plain']:.3g}, y bitwise the whole image's "
+                  f"{err['y_vs_whole_bitwise']}, sums vs whole {err['s_vs_whole_of_abs']:.3g} / "
+                  f"{err['ss_vs_whole_of_abs']:.3g} of sum |y|, dw vs whole "
+                  f"{err['dw_vs_whole_of_max']:.3g} of max  [{card}]")
+            check(err["y_vs_whole_bitwise"], (key, err))
+    return out
+
+
+def p17b_worker(job_path, out_path):
+    """17b, one of two ranks on the one card (gloo), folded into a (1, 2)
+    grid: from the job's weights, one f32 step, then the recipe's bf16
+    steps, each on this rank's rows of every image; the launches of each
+    step (all and with halo rows), the losses, the seconds; rank 0 saves
+    the state after the f32 step and after the first bf16 step."""
+    import torch
+
+    from semantic_embeddings_torch import parallel
+    from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.ops import conv3x3 as CC
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    parallel.initialize_distributed(device, backend="gloo")
+    common.set_float32_precision()
+    parallel.set_grid(parallel.get_grid(2))
+    job = torch.load(job_path, map_location="cpu", weights_only=False)
+
+    def prepare(raw, rng, train):
+        return raw["x"].to(device), raw["y"].to(device)
+
+    batch = parallel.shard_batch({"x": job["images"], "y": job["labels"]})
+    out = {"world": parallel.world_size(), "grid": list(parallel.current_grid().shape),
+           "backend": torch.distributed.get_backend(), "steps": {}}
+    for dtype, steps in (("f32", 1), ("bf16", P17_STEPS)):
+        state, spec = rn50_state(device, 17)
+        state.model.load_state_dict(job["before"])
+        step = rn50_train_step(state, spec, prepare, job["embedding"],
+                               autocast_dtype=torch.bfloat16 if dtype == "bf16" else None)
+        out["steps"][dtype] = []
+        for i in range(steps):
+            reset_launches()
+            CC.launches_conv_bn_stats_halo = CC.launches_filter_grad_halo = 0
+            t0 = time.perf_counter()
+            state, m = step(state, batch, 0.1, None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {**read_launches(),
+                        "conv3x3_bn_stats_halo": CC.launches_conv_bn_stats_halo,
+                        "conv3x3_filter_grad_halo": CC.launches_filter_grad_halo}
+            counts = torch.tensor(list(launches.values()), dtype=torch.float64)
+            out["steps"][dtype].append({
+                "loss": float(m["loss"]), "seconds": seconds, "launches": launches,
+                "launches_equal_on_ranks": bool(
+                    (parallel.sum_over_group(counts) == 2 * counts).all())})
+            if i == 0 and parallel.rank() == 0:
+                torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+                           f"{out_path}.{dtype}.pt")
+        sd = state.model.state_dict()
+        flat = torch.cat([v.reshape(-1).float() for v in sd.values()])
+        out[f"ranks_equal_{dtype}"] = parallel.sum_over_group(
+            (flat - parallel.sum_over_group(flat) / 2).abs().max()).item() == 0.0
+        del state, step
+    parallel.set_grid(None)
+    if parallel.rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    parallel.finalize_distributed()
+
+
+def p17_spatial_recipe(device, card, tmp, embedding):
+    """17b: the recipe on the (1, 2) grid of two gloo ranks against the same
+    steps in one process from the same weights and batch.  One f32 step
+    (TF32 off) first, where the grid must be the one process's step: its
+    loss within 1e-5 relative, its worst parameter no farther from the f64
+    step than 1.5 times the one-process step's worst, its worst running
+    statistic no farther than twice the one-process step's (plus 1e-7) and
+    the statistics within 1e-5 relative of the one-process step's (16b's
+    bounds: f32 sums over other partitions of the pixels put two
+    data-parallel ranks' statistics 1.0-1.4e-6 from one process's in 16b).
+    Then the recipe's bf16 steps, which two runs that agree in f32 do not
+    reproduce: bf16 rounds y to 8 bits, and cuDNN's bf16 convolutions of a
+    block of rows may sum in another order than of the whole image, so the
+    losses differ by a few 1e-4 and each step's update of some tensors is
+    mostly rounding (a worst tensor 1.8-3.4 units of its update from f64 in
+    either run).  So bf16 is held to f64 by statistics that rounding does
+    not swing: the first loss within 2^-8 (bf16's unit) of the f64 loss,
+    the median parameter no farther from the f64 step than 1.5 times the
+    one-process step's median, the worst than 3 times its worst, the worst
+    statistic than twice its worst (plus 1e-7);
+    every step 16 halo launches of each conv kernel on each rank; seconds a
+    step (gloo: the halos go through the host, no speed claim)."""
+    import torch
+
+    from semantic_embeddings_torch import parallel
+    from semantic_embeddings_torch.models.resnet import use_plain_conv_bn_stats
+    from semantic_embeddings_torch.train import new_train_state
+
+    gen = torch.Generator().manual_seed(17)
+    images = torch.randn((P17_BATCH, P17_SIZE, P17_SIZE, 3), generator=gen)
+    labels = torch.randint(0, 100, (P17_BATCH,), generator=gen)
+    state, spec = rn50_state(device, 17)
+    before = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    del state
+    job = os.path.join(tmp, "p17b_job.pt")
+    torch.save({"before": before, "images": images, "labels": labels,
+                "embedding": embedding}, job)
+
+    def prepare(raw, rng, train, dtype=torch.float32):
+        return raw["x"].to(device, dtype), raw["y"].to(device)
+
+    batch = {"x": images, "y": labels}
+    one = {}
+    for dtype, steps in (("f32", 1), ("bf16", P17_STEPS)):
+        state, spec = rn50_state(device, 17)
+        state.model.load_state_dict(before)
+        step = rn50_train_step(state, spec, prepare, embedding,
+                               autocast_dtype=torch.bfloat16 if dtype == "bf16" else None)
+        one[dtype] = {"losses": [], "seconds": []}
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, 0.1, None)
+            torch.cuda.synchronize()
+            one[dtype]["seconds"].append(time.perf_counter() - t0)
+            one[dtype]["losses"].append(float(m["loss"]))
+            if i == 0:
+                one[dtype]["state"] = {k: v.cpu().clone()
+                                       for k, v in state.model.state_dict().items()}
+        del state, step
+    torch.cuda.empty_cache()
+    # the f64 step through the plain versions, the yardstick of both
+    state, spec = rn50_state(device, 17)
+    state.model.load_state_dict(before)
+    use_plain_conv_bn_stats(state.model)
+    state = new_train_state(state.model.double())
+    _, m64 = rn50_train_step(state, spec, lambda r, g, t: prepare(r, g, t, torch.float64),
+                             embedding, plain=True)(state, batch, 0.1, None)
+    loss_64 = float(m64["loss"])
+    sd_64 = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    out_path = os.path.join(tmp, "p17b.json")
+    t0 = time.perf_counter()
+    parallel.launch(p17b_worker, 2, job, out_path)
+    launch_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        grid = json.load(f)
+    check(grid["world"] == 2 and grid["grid"] == [1, 2] and grid["backend"] == "gloo", grid)
+    check(grid["ranks_equal_f32"] and grid["ranks_equal_bf16"], "17b: the ranks' states differ")
+    params = [n for n in before if "running_" not in n]
+    result = {"loss_f64": loss_64, "launch_seconds": launch_s}
+    for dtype in ("f32", "bf16"):
+        sd_grid = torch.load(f"{out_path}.{dtype}.pt", map_location="cpu", weights_only=True)
+        sd_one = one[dtype]["state"]
+        losses = [s["loss"] for s in grid["steps"][dtype]]
+        gap = abs(losses[0] - one[dtype]["losses"][0]) / abs(one[dtype]["losses"][0])
+        from_64 = {"grid": abs(losses[0] - loss_64) / abs(loss_64),
+                   "one_process": abs(one[dtype]["losses"][0] - loss_64) / abs(loss_64)}
+        ref = distances_from_f64(before, sd_64, sd_one)
+        new = distances_from_f64(before, sd_64, sd_grid)
+        worst = {"grid": max(new[n] for n in params), "one_process": max(ref[n] for n in params)}
+        median = {"grid": statistics.median(new[n] for n in params),
+                  "one_process": statistics.median(ref[n] for n in params)}
+        stats = [n for n in before if "running_" in n]
+        worst_stats = {"grid": max(new[n] for n in stats),
+                       "one_process": max(ref[n] for n in stats)}
+        stats_gap = max((sd_grid[n] - sd_one[n]).abs().max().item()
+                        / max(sd_one[n].abs().max().item(), 1e-30)
+                        for n in before if "running_" in n)
+        print(f"17b {dtype}: losses of the grid {losses}, one process {one[dtype]['losses']}, "
+              f"f64 {loss_64}; first step's gap {gap:.3g} relative, from f64 grid "
+              f"{from_64['grid']:.3g} / one process {from_64['one_process']:.3g}; worst "
+              f"parameter distance from the f64 step (units of its update) grid "
+              f"{worst['grid']:.4g}, one process {worst['one_process']:.4g} (median "
+              f"{median['grid']:.4g} / {median['one_process']:.4g}); running "
+              f"statistics from f64 grid {worst_stats['grid']:.3g}, one process "
+              f"{worst_stats['one_process']:.3g}, vs one process {stats_gap:.3g} relative")
+        check(worst_stats["grid"] <= 2 * worst_stats["one_process"] + 1e-7,
+              (dtype, worst_stats))
+        if dtype == "f32":
+            check(worst["grid"] <= 1.5 * worst["one_process"], (dtype, worst))
+            check(stats_gap <= 1e-5, ("17b f32 statistics", stats_gap))
+            check(gap <= 1e-5, ("17b f32 loss", gap))
+        else:
+            check(median["grid"] <= 1.5 * median["one_process"], (dtype, median))
+            check(worst["grid"] <= 3 * worst["one_process"], (dtype, worst))
+            check(from_64["grid"] <= 2.0**-8, ("17b bf16 loss", from_64))
+        result[dtype] = {"losses": losses, "one_process_losses": one[dtype]["losses"],
+                         "first_loss_gap": gap, "first_loss_vs_f64": from_64,
+                         "worst_param_vs_f64": worst, "median_param_vs_f64": median,
+                         "statistics_relative_gap": stats_gap,
+                         "worst_statistic_vs_f64": worst_stats,
+                         "seconds": [s["seconds"] for s in grid["steps"][dtype]],
+                         "one_process_seconds": one[dtype]["seconds"]}
+    want = {"cosine_loss_fwd": 1, "cosine_loss_bwd": 1, "conv3x3_bn_stats": RN50_CONVS,
+            "conv3x3_filter_grad": RN50_CONVS, "conv3x3_bn_stats_halo": RN50_CONVS,
+            "conv3x3_filter_grad_halo": RN50_CONVS}
+    for dtype in ("f32", "bf16"):
+        for i, s in enumerate(grid["steps"][dtype]):
+            print(f"17b {dtype} step {i + 1}: {s['seconds']:.3f} s on the grid (rank 0), "
+                  f"{one[dtype]['seconds'][i]:.3f} s in one process; launches of each rank "
+                  f"{s['launches']} (equal on both: {s['launches_equal_on_ranks']})  "
+                  f"[{card}; gloo through the host: not a speed claim]")
+            check(s["launches"] == want and s["launches_equal_on_ranks"], s)
+    result["launches"] = grid["steps"]["bf16"][-1]["launches"]
+    return result
+
+
+def p17_profile(card, tmp, emb_path):
+    """17c: ``learn_image_embeddings --profile_dir`` on slice 1's recipe for
+    2 epochs (40 steps): the window (10, 30) closes with JAX's message,
+    rank 0's trace file names the cosine kernels."""
+    from semantic_embeddings_torch.cli import learn_image_embeddings
+
+    trace_dir = os.path.join(tmp, "p17_trace")
+    argv = ["--dataset", DATASET, "--data_root", tmp, "--embedding", emb_path,
+            "--architecture", "resnet-110-wfc", "--loss", "inv_corr", "--cls_weight", "0.1",
+            "--fused_loss", "--lr_schedule", "SGDR", "--sgdr_max_lr", "0.5",
+            "--batch_size", str(BATCH), "--epochs", "2", "--device", "cuda",
+            "--no_progress", "--profile_dir", trace_dir]
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        state = learn_image_embeddings.main(argv)
+    seconds = time.perf_counter() - t0
+    steps = 2 * N_TRAIN // BATCH
+    check(state.step == steps and steps >= 31, state.step)
+    check(f"Wrote device trace to {trace_dir}" in tee.buf.getvalue(), "no trace message")
+    path = os.path.join(trace_dir, "trace_rank0.json")
+    check(os.path.exists(path), path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    cosine = sorted(k for k in kernels if "cosine" in k)
+    print(f"17c: {steps} steps in {seconds:.1f} s; trace {os.path.getsize(path)} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel names, the cosine kernels {cosine}  "
+          f"[{card}]")
+    check(len(cosine) >= 2, cosine)
+    return {"steps": steps, "seconds": seconds, "trace_bytes": os.path.getsize(path),
+            "events": len(events), "cosine_kernels": cosine}
+
+
+def p17_pairwise(device, card):
+    """17d: ``pairwise_matrices_device`` on the card for a tree of
+    ``P17_LEAVES`` leaves from the seed, against the host
+    ``pairwise_matrices`` (within 1e-7) and the same function on the CPU
+    (bitwise)."""
+    from semantic_embeddings_torch.hierarchy import ClassHierarchy, pairwise_matrices
+    from semantic_embeddings_torch.hierarchy.vectorized import pairwise_matrices_device
+
+    rng = np.random.default_rng(17)
+    inner = 200  # a random tree of inner nodes under root 0, the leaves below
+    lines = [f"{int(rng.integers(0, max(1, i // 2)))} {i}" for i in range(1, inner)]
+    lines += [f"{int(rng.integers(inner // 4, inner))} {inner + j}" for j in range(P17_LEAVES)]
+    path = os.path.join(tempfile.mkdtemp(prefix="p17d_"), "tree.parent-child.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    hierarchy = ClassHierarchy.from_file(path, id_type=int)
+    leaves = sorted(hierarchy.leaves())
+    check(len(leaves) >= P17_LEAVES and hierarchy.is_tree(), len(leaves))
+    t0 = time.perf_counter()
+    card_m = pairwise_matrices_device(hierarchy, leaves, device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_m = pairwise_matrices_device(hierarchy, leaves, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_m = pairwise_matrices(hierarchy, leaves)
+    host_s = time.perf_counter() - t0
+    out = {"leaves": len(leaves), "seconds": {"card": card_s, "cpu": cpu_s, "host": host_s}}
+    for key in ("lcs_height", "wup"):
+        bitwise = bool(np.array_equal(card_m[key], cpu_m[key]))
+        err = float(np.abs(card_m[key] - host_m[key]).max())
+        out[key] = {"bitwise_vs_cpu": bitwise, "vs_host": err}
+        print(f"17d {key} ({len(leaves)} x {len(leaves)}): card bitwise the CPU's {bitwise}, "
+              f"max |card - host f64| {err:.3g}; {card_s:.3f} s on the card, {cpu_s:.3f} s "
+              f"on the CPU, host path {host_s:.3f} s  [{card}]")
+        check(bitwise and err <= 1e-7, (key, bitwise, err))
+    return out
+
+
+def phase17(device, card, tmp, embedding, emb_path, CC):
+    """Spatial partitioning, --profile_dir and pairwise_matrices_device:
+    17a-17d."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    phase("17a the conv kernels with halo rows at the 448-px recipe's shard shapes "
+          "(S = 2, stage 4 also S = 4), f32 and bf16, vs plain and vs the whole image")
+    out["17a"] = p17_halo_kernels(device, card, CC)
+    torch.cuda.empty_cache()
+    phase(f"17b the CUB recipe (ResNet-50 @ {P17_SIZE}, batch {P17_BATCH}, bf16, "
+          "--fused_loss) on a (1, 2) grid of two gloo ranks on the card vs one process")
+    out["17b"] = p17_spatial_recipe(device, card, tmp, embedding)
+    torch.cuda.empty_cache()
+    phase("17c learn_image_embeddings --profile_dir on slice 1's recipe")
+    out["17c"] = p17_profile(card, tmp, emb_path)
+    phase(f"17d pairwise_matrices_device, a {P17_LEAVES}-leaf tree")
+    out["17d"] = p17_pairwise(device, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3613,6 +3997,11 @@ def main(argv=None):
         **{f"cli_gpus_2_{k}": v["launches"] for k, v in p16["16d"].items()},
     }
 
+    # -- 17. spatial partitioning, --profile_dir, pairwise_matrices_device ---
+    p17 = phase17(device, card, tmp, embedding, emb_path, CC)
+    check("jax" not in sys.modules and not any(
+        m.startswith("semantic_embeddings_tpu") for m in sys.modules), "JAX imported")
+
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = []
     for part, line in (("fwd", 40), ("bwd", 48)):
@@ -3636,6 +4025,8 @@ def main(argv=None):
             # phase 16: the data-parallel paths
             "launches_data_parallel": {k: v[f"cosine_loss_{part}"]
                                        for k, v in data_parallel.items()},
+            # phase 17b: a step of the CUB recipe on each rank of a (1, 2) grid
+            "launches_spatial": p17["17b"]["launches"][f"cosine_loss_{part}"],
             "max_abs_err": err[part, f32],
             "max_abs_err_bf16": err[part, bf16],
             "ms": times[part, f32][0], "plain_ms": times[part, f32][1],
@@ -3698,6 +4089,13 @@ def main(argv=None):
                 **{k: v[name] for k, v in data_parallel.items()},
                 **({"serving_call_two_replicas": p16["16f"]["conv_launches_per_call"]["two"]}
                    if name == "conv3x3_bn_stats" else {})},
+            # phase 17b: a step of the CUB recipe on each rank of a (1, 2)
+            # grid, all its launches and those given halo rows; 17a the halo
+            # launches at the recipe's shard shapes
+            "launches_spatial": p17["17b"]["launches"][name],
+            "launches_spatial_halo": p17["17b"]["launches"][f"{name}_halo"],
+            "halo_by_shape": {key: {**r[name], "y_vs_whole_bitwise": r["y_vs_whole_bitwise"]}
+                              for key, r in p17["17a"].items()},
             "max_abs_err": conv_err[f32][err_key],
             "vs_f64_of_max": conv_err[f32][f"{err_key}_vs_f64_of_max"],
             "plain_vs_f64_of_max": conv_err[f32][f"plain_{err_key}_vs_f64_of_max"],
@@ -3719,7 +4117,7 @@ def main(argv=None):
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
                       "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13,
-                      "phase14": p14, "phase15": p15, "phase16": p16}))
+                      "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -70,8 +70,13 @@ def add_common_train_arguments(group):
                             "multi_gpu_model) instead of the default "
                             "global-batch sync BN. See PARITY.md.")
     group.add_argument("--spatial", type=int, default=1,
-                       help="Spatial partitioning factor (refused: one card "
-                            "has no second device to split an image over).")
+                       help="Spatial partitioning factor: fold the --gpus "
+                            "ranks into a (data, spatial) grid and split each "
+                            "image's HEIGHT over the spatial columns (the "
+                            "layers exchange halo rows). Scales a single "
+                            "large-image batch across cards - for the 448px "
+                            "fine-tune recipes whose per-card batch is small. "
+                            "Must divide --gpus.")
 
 
 DECODERS = ("auto", "native", "pillow")
@@ -115,15 +120,6 @@ def apply_pipeline_args(dataset, args):
               f"{dataset.queue_size} batches, "
               f"{'native' if dataset.use_native else 'Pillow'} decoder (--decoder {decoder})")
     return dataset
-
-
-def reject_unported(flags):
-    """Raises ``SystemExit`` for a flag whose feature is not ported yet.
-
-    ``flags``: (name, is_set) pairs; a set flag never passes silently."""
-    for name, is_set in flags:
-        if is_set:
-            raise SystemExit(f"{name} is not ported yet to the PyTorch package.")
 
 
 def resolve_device(name):
@@ -302,17 +298,6 @@ def finetune(args, state, warm_step, eval_step, dataset):
     return state
 
 
-def reject_unported_parallel(args):
-    """Refuses ``--spatial``, which splits one image's rows over devices:
-    one card has no second device to split an image over, and ``--remat``
-    already halves ResNet-50's peak memory."""
-    if args.spatial > 1:
-        raise SystemExit(
-            "--spatial is not ported yet to the PyTorch package: one card has no "
-            "second device to split an image over, and --remat already halves "
-            "ResNet-50's peak memory.")
-
-
 def mesh_size(gpus, available=None):
     """The data-parallel degree ``--gpus`` gives when ``available`` devices
     are present (None: any number, as the CPU offers): fewer present, it
@@ -326,17 +311,27 @@ def mesh_size(gpus, available=None):
     return n
 
 
-def set_bn_mode(n, bn_per_replica=False):
-    """BatchNorm over an ``n``-way data-parallel run: one group a rank under
-    ``--bn_per_replica``, else one group (global-batch, sync statistics),
-    with the JAX package's NOTE saying so."""
+def check_spatial(n, spatial):
+    """``--spatial`` must divide the ``n`` devices (the JAX package's
+    message)."""
+    if n % max(1, int(spatial)):
+        raise SystemExit(f"--spatial {spatial} must divide the device count ({n}).")
+
+
+def set_bn_mode(n, bn_per_replica=False, spatial=1):
+    """BatchNorm over ``n`` devices folded into ``spatial`` columns: one
+    group a data shard under ``--bn_per_replica`` (the spatial columns of a
+    shard jointly compute one tower's statistics: they hold slices of the
+    same images), else one group (global-batch, sync statistics), with the
+    JAX package's NOTE saying so."""
     from ..models.layers import set_default_bn_groups
 
-    set_default_bn_groups(n if bn_per_replica else 1)
+    shards = n // max(1, int(spatial))
+    set_default_bn_groups(shards if bn_per_replica else 1)
     if bn_per_replica:
-        if n > 1:
-            print(f"BatchNorm: per-replica statistics over {n} shards")
-    elif n > 1:
+        if shards > 1:
+            print(f"BatchNorm: per-replica statistics over {shards} shards")
+    elif shards > 1:
         print(
             f"NOTE: --gpus {n} uses global-batch (sync) BatchNorm statistics; "
             "the reference's multi_gpu_model computes them per tower. Pass "
@@ -344,18 +339,20 @@ def set_bn_mode(n, bn_per_replica=False):
             "exactly (see PARITY.md / RECIPES.md).")
 
 
-def resolve_mesh(gpus, bn_per_replica=False, available=None):
-    """The JAX package's ``resolve_mesh`` (``--spatial`` is refused before
-    it): maps ``--gpus`` onto the data-parallel degree (:func:`mesh_size`)
-    and sets BatchNorm's mode for it (:func:`set_bn_mode`).  Returns the
-    degree."""
+def resolve_mesh(gpus, bn_per_replica=False, available=None, spatial=1):
+    """The JAX package's ``resolve_mesh``: maps ``--gpus`` onto the number
+    of devices (:func:`mesh_size`), checks that ``--spatial`` divides it
+    and sets BatchNorm's mode for the ``(n / spatial, spatial)`` grid
+    (:func:`set_bn_mode`).  Returns the number of devices."""
     n = mesh_size(gpus, available)
-    set_bn_mode(n, bn_per_replica)
+    check_spatial(n, spatial)
+    set_bn_mode(n, bn_per_replica, spatial)
     return n
 
 
 def check_mesh_batch(n, *batch_sizes):
-    """Batch sizes must divide over the ``n``-way data-parallel run."""
+    """Batch sizes must divide over the ``n``-way data axis (under a
+    spatial grid its data shards only: its columns split the images)."""
     for b in batch_sizes:
         if b and b % n:
             raise SystemExit(
@@ -364,9 +361,9 @@ def check_mesh_batch(n, *batch_sizes):
 
 
 def sharded():
-    """The batch iterators' ``shard`` keyword in a group of several ranks
-    (each reads its rows only), else none."""
-    return {"shard": True} if parallel.world_size() > 1 else {}
+    """The batch iterators' ``shard`` keyword in a group of several data
+    shards (each reads its rows only), else none."""
+    return {"shard": True} if parallel.data_size() > 1 else {}
 
 
 def available_devices(device):
@@ -380,14 +377,16 @@ def available_devices(device):
     return None
 
 
-def spawn_data_parallel(args, main, argv):
+def spawn_data_parallel(args, main, argv, spatial=1):
     """``--gpus N`` > 1 with no launcher: runs ``main(argv)`` in N spawned
     processes, one card each (NCCL; gloo on the CPU), and returns True once
     all of them have ended.  Returns False where this process trains
-    itself: under a launcher, or on one device."""
+    itself: under a launcher, or on one device.  ``spatial`` (``--spatial``
+    where the learner takes it) must divide the devices."""
     if parallel.launched() or parallel.in_group():
         return False
     n = mesh_size(args.gpus, available_devices(args.device))
+    check_spatial(n, spatial)
     if n == 1:
         return False
     import sys
@@ -398,13 +397,15 @@ def spawn_data_parallel(args, main, argv):
 
 
 @contextlib.contextmanager
-def data_parallel(args):
+def data_parallel(args, spatial=1):
     """The training process's side of ``--gpus``: under a launcher it joins
     the group (NCCL for a CUDA ``--device``, gloo on the CPU; a group the
-    caller started is kept), sets BatchNorm's mode for the group's size,
-    and checks the batch sizes divide over it; ranks other than 0 print
-    nothing.  Yields ``(device, world)``: this rank's device and the
-    group's size.  Leaves a group it joined on exit."""
+    caller started is kept), folds it into a ``(world / spatial, spatial)``
+    grid (``--spatial``, where the learner takes it; :mod:`..parallel.spatial`),
+    sets BatchNorm's mode for the grid, and checks the batch sizes divide
+    over its data shards; ranks other than 0 print nothing.  Yields
+    ``(device, world)``: this rank's device and the group's size.  Leaves a
+    group it joined, and the grid, on exit."""
     joins = parallel.launched() and not parallel.in_group()
     if joins:
         world = int(os.environ["WORLD_SIZE"])
@@ -425,10 +426,18 @@ def data_parallel(args):
             if parallel.in_group():
                 print(f"data parallel: rank {parallel.rank()} of {world} "
                       f"({torch.distributed.get_backend()})")
-            set_bn_mode(world, args.bn_per_replica)
-            check_mesh_batch(world, args.batch_size, getattr(args, "val_batch_size", None))
+            check_spatial(world, spatial)
+            if spatial > 1:
+                parallel.set_grid(parallel.get_grid(spatial))
+                print(f"spatial partitioning: a ({world // spatial}, {spatial}) "
+                      "(data, spatial) grid; each image's rows split over "
+                      f"{spatial} columns")
+            set_bn_mode(world, args.bn_per_replica, spatial)
+            check_mesh_batch(world // spatial, args.batch_size,
+                             getattr(args, "val_batch_size", None))
             yield device, world
     finally:
+        parallel.set_grid(None)
         if joins:
             parallel.finalize_distributed()
 
@@ -479,6 +488,7 @@ def extract_by_tap(model, prepare, batches, device, layer=None, train_branch=Fal
     for raw in batches:
         local = parallel.shard_batch(raw)
         images, _ = prepare(local, rng, train_branch)
+        images = parallel.constrain_spatial(images)
         with maybe_autocast(device, autocast_dtype):
             feats = forward_tap(model, images, layer, pick).float()
         start, _, n = parallel.local_rows(local, feats.shape[0])

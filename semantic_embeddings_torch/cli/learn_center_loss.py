@@ -80,7 +80,6 @@ def main(argv=None):
     in N spawned processes, one card each (then returns None); under a
     launcher's environment this process is one rank of the group."""
     args = build_parser().parse_args(argv)
-    common.reject_unported_parallel(args)
     if common.spawn_data_parallel(args, main, argv):
         return None
     with common.data_parallel(args) as (device, _):

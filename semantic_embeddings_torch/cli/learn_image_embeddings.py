@@ -119,7 +119,9 @@ def build_parser():
     group.add_argument("--log_dir", type=str, default=None,
                        help="Metrics log directory (JSONL).")
     group.add_argument("--profile_dir", type=str, default=None,
-                       help="Device trace directory (not ported yet).")
+                       help="Write a torch.profiler trace (CPU and CUDA "
+                            "activity) of steady-state training steps to this "
+                            "directory, one file a rank.")
     group.add_argument("--no_progress", action="store_true", default=False,
                        help="Do not display training progress, but just the "
                             "final performance.")
@@ -135,11 +137,9 @@ def main(argv=None):
     in N spawned processes, one card each (then returns None); under a
     launcher's environment this process is one rank of the group."""
     args = build_parser().parse_args(argv)
-    common.reject_unported_parallel(args)
-    common.reject_unported([("--profile_dir", args.profile_dir is not None)])
-    if common.spawn_data_parallel(args, main, argv):
+    if common.spawn_data_parallel(args, main, argv, spatial=args.spatial):
         return None
-    with common.data_parallel(args) as (device, _):
+    with common.data_parallel(args, spatial=args.spatial) as (device, _):
         return train(args, device)
 
 
@@ -245,7 +245,7 @@ def train(args, device):
         val_batch_size=args.val_batch_size, initial_epoch=args.initial_epoch,
         decay=decay, seed=args.seed, snapshot=args.snapshot,
         snapshot_best=args.snapshot_best, verbose=not args.no_progress,
-        log_fn=log_fn,
+        log_fn=log_fn, profile_dir=args.profile_dir,
         snapshot_meta={
             "architecture": args.architecture,
             "embed_dim": int(embedding.shape[1]),

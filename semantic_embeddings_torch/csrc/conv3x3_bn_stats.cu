@@ -109,6 +109,15 @@
 // atomics: y, s and ss are the same on every run.  Pixels, channels and
 // taps past their ends are masked, so any B, C, H, W, F >= 1 work.
 //
+// Halo rows (spatial partitioning, where x is a block of an image's rows):
+// x's rows -1 and H may be given as (B, C, 1, W) tensors in place of the
+// SAME padding's zeros.  Only the window chunks that reach outside x's plane
+// read them, element by element (stage_x_chunk in conv3x3_common.cuh), so
+// x's planes keep the copy width chosen for them, and a null pointer leaves
+// every path as it was.  y and the partial sums cover x's own H rows; each
+// pixel's products are summed in the same order as in a launch on the whole
+// image, so y is the same, bit for bit (chip_smoke.py phase 17a).
+//
 // ptxas (sm_90a, CUDA 12.9): the bf16 kernel 120 registers for each copy
 // width, no spills, 66,864 bytes of dynamic shared memory (2 stages of
 // 27,136, the transposed windows and a zero row, the halves' sums), so
@@ -200,8 +209,9 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi, float& rlo, fl
 // or more in a repacked copy).
 template <int VEC>
 __global__ void __launch_bounds__(kTcThreads, 3)
-    conv3x3_stats_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wp,
-                              uint16_t* __restrict__ y, float* __restrict__ part_s,
+    conv3x3_stats_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ top,
+                              const uint16_t* __restrict__ bottom,
+                              const uint16_t* __restrict__ wp, uint16_t* __restrict__ y, float* __restrict__ part_s,
                               float* __restrict__ part_ss, int C, int H, int W, int F,
                               int pitch) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -248,9 +258,11 @@ __global__ void __launch_bounds__(kTcThreads, 3)
       const int kh = row - cl * 3;
       const int c = ch * kTcC + cl;
       const int pix = ((p0 + (kh - 1) * W - 1) & ~(VEC - 1)) + q;
-      const bool ok = c < C && pix >= 0 && pix < HW;
-      const uint16_t* src = ok ? x + (static_cast<size_t>(n) * C + c) * pitch + pix : x;
-      copy_chunk<VEC * 2>(raw + row * kRawPitch + q, src, ok);
+      const bool ok = c < C;
+      const size_t plane = static_cast<size_t>(n) * C + c;
+      stage_x_chunk<VEC>(raw + row * kRawPitch + q, ok ? x + plane * pitch : x,
+                         top ? top + plane * W : nullptr, bottom ? bottom + plane * W : nullptr,
+                         pix, HW, W, ok);
     }
   };
 
@@ -411,8 +423,9 @@ __global__ void __launch_bounds__(kTcThreads, 3)
 }
 
 template <int VEC>
-int launch_bf16(const void* x, const void* wp, void* y, void* part_s, void* part_ss, int B,
-                int C, int H, int W, int F, int pitch, cudaStream_t stream) {
+int launch_bf16(const void* x, const void* top, const void* bottom, const void* wp, void* y,
+                void* part_s, void* part_ss, int B, int C, int H, int W, int F, int pitch,
+                cudaStream_t stream) {
   const auto kernel = conv3x3_stats_bf16_kernel<VEC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
@@ -420,7 +433,8 @@ int launch_bf16(const void* x, const void* wp, void* y, void* part_s, void* part
   const long long steps = static_cast<long long>(B) * ((H * W + kStep - 1) / kStep);
   const long long blocks = steps * ((F + kTcF - 1) / kTcF);
   kernel<<<static_cast<unsigned>(blocks), kTcThreads, kTcSmem, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(wp),
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(top),
+      static_cast<const uint16_t*>(bottom), static_cast<const uint16_t*>(wp),
       static_cast<uint16_t*>(y), static_cast<float*>(part_s), static_cast<float*>(part_ss), C,
       H, W, F, pitch);
   return static_cast<int>(cudaGetLastError());
@@ -457,7 +471,8 @@ struct F32Block {
 // input channels (one m16n8k8 slice a tap), FT output channels a block.
 template <int VEC, int FT>
 __global__ void __launch_bounds__(FT * 2, FT == 64 ? 3 : 2)
-    conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+    conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ top,
+                             const float* __restrict__ bottom, const float* __restrict__ wp,
                              float* __restrict__ y, float* __restrict__ part_s,
                              float* __restrict__ part_ss, int C, int H, int W, int F,
                              int pitch) {
@@ -509,9 +524,11 @@ __global__ void __launch_bounds__(FT * 2, FT == 64 ? 3 : 2)
       const int kh = row - cl * 3;
       const int c = ch * kF32C + cl;
       const int pix = ((p0 + (kh - 1) * W - 1) & ~(VEC - 1)) + q;
-      const bool ok = c < C && pix >= 0 && pix < HW;
-      const float* src = ok ? x + (static_cast<size_t>(n) * C + c) * pitch + pix : x;
-      copy_chunk<VEC * 4>(raw + row * kF32RawPitch + q, src, ok);
+      const bool ok = c < C;
+      const size_t plane = static_cast<size_t>(n) * C + c;
+      stage_x_chunk<VEC>(raw + row * kF32RawPitch + q, ok ? x + plane * pitch : x,
+                         top ? top + plane * W : nullptr, bottom ? bottom + plane * W : nullptr,
+                         pix, HW, W, ok);
     }
   };
 
@@ -715,8 +732,9 @@ __global__ void __launch_bounds__(FT * 2, FT == 64 ? 3 : 2)
 }
 
 template <int VEC, int FT>
-int launch_f32_block(const void* x, const float* wp, void* y, void* part_s, void* part_ss,
-                     int B, int C, int H, int W, int F, int pitch, cudaStream_t stream) {
+int launch_f32_block(const void* x, const void* top, const void* bottom, const float* wp, void* y,
+                     void* part_s, void* part_ss, int B, int C, int H, int W, int F, int pitch,
+                     cudaStream_t stream) {
   using Block = F32Block<FT>;
   const auto kernel = conv3x3_stats_f32_kernel<VEC, FT>;
   cudaError_t err =
@@ -725,7 +743,8 @@ int launch_f32_block(const void* x, const float* wp, void* y, void* part_s, void
   const long long steps = static_cast<long long>(B) * ((H * W + kStep - 1) / kStep);
   const long long blocks = steps * ((F + FT - 1) / FT);
   kernel<<<static_cast<unsigned>(blocks), Block::kThreads, Block::kSmem, stream>>>(
-      static_cast<const float*>(x), wp, static_cast<float*>(y), static_cast<float*>(part_s),
+      static_cast<const float*>(x), static_cast<const float*>(top),
+      static_cast<const float*>(bottom), wp, static_cast<float*>(y), static_cast<float*>(part_s),
       static_cast<float*>(part_ss), C, H, W, F, pitch);
   return static_cast<int>(cudaGetLastError());
 }
@@ -735,11 +754,14 @@ int launch_f32_block(const void* x, const float* wp, void* y, void* part_s, void
 // windows staged and transposed per output, 16 warps an SM against 12),
 // else 64.
 template <int VEC>
-int launch_f32(const void* x, const float* wp, void* y, void* part_s, void* part_ss, int B,
-               int C, int H, int W, int F, int pitch, cudaStream_t stream) {
+int launch_f32(const void* x, const void* top, const void* bottom, const float* wp, void* y,
+               void* part_s, void* part_ss, int B, int C, int H, int W, int F, int pitch,
+               cudaStream_t stream) {
   if (F >= 128)
-    return launch_f32_block<VEC, 128>(x, wp, y, part_s, part_ss, B, C, H, W, F, pitch, stream);
-  return launch_f32_block<VEC, 64>(x, wp, y, part_s, part_ss, B, C, H, W, F, pitch, stream);
+    return launch_f32_block<VEC, 128>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F,
+                                      pitch, stream);
+  return launch_f32_block<VEC, 64>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F,
+                                   pitch, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -834,10 +856,13 @@ int conv3x3_bn_stats_copy_width(const void* x, int H, int W, int is_bf16) {
 }
 
 // y[B, F, H, W] (x's dtype), s[F], ss[F] (f32) from x[B, C, H, W] and
-// wt[F, C, 3, 3], both bf16 when is_bf16, else f32.  part_s and part_ss are
+// wt[F, C, 3, 3], both bf16 when is_bf16, else f32.  top and bottom are x's
+// rows -1 and H, (B, C, 1, W) in x's dtype, or null for zeros (the image's
+// own edge); y and the sums cover x's H rows only.  part_s and part_ss are
 // f32 scratch of conv3x3_bn_stats_partial_rows(B, H, W) x F each; scratch
 // holds the bytes conv3x3_bn_stats_scratch asks for.
-int conv3x3_bn_stats(const void* x, const void* wt, void* y, void* part_s, void* part_ss,
+int conv3x3_bn_stats(const void* x, const void* wt, const void* top, const void* bottom,
+                     void* y, void* part_s, void* part_ss,
                      void* s, void* ss, int B, int C, int H, int W, int F, int is_bf16,
                      void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -851,12 +876,12 @@ int conv3x3_bn_stats(const void* x, const void* wt, void* y, void* part_s, void*
     err = permute_weights<uint16_t, kTcC>(wt, wp, C, F, st);
     if (err != 0) return err;
     switch (copy_width_of(x, HW, true)) {
-      case 8: err = launch_bf16<8>(x, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
-      case 4: err = launch_bf16<4>(x, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
+      case 8: err = launch_bf16<8>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
+      case 4: err = launch_bf16<4>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
       default: {
         uint16_t* xp = wp + w_elems;
         err = pad_planes<uint16_t>(x, xp, static_cast<long long>(B) * C, HW, pitch, st);
-        if (err == 0) err = launch_bf16<8>(xp, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
+        if (err == 0) err = launch_bf16<8>(xp, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
       }
     }
   } else {
@@ -864,12 +889,12 @@ int conv3x3_bn_stats(const void* x, const void* wt, void* y, void* part_s, void*
     err = permute_weights<float, kF32C>(wt, wp, C, F, st);
     if (err != 0) return err;
     switch (copy_width_of(x, HW, false)) {
-      case 4: err = launch_f32<4>(x, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
-      case 2: err = launch_f32<2>(x, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
+      case 4: err = launch_f32<4>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
+      case 2: err = launch_f32<2>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
       default: {
         float* xp = wp + w_elems;
         err = pad_planes<float>(x, xp, static_cast<long long>(B) * C, HW, pitch, st);
-        if (err == 0) err = launch_f32<4>(xp, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
+        if (err == 0) err = launch_f32<4>(xp, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
       }
     }
   }

@@ -12,6 +12,13 @@
 // start is rounded down to the copy width, which the reads then add back).
 // Elements outside the plane are zero; taps that wrap across the left or
 // right edge of the image are masked by the reader.
+//
+// Halo rows: where an image is one block of rows of a larger one (a shard
+// of spatial partitioning), its rows -1 and H are given as two rows of W
+// elements for each plane (`top`, `bottom`: (N, C, 1, W) tensors), in place
+// of the zeros; a null pointer keeps the zeros.  Only the window chunks
+// that reach outside the plane read them (stage_x_chunk), one element at a
+// time: x's planes keep the alignment the copy width was chosen for.
 
 #pragma once
 
@@ -43,6 +50,39 @@ __device__ __forceinline__ void copy_chunk(void* dst, const void* src, bool ok) 
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
                "l"(src), "n"(BYTES), "r"(ok ? BYTES : 0)
                : "memory");
+}
+
+// Stages the VEC elements of a window from plane pixel `pix` on (a
+// multiple of VEC, possibly before or past the plane) into the shared dst:
+// `plane` is this plane's first pixel (read only where `ok`, the channel's
+// being in range), `top` and `bottom` its halo rows of W elements, or null.
+// A chunk that lies inside the plane, or reaches outside it only where no
+// halo row is given, is one cp.async as before (zeros outside the plane);
+// any other chunk is staged element by element: row -1 from top, row H from
+// bottom, zeros beyond them.  A chunk may straddle the plane's end only in
+// a repacked copy, whose padding stands in for the zeros.
+template <int VEC, typename T>
+__device__ __forceinline__ void stage_x_chunk(T* dst, const T* plane, const T* top,
+                                              const T* bottom, int pix, int HW, int W, bool ok) {
+  const bool halo = ok && ((pix < 0 && top != nullptr) || (pix + VEC > HW && bottom != nullptr));
+  if (!halo) {
+    const bool inside = ok && pix >= 0 && pix < HW;
+    copy_chunk<VEC * static_cast<int>(sizeof(T))>(dst, inside ? plane + pix : plane, inside);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const int k = pix + e;
+    T v = T(0);
+    if (k < 0) {
+      if (top != nullptr && k >= -W) v = top[k + W];
+    } else if (k < HW) {
+      v = plane[k];
+    } else if (bottom != nullptr && k - HW < W) {
+      v = bottom[k - HW];
+    }
+    dst[e] = v;
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

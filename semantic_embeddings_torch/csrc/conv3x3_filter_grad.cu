@@ -105,6 +105,11 @@
 // registers and 96,192 bytes, 2 blocks an SM; the repack and the ordered
 // reduction 16 and 32 registers.
 //
+// Halo rows (spatial partitioning): x's rows -1 and H may be given as
+// (N, C, 1, W) tensors in place of the zero padding; dy covers x's own
+// rows.  The x windows read them as the conv + statistics kernel does
+// (stage_x_chunk in conv3x3_common.cuh); a null pointer changes nothing.
+//
 // The kernels launch on the caller's stream and allocate nothing; the C
 // entry point returns the first launch error (cudaGetLastError).
 
@@ -164,7 +169,8 @@ static_assert(window_len<8>() <= kXPitch, "x window exceeds its row");
 // `pitch` elements apart (H*W, or more in a repacked copy).
 template <int VEC>
 __global__ void __launch_bounds__(kTcThreads, 3)
-    filter_grad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
+    filter_grad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ top,
+                            const uint16_t* __restrict__ bottom, const uint16_t* __restrict__ dy,
                             float* __restrict__ part, int N, int C, int H, int W,
                             int F, int chunk, int pitch) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -212,9 +218,11 @@ __global__ void __launch_bounds__(kTcThreads, 3)
       const int kh = row - cl * 3;
       const int c = c0 + cl;
       const int pix = ((p0 + (kh - 1) * W - 1) & ~(VEC - 1)) + q;
-      const bool ok = c < C && pix >= 0 && pix < HW;
-      const uint16_t* src = ok ? x + (static_cast<size_t>(n) * C + c) * pitch + pix : x;
-      copy_chunk<VEC * 2>(xs + row * kXPitch + q, src, ok);
+      const bool ok = c < C;
+      const size_t plane = static_cast<size_t>(n) * C + c;
+      stage_x_chunk<VEC>(xs + row * kXPitch + q, ok ? x + plane * pitch : x,
+                         top ? top + plane * W : nullptr, bottom ? bottom + plane * W : nullptr,
+                         pix, HW, W, ok);
     }
     if (tid < kStep) {  // bit 0: the pixel has a left neighbour, bit 1: a right one
       const int w = (p0 + tid) % W;
@@ -317,14 +325,16 @@ __global__ void __launch_bounds__(kTcThreads, 3)
 }
 
 template <int VEC>
-int launch_bf16(const void* x, const void* dy, void* part, int N, int C, int H, int W,
-                int F, int splits, int chunk, int pitch, cudaStream_t stream) {
+int launch_bf16(const void* x, const void* top, const void* bottom, const void* dy, void* part,
+                int N, int C, int H, int W, int F, int splits, int chunk, int pitch,
+                cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(filter_grad_bf16_kernel<VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((C + kTcC - 1) / kTcC, (F + kTcF - 1) / kTcF, splits);
   filter_grad_bf16_kernel<VEC><<<grid, kTcThreads, kTcSmem, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(top),
+      static_cast<const uint16_t*>(bottom), static_cast<const uint16_t*>(dy),
       static_cast<float*>(part), N, C, H, W, F, chunk, pitch);
   return static_cast<int>(cudaGetLastError());
 }
@@ -346,7 +356,8 @@ static_assert(window_len<kF32Vec>() <= kF32XPitch, "x window exceeds its row");
 // As filter_grad_bf16_kernel, on f32 operands with 16-byte copies and planes
 // `pitch` floats apart (H*W, or more in a repacked copy).
 __global__ void __launch_bounds__(kTcThreads, 2)
-    filter_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+    filter_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ top,
+                           const float* __restrict__ bottom, const float* __restrict__ dy,
                            float* __restrict__ part, int N, int C, int H, int W, int F,
                            int chunk, int pitch) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -391,9 +402,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       const int kh = row - cl * 3;
       const int c = c0 + cl;
       const int pix = ((p0 + (kh - 1) * W - 1) & ~(kF32Vec - 1)) + q;
-      const bool ok = c < C && pix >= 0 && pix < HW;
-      const float* src = ok ? x + (static_cast<size_t>(n) * C + c) * pitch + pix : x;
-      copy_chunk<kF32Vec * 4>(xs + row * kF32XPitch + q, src, ok);
+      const bool ok = c < C;
+      const size_t plane = static_cast<size_t>(n) * C + c;
+      stage_x_chunk<kF32Vec>(xs + row * kF32XPitch + q, ok ? x + plane * pitch : x,
+                             top ? top + plane * W : nullptr,
+                             bottom ? bottom + plane * W : nullptr, pix, HW, W, ok);
     }
     if (tid < kStep) {
       const int w = (p0 + tid) % W;
@@ -529,14 +542,16 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     }
 }
 
-int launch_f32(const void* x, const void* dy, void* part, int N, int C, int H, int W, int F,
-               int splits, int chunk, int pitch, cudaStream_t stream) {
+int launch_f32(const void* x, const void* top, const void* bottom, const void* dy, void* part,
+               int N, int C, int H, int W, int F, int splits, int chunk, int pitch,
+               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(filter_grad_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((C + kTcC - 1) / kTcC, (F + kTcF - 1) / kTcF, splits);
   filter_grad_f32_kernel<<<grid, kTcThreads, kF32Smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(part),
+      static_cast<const float*>(x), static_cast<const float*>(top),
+      static_cast<const float*>(bottom), static_cast<const float*>(dy), static_cast<float*>(part),
       N, C, H, W, F, chunk, pitch);
   return static_cast<int>(cudaGetLastError());
 }
@@ -616,11 +631,14 @@ long long conv3x3_filter_grad_scratch(const void* x, const void* dy, int N, int 
 }
 
 // dw[F, C, 3, 3] (f32) from x[N, C, H, W] and dy[N, F, H, W], both bf16
-// when is_bf16, else f32.  The work is split as conv3x3_filter_grad_splits
+// when is_bf16, else f32.  top and bottom are x's rows -1 and H, (N, C, 1,
+// W) in x's dtype, or null for zeros (the image's own edge); dy covers x's
+// H rows.  The work is split as conv3x3_filter_grad_splits
 // gives it for the same dtype; part is f32 scratch of splits x F x 9C;
 // scratch holds the bytes that conv3x3_filter_grad_scratch asks for (or is
 // null when it asks for none).
-int conv3x3_filter_grad(const void* x, const void* dy, void* part, void* dw,
+int conv3x3_filter_grad(const void* x, const void* dy, const void* top, const void* bottom,
+                        void* part, void* dw,
                         int N, int C, int H, int W, int F, int splits,
                         int chunk, int is_bf16, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -628,8 +646,8 @@ int conv3x3_filter_grad(const void* x, const void* dy, void* part, void* dw,
   int err;
   if (is_bf16) {
     switch (copy_width_of(x, dy, HW, true)) {
-      case 8: err = launch_bf16<8>(x, dy, part, N, C, H, W, F, splits, chunk, HW, st); break;
-      case 4: err = launch_bf16<4>(x, dy, part, N, C, H, W, F, splits, chunk, HW, st); break;
+      case 8: err = launch_bf16<8>(x, top, bottom, dy, part, N, C, H, W, F, splits, chunk, HW, st); break;
+      case 4: err = launch_bf16<4>(x, top, bottom, dy, part, N, C, H, W, F, splits, chunk, HW, st); break;
       default: {
         if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
         const int pitch = padded_pitch(HW);
@@ -639,11 +657,11 @@ int conv3x3_filter_grad(const void* x, const void* dy, void* part, void* dw,
         if (err == 0)
           err = pad_planes<uint16_t>(dy, dyp, static_cast<long long>(N) * F, HW, pitch, st);
         if (err == 0)
-          err = launch_bf16<8>(xp, dyp, part, N, C, H, W, F, splits, chunk, pitch, st);
+          err = launch_bf16<8>(xp, top, bottom, dyp, part, N, C, H, W, F, splits, chunk, pitch, st);
       }
     }
   } else if (copy_width_of(x, dy, HW, false) == 4) {
-    err = launch_f32(x, dy, part, N, C, H, W, F, splits, chunk, HW, st);
+    err = launch_f32(x, top, bottom, dy, part, N, C, H, W, F, splits, chunk, HW, st);
   } else {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const int pitch = padded_pitch(HW);
@@ -651,7 +669,7 @@ int conv3x3_filter_grad(const void* x, const void* dy, void* part, void* dw,
     float* dyp = xp + static_cast<size_t>(N) * C * pitch;
     err = pad_planes<float>(x, xp, static_cast<long long>(N) * C, HW, pitch, st);
     if (err == 0) err = pad_planes<float>(dy, dyp, static_cast<long long>(N) * F, HW, pitch, st);
-    if (err == 0) err = launch_f32(xp, dyp, part, N, C, H, W, F, splits, chunk, pitch, st);
+    if (err == 0) err = launch_f32(xp, top, bottom, dyp, part, N, C, H, W, F, splits, chunk, pitch, st);
   }
   if (err != 0) return err;
   return reduce_splits(part, dw, splits, F * C * 9, st);

@@ -363,7 +363,7 @@ class FileDataset(DatasetBase):
         """A raw batch of ``files``; with ``shard`` only this process's rows
         are read and decoded (``rows`` says where they lie)."""
         rows, n = None, len(files)
-        if shard and parallel.world_size() > 1:
+        if shard and parallel.data_size() > 1:
             start, stop = parallel.process_slice(n)
             rows = (start, stop)
             labels = labels[start:stop]

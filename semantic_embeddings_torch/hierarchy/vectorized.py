@@ -1,7 +1,8 @@
 """Dense pairwise class-similarity matrices from a taxonomy.
 
-The port's own copy of ``semantic_embeddings_tpu/hierarchy/vectorized.py``
-(host numpy, without that module's JAX variant for large trees).
+The port's own copy of ``semantic_embeddings_tpu/hierarchy/vectorized.py``:
+host numpy, and :func:`pairwise_matrices_device`, whose one GEMM for large
+trees runs on the card through ``torch``.
 
 The original implementation computes pairwise LCS-height / Wu-Palmer values
 with an O(n^2) Python loop over memoized per-pair recursions
@@ -47,6 +48,69 @@ def _class_ancestor_arrays(hierarchy, classes):
         mask[row, cols] = True
         dist[row, cols] = np.fromiter(m.values(), dtype=np.int32, count=len(m))
     return mask, dist, anc_nodes
+
+
+def pairwise_matrices_device(hierarchy, classes, dtype=np.float64, device="cuda"):
+    """Device variant of :func:`pairwise_matrices` for large trees (the JAX
+    package's ``pairwise_matrices_device``), on the card unless ``device``
+    says otherwise.
+
+    Key identity: in a (single-root) tree the common ancestors of two nodes
+    are exactly the chain root..LCS, so ``depth(LCS) = |anc(i) & anc(j)| =
+    (M @ M.T)[i, j]`` with M the boolean ancestor matrix: the whole
+    LCS-depth matrix is ONE f32 GEMM (``torch.matmul``; exact, the counts
+    are small integers).  Heights then come from a per-class ancestor-chain
+    table gathered at that depth (``take_along_dim``); ``lcs_height`` and
+    ``wup`` are computed in f32, as the JAX package computes them, and cast
+    to ``dtype``.  DAGs fall back to the host grouped-GEMM path.
+    """
+    if not hierarchy.is_tree():
+        return pairwise_matrices(hierarchy, classes, dtype=dtype)
+
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"pairwise_matrices_device: no CUDA device for {device}")
+    mask, _, anc_nodes = _class_ancestor_arrays(hierarchy, classes)
+    node_depth = hierarchy._depth_max_arr[anc_nodes].astype(np.int32)
+    node_height = hierarchy._height_arr[anc_nodes].astype(np.int32)
+    max_height = hierarchy.max_height
+    n, _ = mask.shape
+
+    # Per-class ancestor chain ordered by depth: chain_height[i, d-1] =
+    # height of class i's ancestor at depth d.
+    max_depth = int(node_depth.max())
+    chain_height = np.zeros((n, max_depth), dtype=np.float32)
+    for i in range(n):
+        cols = np.flatnonzero(mask[i])
+        chain_height[i, node_depth[cols] - 1] = node_height[cols]
+
+    class_depth = hierarchy._depth_max_arr[
+        [hierarchy._node_index[c] for c in classes]
+    ].astype(np.float32)
+
+    maskf = torch.from_numpy(mask.astype(np.float32)).to(device)
+    chain_h = torch.from_numpy(chain_height).to(device)
+    cdepth = torch.from_numpy(class_depth).to(device)
+    counts = torch.matmul(maskf, maskf.T)
+    lcs_depth = counts  # tree identity: |common ancestors| = depth(LCS)
+    idx = torch.clamp(lcs_depth.to(torch.int64) - 1, 0, chain_h.shape[1] - 1)
+    # heights[i, j] = chain_h[i, idx[i, j]] (the LCS lies on both chains)
+    heights = torch.take_along_dim(chain_h, idx, dim=1)
+    # by a tensor: a CUDA division by a Python number multiplies by its
+    # reciprocal, which rounds otherwise than the CPU's (and XLA's) division
+    lcs_h = heights / torch.tensor(float(max_height), device=device)
+    wup = (2.0 * lcs_depth) / (cdepth[:, None] + cdepth[None, :])
+    if float(counts.min()) < 1:
+        raise ValueError(
+            "Some class pairs share no common hypernym; the hierarchy has "
+            "multiple disconnected roots covering the requested classes."
+        )
+    return {
+        "lcs_height": lcs_h.cpu().numpy().astype(dtype),
+        "wup": wup.cpu().numpy().astype(dtype),
+    }
 
 
 def pairwise_matrices(hierarchy, classes, compute_wup=True, dtype=np.float64):

@@ -25,11 +25,13 @@ from .layers import (
     KerasBatchNorm,
     avg_pool,
     conv,
+    crop_like,
     dense,
     global_avg_pool,
     max_pool,
     top_output,
     upcast32,
+    upsample,
 )
 
 
@@ -111,9 +113,10 @@ class DenseNetFCN(nn.Module):
 
     def _upsample(self, x, prefix):
         if self.upsampling_type == "upsampling":
-            return F.interpolate(x, scale_factor=2, mode="nearest")
+            return upsample(x, lambda z: F.interpolate(z, scale_factor=2, mode="nearest"))
         if self.upsampling_type == "subpixel":
-            return sub_pixel_upscale(self._modules[f"{prefix}_sp"](torch.relu(x)), 2)
+            return upsample(self._modules[f"{prefix}_sp"](torch.relu(x)),
+                            lambda z: sub_pixel_upscale(z, 2))
         return self._modules[f"{prefix}_deconv"](torch.relu(x))
 
     def forward(self, x):
@@ -130,7 +133,7 @@ class DenseNetFCN(nn.Module):
             x = self._upsample(x, f"up{d}")
             skip = skips[d]
             # crop to the skip's size where upsampling overshoots odd sizes
-            x = x[:, :, :skip.shape[2], :skip.shape[3]]
+            x = crop_like(x, skip)
             _, x = self._dense_block(torch.cat([x, skip], dim=1), f"up{d}")
         x = self.head(x)
         if self.top_activation == "softmax":

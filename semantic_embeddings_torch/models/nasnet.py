@@ -37,6 +37,7 @@ from .layers import (
     dense,
     global_avg_pool,
     max_pool,
+    pad,
     top_output,
     zero_pad_same,
 )
@@ -96,7 +97,7 @@ class _FactorizedReduce(nn.Module):
 
     def forward(self, x):
         x = torch.relu(x)
-        shifted = torch.nn.functional.pad(x, (0, 1, 0, 1))[:, :, 1:, 1:]
+        shifted = pad(x, (-1, 1, -1, 1))  # one pixel up and left, zeros in
         return self.bn(torch.cat([self.conv_1(x), self.conv_2(shifted)], dim=1))
 
 
@@ -138,7 +139,8 @@ class _Cell(nn.Module):
 
     def _inputs(self, h_prev, h):
         """(p, squeezed h), as the JAX cell forms them."""
-        got = (h_prev is not None) and (h_prev.shape[2] != h.shape[2])
+        # by width: under a spatial grid a rank holds a block of the rows
+        got = (h_prev is not None) and (h_prev.shape[3] != h.shape[3])
         if (self.rule == "factorize") != got:
             raise ValueError(
                 f"NASNet cell built for {'a' if self.rule == 'factorize' else 'no'} "

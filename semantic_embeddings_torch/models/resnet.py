@@ -30,12 +30,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3_bn_stats, plain_conv3x3_bn_stats
+from ..parallel import spatial
 from .layers import (
     KerasBatchNorm,
     conv,
     dense,
     global_avg_pool,
     max_pool,
+    pad,
     rematerialized,
     top_output,
 )
@@ -69,8 +71,27 @@ class _Block(nn.Module):
         self.project = project
 
     def conv_bn_b(self, y):
+        if spatial.active():
+            return self.bn_b.forward_from_stats(*self._rows_conv_bn_b(y))
         return self.bn_b.forward_from_stats(
             *self.conv_bn_stats(y, self.conv_b.weight))
+
+    def _rows_conv_bn_b(self, y):
+        """``conv_b`` of a row block under a spatial grid: the op takes the
+        rows above and below the block as its halo rows (zero rows at the
+        image's edge), and its sums are the block's.  An empty block runs
+        the plain conv on zero rows and keeps none of its output.  Both
+        ways every fetched row stays in the graph, so that the fetch's
+        backward, a collective, runs on every rank."""
+        h = spatial.global_height(y)
+        top, mid, bottom, _ = spatial.halo(y, h, spatial.conv_needs(h, 3, 1, 1))
+        if mid.shape[2] == 0:
+            x = torch.cat([top, mid, bottom], dim=2)
+            z = F.conv2d(F.pad(x, (1, 1, 0, 3 - x.shape[2])),
+                         self.conv_b.weight.to(y.dtype))[:, :, :0]
+            zf = z.to(torch.promote_types(z.dtype, torch.float32))
+            return z, zf.sum(dim=(0, 2, 3)), (zf * zf).sum(dim=(0, 2, 3))
+        return self.conv_bn_stats(mid, self.conv_b.weight, top, bottom)
 
     def shortcut(self, x):
         return self.bn_sc(self.conv_sc(x)) if self.project else x
@@ -154,9 +175,9 @@ class ResNet(nn.Module):
         # Keras-2.2 stem (keras_applications resnet50): ZeroPadding2D(3) +
         # VALID 7x7/2 conv, then ZeroPadding2D(1) + VALID 3x3/2 max-pool.
         # Zero padding before the max-pool is exact: its input is post-relu.
-        x = self.conv0(F.pad(x, (3, 3, 3, 3)))
+        x = self.conv0(pad(x, (3, 3, 3, 3)))
         x = torch.relu(self.bn0(x))
-        x = max_pool(F.pad(x, (1, 1, 1, 1)), 3, 2)
+        x = max_pool(pad(x, (1, 1, 1, 1)), 3, 2)
         for name in self.blocks:
             block = getattr(self, name)
             x = rematerialized(block, x) if self.remat else block(x)

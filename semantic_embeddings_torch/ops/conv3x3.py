@@ -11,6 +11,12 @@ NCHW layout with (F, C, 3, 3) weights:
   filter_grad(x, dy):   dw[f, c, kh, kw] = sum_{n,h,w} x_pad[n, c, h+kh, w+kw]
                         * dy[n, f, h, w], in f32
 
+Both take optional halo rows ``top`` and ``bottom``, (N, C, 1, W) in x's
+dtype: x's rows -1 and H where x is one block of rows of a larger image (a
+shard of spatial partitioning, :mod:`..parallel.spatial`), in place of the
+SAME padding's zero rows; y, the sums and dy cover x's own rows.  Without
+them (None, a null pointer to the kernels) both are what they were.
+
 :func:`conv3x3_bn_stats` is the op through which every ResNet ``conv_b`` +
 ``bn_b`` pair runs.  Both functions are ``torch.library`` custom ops,
 ``semantic_embeddings_torch::conv3x3_bn_stats`` and
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +51,9 @@ import torch.nn.functional as F
 #: kernel launches since the process started (or since a caller reset them)
 launches_conv_bn_stats = 0
 launches_filter_grad = 0
+#: of those, the launches given a halo row (top or bottom)
+launches_conv_bn_stats_halo = 0
+launches_filter_grad_halo = 0
 
 _libs = None
 
@@ -62,13 +72,13 @@ def _kernels():
         fwd.conv3x3_bn_stats_scratch.restype = ctypes.c_longlong
         fwd.conv3x3_bn_stats_copy_width.argtypes = [ptr, i32, i32, i32]
         fwd.conv3x3_bn_stats_copy_width.restype = i32
-        fwd.conv3x3_bn_stats.argtypes = [ptr] * 7 + [i32] * 6 + [ptr, ptr]
+        fwd.conv3x3_bn_stats.argtypes = [ptr] * 9 + [i32] * 6 + [ptr, ptr]
         fwd.conv3x3_bn_stats.restype = i32
         wgrad = load("conv3x3_filter_grad")
         wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 6 + [
             ctypes.POINTER(i32)]
         wgrad.conv3x3_filter_grad_splits.restype = i32
-        wgrad.conv3x3_filter_grad.argtypes = [ptr] * 4 + [i32] * 8 + [ptr, ptr]
+        wgrad.conv3x3_filter_grad.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
         wgrad.conv3x3_filter_grad.restype = i32
         wgrad.conv3x3_filter_grad_copy_width.argtypes = [ptr, ptr, i32, i32, i32]
         wgrad.conv3x3_filter_grad_copy_width.restype = i32
@@ -91,17 +101,32 @@ def _upcast(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _plain_conv_bn_stats(x, w):
-    y = F.conv2d(x, w, padding=1)
+def _halo_extended(x, top, bottom):
+    """x with its rows -1 and H on: the halo rows given, zeros for those not."""
+    def row(halo):
+        return halo if halo is not None else x.new_zeros(x.shape[:2] + (1, x.shape[3]))
+
+    return torch.cat([row(top), x, row(bottom)], dim=2)
+
+
+def _plain_conv_bn_stats(x, w, top=None, bottom=None):
+    if top is None and bottom is None:
+        y = F.conv2d(x, w, padding=1)
+    else:  # the halo rows on, then W padded only
+        y = F.conv2d(_halo_extended(x, top, bottom), w, padding=(0, 1))
     yf = _upcast(y)
     return y, yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))
 
 
-def _plain_filter_grad(x, dy):
+def _plain_filter_grad(x, dy, top=None, bottom=None):
     """dw in f32 (or wider), computed in x's dtype as the prototype's
     reference does."""
     shape = (dy.shape[1], x.shape[1], 3, 3)
-    return _upcast(torch.nn.grad.conv2d_weight(x, shape, dy.to(x.dtype), padding=1))
+    dy = dy.to(x.dtype)
+    if top is None and bottom is None:
+        return _upcast(torch.nn.grad.conv2d_weight(x, shape, dy, padding=1))
+    return _upcast(torch.nn.grad.conv2d_weight(
+        _halo_extended(x, top, bottom), shape, dy, padding=(0, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -130,14 +155,35 @@ def _check(x, other, what):
         raise ValueError(f"{what} kernel indexes N*H*W rows with 32-bit ints")
 
 
+def _check_halos(x, top, bottom, what):
+    """Raises unless each halo row given is a contiguous (N, C, 1, W) tensor
+    of x's dtype on x's device."""
+    want = x.shape[:2] + (1, x.shape[3])
+    for name, halo in (("top", top), ("bottom", bottom)):
+        if halo is None:
+            continue
+        if halo.shape != want or halo.dtype != x.dtype or halo.device != x.device:
+            raise ValueError(
+                f"{what} kernel needs the {name} halo as x's row: {tuple(want)} "
+                f"{x.dtype} on {x.device}; got {tuple(halo.shape)} {halo.dtype} on "
+                f"{halo.device}")
+        if not halo.is_contiguous():
+            raise ValueError(f"{what} kernel needs a contiguous {name} halo")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _raise_on(code, what):
     if code != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {code}")
 
 
-def _launch_conv_bn_stats(x, w):
-    global launches_conv_bn_stats
+def _launch_conv_bn_stats(x, w, top=None, bottom=None):
+    global launches_conv_bn_stats, launches_conv_bn_stats_halo
     _check(x, w, "conv3x3_bn_stats")
+    _check_halos(x, top, bottom, "conv3x3_bn_stats")
     b, c, h, wd = x.shape
     f = w.shape[0]
     if tuple(w.shape) != (f, c, 3, 3):
@@ -157,17 +203,19 @@ def _launch_conv_bn_stats(x, w):
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.conv3x3_bn_stats(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), part_s.data_ptr(),
+        x.data_ptr(), w.data_ptr(), _ptr(top), _ptr(bottom), y.data_ptr(), part_s.data_ptr(),
         part_ss.data_ptr(), s.data_ptr(), ss.data_ptr(), b, c, h, wd, f, bf16,
         scratch.data_ptr(), stream)
     _raise_on(code, "conv3x3_bn_stats")
     launches_conv_bn_stats += 1
+    launches_conv_bn_stats_halo += top is not None or bottom is not None
     return y, s, ss
 
 
-def _launch_filter_grad(x, dy):
-    global launches_filter_grad
+def _launch_filter_grad(x, dy, top=None, bottom=None):
+    global launches_filter_grad, launches_filter_grad_halo
     _check(x, dy, "conv3x3_filter_grad")
+    _check_halos(x, top, bottom, "conv3x3_filter_grad")
     n, c, h, wd = x.shape
     f = dy.shape[1]
     if tuple(dy.shape) != (n, f, h, wd):
@@ -187,11 +235,13 @@ def _launch_filter_grad(x, dy):
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.conv3x3_filter_grad(
-        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), n, c, h,
+        x.data_ptr(), dy.data_ptr(), _ptr(top), _ptr(bottom), part.data_ptr(), dw.data_ptr(),
+        n, c, h,
         wd, f, splits, chunk.value, bf16,
         None if scratch is None else scratch.data_ptr(), stream)
     _raise_on(code, "conv3x3_filter_grad")
     launches_filter_grad += 1
+    launches_filter_grad_halo += top is not None or bottom is not None
     return dw
 
 
@@ -242,20 +292,22 @@ def _check_shapes(x, other, dim, other_dim, what):
 
 @torch.library.custom_op("semantic_embeddings_torch::conv3x3_bn_stats",
                          mutates_args=(), device_types="cpu")
-def conv3x3_bn_stats_op(x: torch.Tensor, w: torch.Tensor
+def conv3x3_bn_stats_op(x: torch.Tensor, w: torch.Tensor, top: Optional[torch.Tensor] = None,
+                        bottom: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(y, s, ss)``: the 3x3 SAME conv y in x's dtype and the per-channel
-    f32 sums of y and y**2 (f64 for f64 operands on the CPU)."""
-    return _plain_conv_bn_stats(x, w)
+    f32 sums of y and y**2 (f64 for f64 operands on the CPU); ``top`` and
+    ``bottom`` are x's rows -1 and H where given (else zeros)."""
+    return _plain_conv_bn_stats(x, w, top, bottom)
 
 
 @conv3x3_bn_stats_op.register_kernel("cuda")
-def _(x, w):
-    return _launch_conv_bn_stats(x, w)
+def _(x, w, top=None, bottom=None):
+    return _launch_conv_bn_stats(x, w, top, bottom)
 
 
 @conv3x3_bn_stats_op.register_fake
-def _(x, w):
+def _(x, w, top=None, bottom=None):
     _check_shapes(x, w, 1, 1, "conv3x3_bn_stats")  # C
     n, _, h, wd = x.shape
     f = w.shape[0]
@@ -266,18 +318,20 @@ def _(x, w):
 
 @torch.library.custom_op("semantic_embeddings_torch::conv3x3_filter_grad",
                          mutates_args=(), device_types="cpu")
-def conv3x3_filter_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dw (F, C, 3, 3) in f32 (f64 for f64 operands on the CPU)."""
-    return _plain_filter_grad(x, dy)
+def conv3x3_filter_grad(x: torch.Tensor, dy: torch.Tensor, top: Optional[torch.Tensor] = None,
+                        bottom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dw (F, C, 3, 3) in f32 (f64 for f64 operands on the CPU); ``top`` and
+    ``bottom`` are x's rows -1 and H where given (else zeros)."""
+    return _plain_filter_grad(x, dy, top, bottom)
 
 
 @conv3x3_filter_grad.register_kernel("cuda")
-def _(x, dy):
-    return _launch_filter_grad(x, dy)
+def _(x, dy, top=None, bottom=None):
+    return _launch_filter_grad(x, dy, top, bottom)
 
 
 @conv3x3_filter_grad.register_fake
-def _(x, dy):
+def _(x, dy, top=None, bottom=None):
     _check_shapes(x, dy, 0, 0, "conv3x3_filter_grad")  # N
     return x.new_empty((dy.shape[1], x.shape[1], 3, 3),
                        dtype=torch.promote_types(x.dtype, torch.float32))
@@ -301,21 +355,30 @@ def _total_cotangent(y, g_y, g_s, g_ss):
 
 
 def _backward(ctx, g_y, g_s, g_ss, filter_grad):
-    x, w, y = ctx.saved_tensors
-    dx = dw = None
+    x, w, y, top, bottom = ctx.saved_tensors
+    dx = dw = dtop = dbottom = None
+    halos = top is not None or bottom is not None
     with torch.autocast(x.device.type, enabled=False):
         # dy in x's dtype, as the prototype's reference takes it
         dy = _total_cotangent(y, g_y, g_s, g_ss).to(x.dtype)
-        if ctx.needs_input_grad[0]:
+        if not halos and ctx.needs_input_grad[0]:
             dx = torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1)
+        elif halos and any(ctx.needs_input_grad[i] for i in (0, 2, 3)):
+            # dx over the H + 2 extended rows; the end rows are the halos'
+            n, c, h, wd = x.shape
+            dx_ext = torch.nn.grad.conv2d_input((n, c, h + 2, wd), w, dy, padding=(0, 1))
+            dx = dx_ext[:, :, 1:h + 1] if ctx.needs_input_grad[0] else None
+            dtop = dx_ext[:, :, :1] if top is not None and ctx.needs_input_grad[2] else None
+            dbottom = (dx_ext[:, :, h + 1:] if bottom is not None and ctx.needs_input_grad[3]
+                       else None)
         if ctx.needs_input_grad[1]:
-            dw = filter_grad(x, dy).to(w.dtype)
-    return dx, dw
+            dw = filter_grad(x, dy, top, bottom).to(w.dtype)
+    return dx, dw, dtop, dbottom
 
 
 def _setup_context(ctx, inputs, output):
-    x, w = inputs
-    ctx.save_for_backward(x, w, output[0])
+    x, w, top, bottom = inputs
+    ctx.save_for_backward(x, w, output[0], top, bottom)
 
 
 conv3x3_bn_stats_op.register_autograd(
@@ -329,10 +392,10 @@ class PlainConv3x3BNStats(torch.autograd.Function):
     Nothing on the training path uses it."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, top=None, bottom=None):
         ctx.set_materialize_grads(False)
-        y, s, ss = _plain_conv_bn_stats(x, w)
-        ctx.save_for_backward(x, w, y)
+        y, s, ss = _plain_conv_bn_stats(x, w, top, bottom)
+        ctx.save_for_backward(x, w, y, top, bottom)
         return y, s, ss
 
     @staticmethod
@@ -340,29 +403,35 @@ class PlainConv3x3BNStats(torch.autograd.Function):
         return _backward(ctx, g_y, g_s, g_ss, _plain_filter_grad)
 
 
-def _apply(function, x, w):
-    # Under autocast, x and w are cast to the autocast dtype (bf16 for
-    # --bf16) here, outside the op (autocast casts no custom op's inputs),
-    # and the op runs with autocast off: both kernels then see bf16 x, w
-    # and dy; without autocast they see x's dtype (f32).  y is in that
+def _apply(function, x, w, top=None, bottom=None):
+    # Under autocast, x, w and the halo rows are cast to the autocast dtype
+    # (bf16 for --bf16) here, outside the op (autocast casts no custom op's
+    # inputs), and the op runs with autocast off: both kernels then see bf16
+    # x, w and dy; without autocast they see x's dtype (f32).  y is in that
     # dtype, the statistics and dw in f32.
     kind = x.device.type
     dtype = torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
+
+    def cast(t):
+        return None if t is None else t.to(dtype).contiguous()
+
     with torch.autocast(kind, enabled=False):
-        return function(x.to(dtype).contiguous(), w.to(dtype).contiguous())
+        return function(cast(x), cast(w), cast(top), cast(bottom))
 
 
-def conv3x3_bn_stats(x, w):
+def conv3x3_bn_stats(x, w, top=None, bottom=None):
     """3x3 SAME stride-1 conv of NCHW ``x`` with (F, C, 3, 3) ``w``, returning
     ``(y, s, ss)``: y, and the f32 per-channel sums of y and y**2 over
     (N, H, W) that BatchNorm's batch statistics need; through the custom op
-    ``semantic_embeddings_torch::conv3x3_bn_stats``."""
-    return _apply(conv3x3_bn_stats_op, x, w)
+    ``semantic_embeddings_torch::conv3x3_bn_stats``.  ``top`` / ``bottom``:
+    x's rows -1 and H, (N, C, 1, W), where x is a block of a larger image's
+    rows (None: the image's edge, zeros)."""
+    return _apply(conv3x3_bn_stats_op, x, w, top, bottom)
 
 
-def plain_conv3x3_bn_stats(x, w):
+def plain_conv3x3_bn_stats(x, w, top=None, bottom=None):
     """:func:`conv3x3_bn_stats` through the plain versions (a reference)."""
-    return _apply(PlainConv3x3BNStats.apply, x, w)
+    return _apply(PlainConv3x3BNStats.apply, x, w, top, bottom)
 
 
 # ---------------------------------------------------------------------------
@@ -510,3 +579,88 @@ def check_against_plain(x, w, dy):
         "plain_dw_vs_f64_of_max": ((dw_p.double() - dw64).abs().max()
                                    / dw64.abs().max()).item(),
     }
+
+
+#: (B, H, W, C, F, S) at which the halo launches are checked: the mid 3x3
+#: conv of each ResNet-50 stage at 448 px, batch 24, split over S = 2
+#: spatial columns (shards of 56 x 112 ... 7 x 14; 7 x 14 = 98 pixels, whose
+#: bf16 plane is only 4-byte aligned), and stage 4 over S = 4 (its 14 rows
+#: in blocks of 4, 4, 4 and 2)
+HALO_CASES = [case + (2,) for case in STAGE_SHAPES_448] + [STAGE_SHAPES_448[3] + (4,)]
+#: Σy and Σy² of the shards, added, against the whole-image launch's: both
+#: sum the same rounded y in other orders, within this share of Σ|y| (Σy²)
+SUM_OF_ABS = 1e-6
+
+
+def row_shards(x, spatial):
+    """``[(a, b, top, bottom)]``: the row blocks of ``ceil(H / spatial)`` of
+    an NCHW ``x`` (the last ones shorter; empty ones left out) with their
+    halo rows, None at the image's edge."""
+    h = x.shape[2]
+    per = -(-h // spatial)
+    out = []
+    for a in range(0, h, per):
+        b = min(a + per, h)
+        out.append((a, b, x[:, :, a - 1:a].contiguous() if a else None,
+                    x[:, :, b:b + 1].contiguous() if b < h else None))
+    return out
+
+
+def check_halo_shards(x, w, dy, spatial):
+    """Launches both kernels on each row block of the CUDA ``x`` (and dy)
+    with its halo rows, synchronizing after each, and asserts: y, the sums
+    and dw equal the plain halo versions' within the bounds of
+    :func:`check_against_plain`; each block's y equals the rows of the
+    whole-image launch bitwise (each pixel's products are summed in the
+    same order); Σy and Σy² added over the blocks equal the whole-image
+    launch's within :data:`SUM_OF_ABS` of Σ|y|; dw added over the blocks
+    equals the whole-image dw within :data:`DW_OF_MAX` of max |dw|.
+    Returns the largest differences."""
+    y_w, s_w, ss_w = _launch_conv_bn_stats(x, w)
+    dw_w = _launch_filter_grad(x, dy)
+    torch.cuda.synchronize()
+    tol = CHECK_TOL[x.dtype]
+    s_sum = torch.zeros_like(s_w, dtype=torch.float64)
+    ss_sum = torch.zeros_like(ss_w, dtype=torch.float64)
+    dw_sum = torch.zeros_like(dw_w, dtype=torch.float64)
+    worst = {"y_vs_plain": 0.0, "y_vs_whole_bitwise": True, "y_vs_whole": 0.0,
+             "dw_vs_plain_of_max": 0.0}
+    for a, b, top, bottom in row_shards(x, spatial):
+        xs, dys = x[:, :, a:b].contiguous(), dy[:, :, a:b].contiguous()
+        y, s, ss = _launch_conv_bn_stats(xs, w, top, bottom)
+        torch.cuda.synchronize()
+        dw = _launch_filter_grad(xs, dys, top, bottom)
+        torch.cuda.synchronize()
+        y_p, _, _ = _plain_conv_bn_stats(xs, w, top, bottom)
+        torch.testing.assert_close(y.float(), y_p.float(), **tol["y"])
+        worst["y_vs_plain"] = max(worst["y_vs_plain"],
+                                  (y.float() - y_p.float()).abs().max().item())
+        whole = y_w[:, :, a:b]
+        worst["y_vs_whole_bitwise"] &= bool(torch.equal(y, whole))
+        worst["y_vs_whole"] = max(worst["y_vs_whole"],
+                                  (y.float() - whole.float()).abs().max().item())
+        dw64 = _plain_filter_grad(xs.double(), dys.double(),
+                                  None if top is None else top.double(),
+                                  None if bottom is None else bottom.double())
+        of_max = ((dw.double() - dw64).abs().max() / dw64.abs().max()).item()
+        if of_max > DW_OF_MAX:
+            raise AssertionError(f"halo dw differs from f64 by {of_max:.3g} of max |dw|")
+        worst["dw_vs_plain_of_max"] = max(worst["dw_vs_plain_of_max"], of_max)
+        s_sum += s.double()
+        ss_sum += ss.double()
+        dw_sum += dw.double()
+    yabs = y_w.double().abs()
+    dims = (0, 2, 3)
+    for got, want, scale, name in ((s_sum, s_w, yabs.sum(dims), "s"),
+                                   (ss_sum, ss_w, (yabs * yabs).sum(dims), "ss")):
+        err = ((got - want.double()).abs() / scale).max().item()
+        if err > SUM_OF_ABS:
+            raise AssertionError(f"{name} of the shards differs from the whole image's "
+                                 f"by {err:.3g} of the sum of |terms|")
+        worst[f"{name}_vs_whole_of_abs"] = err
+    dw_err = ((dw_sum - dw_w.double()).abs().max() / dw_w.double().abs().max()).item()
+    if dw_err > DW_OF_MAX:
+        raise AssertionError(f"dw of the shards differs from the whole image's by "
+                             f"{dw_err:.3g} of max |dw|")
+    worst["dw_vs_whole_of_max"] = dw_err
+    return worst

@@ -12,6 +12,11 @@ and BatchNorm's per-channel sums cross the group through
 process over a list of devices (:func:`get_devices`), as the JAX package's
 single-host mesh does.
 
+Under ``--spatial S`` the ranks form a ``(N / S, S)`` grid
+(:mod:`.spatial`): the batch splits over the D = N / S data shards
+(:func:`data_size`, :func:`data_rank`), the columns of a shard split its
+images' rows, and the gradients are divided by D.
+
 Outside a group (one process, or no launcher) every helper here is the
 identity, so the single-device path is what it was.
 """
@@ -23,6 +28,9 @@ import socket
 
 import torch
 import torch.distributed as dist
+
+from . import spatial
+
 
 def launched():
     """Whether this process runs under a launcher's environment."""
@@ -41,6 +49,19 @@ def world_size():
 def rank():
     """This process's rank (0 outside a group)."""
     return dist.get_rank() if in_group() else 0
+
+
+def data_size():
+    """Data shards of the run: the world over the spatial columns (the JAX
+    mesh's ``data`` axis)."""
+    grid = spatial.current_grid()
+    return world_size() if grid is None else grid.data
+
+
+def data_rank():
+    """This rank's data shard (its row of the grid)."""
+    grid = spatial.current_grid()
+    return rank() if grid is None else grid.data_index
 
 
 def is_main():
@@ -90,11 +111,13 @@ def rank_device(device):
 
 def process_slice(n: int, process_index=None, process_count=None):
     """The contiguous [start, stop) rows of a global batch of ``n`` that this
-    process must provide: equal contiguous slices, in rank order.
+    process must provide: equal contiguous slices, in order of data shard
+    (each rank's own under data parallelism; the spatial columns of one
+    shard take the same rows).
 
     Pure arithmetic; ``n`` must divide evenly across processes."""
-    idx = rank() if process_index is None else process_index
-    cnt = world_size() if process_count is None else process_count
+    idx = data_rank() if process_index is None else process_index
+    cnt = data_size() if process_count is None else process_count
     if n % cnt:
         raise ValueError(f"global batch {n} not divisible by {cnt} hosts")
     per = n // cnt
@@ -106,8 +129,8 @@ def shard_batch(batch, process_index=None, process_count=None):
     ``batch`` whose leading dimension is the global batch is sliced to
     :func:`process_slice`, and ``rows`` = (start, stop, n) records where
     they lie, so that the augmentation is drawn for all n rows and applied
-    to these.  The batch as it is when the group has one rank."""
-    cnt = world_size() if process_count is None else process_count
+    to these.  The batch as it is when the run has one data shard."""
+    cnt = data_size() if process_count is None else process_count
     if cnt == 1 or "rows" in batch:
         return batch
     lengths = {len(v) for v in batch.values() if getattr(v, "ndim", 0) > 0}
@@ -127,47 +150,52 @@ def local_rows(raw, b):
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group; its backward sums the cotangents over the group,
+    """Sum over a group; its backward sums the cotangents over the group,
     so each rank's inputs take the gradient of every rank's loss."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.detach().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x):
-    """``x`` summed over the group, differentiable (the identity outside a
-    group of more than one rank)."""
+def all_reduce_sum(x, group=None):
+    """``x`` summed over ``group`` (the whole process group by default),
+    differentiable (the identity outside a group of more than one rank)."""
     if world_size() == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
 @torch.no_grad()
-def sum_over_group(x):
-    """A new tensor: ``x`` summed over the group (no autograd)."""
+def sum_over_group(x, group=None):
+    """A new tensor: ``x`` summed over ``group`` (the whole process group by
+    default; no autograd)."""
     x = x.detach().clone()
     if world_size() > 1:
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
     return x
 
 
 @torch.no_grad()
 def reduce_gradients(grads):
-    """The group's mean of each rank's gradients, in place: one flat buffer
-    a dtype, one ``all_reduce`` each, divided by the world size once.  The
+    """The gradients summed over every rank and divided by the data shards
+    (:func:`data_size`: the world size under data parallelism), in place:
+    one flat buffer a dtype, one ``all_reduce`` each.  Under a spatial grid
+    each rank's loss is already 1 / S of its shard's (see
+    :mod:`.spatial`), so this is the global batch's mean gradient too.  The
     gradients as they are outside a group."""
     if not in_group():
         return grads
-    world = world_size()
+    world = data_size()
     by_dtype = {}
     for i, g in enumerate(grads):
         by_dtype.setdefault(g.dtype, []).append(i)
@@ -198,11 +226,14 @@ def gather_rows(local, n_global, start):
     """The (n_global, ...) tensor whose rows [start, start + len(local)) are
     this rank's ``local`` rows: every rank's rows put in a zero buffer and
     summed over the group, which is exact (x + 0 = x), and needs only the
-    ``all_reduce`` that gloo gives CUDA tensors."""
+    ``all_reduce`` that gloo gives CUDA tensors.  Under a spatial grid the
+    columns of a data shard hold the same rows, and column 0 gives them."""
     if world_size() == 1:
         return local
     full = local.new_zeros((n_global,) + tuple(local.shape[1:]))
-    full[start:start + local.shape[0]] = local
+    grid = spatial.current_grid()
+    if grid is None or grid.column == 0:
+        full[start:start + local.shape[0]] = local
     dist.all_reduce(full)
     return full
 

@@ -7,11 +7,16 @@ pass, the loss (with the Keras L2 kernel penalty), the backward pass and the
 Keras-exact SGD update follow.  Only the batch's indices and the scalar
 learning rate come from the host.  Metrics stay on the device and are
 fetched once per epoch, so no step waits for the host.
+
+Under a spatial grid (``--spatial``, :mod:`..parallel.spatial`) every step
+cuts its prepared images to this rank's rows right after ``prepare``
+(:func:`..parallel.constrain_spatial`), as the JAX steps constrain them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 import warnings
 from typing import Callable
@@ -86,13 +91,22 @@ def finish_step(state, total, trained, lr, *, optimizer="sgd", momentum=0.9,
     BatchNorm running statistics move in the forward all the same (Keras
     2.2's frozen-BN semantics).  In a process group the gradients are the
     group's mean (:func:`..parallel.reduce_gradients`), clipped after it is
-    formed, as the JAX package clips the global batch's gradient."""
+    formed, as the JAX package clips the global batch's gradient.
+
+    Under a spatial grid of S columns the S ranks of a data shard compute
+    the same loss of the same images after the global pool, so each
+    differentiates 1 / S of it: summed over every rank and divided by the
+    data shards, the gradients are the global batch's (the rule of
+    :mod:`..parallel.spatial`)."""
     state.step += 1
     if not trained:  # nothing to train (a warm-up of a model with no top)
         return
     params = state.params
     params = [params[i] for i in trained]
     slots = [state.velocity[i] for i in trained]
+    columns = parallel.spatial_size()
+    if columns > 1:
+        total = total / columns
     grads = list(torch.autograd.grad(total, params))
     # in a process group: the global batch's gradient, before the clip
     parallel.reduce_gradients(grads)
@@ -148,6 +162,7 @@ def make_train_step(
 
     def step(state: TrainState, raw_batch, lr, rng):
         images, labels = prepare(raw_batch, rng, True)
+        images = parallel.constrain_spatial(images)
         targets = table[labels]
         model.train()
         with maybe_autocast(device, autocast_dtype):
@@ -204,6 +219,7 @@ def make_eval_step(
     @torch.no_grad()
     def step(state: TrainState, raw_batch, rng):
         images, labels = prepare(raw_batch, rng, False)
+        images = parallel.constrain_spatial(images)
         mask = valid_mask(raw_batch, images.shape[0], device)
         targets = table[labels]
         model.eval()
@@ -268,6 +284,7 @@ def make_classifier_train_step(
 
     def step(state: TrainState, raw_batch, lr, rng):
         images, labels = prepare(raw_batch, rng, True)
+        images = parallel.constrain_spatial(images)
         onehot = L.label_smoothing(F.one_hot(labels, num_classes).float(), label_smoothing)
         model.train()
         with maybe_autocast(device, autocast_dtype):
@@ -301,6 +318,7 @@ def make_classifier_eval_step(
     @torch.no_grad()
     def step(state: TrainState, raw_batch, rng):
         images, labels = prepare(raw_batch, rng, False)
+        images = parallel.constrain_spatial(images)
         mask = valid_mask(raw_batch, images.shape[0], device)
         onehot = L.label_smoothing(F.one_hot(labels, num_classes).float(), label_smoothing)
         model.eval()
@@ -332,7 +350,7 @@ def run_validation(eval_step, state, batches, rng):
         pending.append(eval_step(state, raw, rng))
         rows.append(raw.get("rows"))
     preds = [m.pop("pred") for m in pending if "pred" in m]
-    if preds and parallel.world_size() > 1:
+    if preds and parallel.data_size() > 1:
         preds = [parallel.gather_rows(p, n, start)
                  for p, (start, _, n) in zip(preds, rows)]
     keys = list(pending[0]) if pending else []
@@ -372,6 +390,8 @@ def fit(
     snapshot_best: str | None = None,
     verbose: bool = True,
     log_fn=None,
+    profile_dir: str | None = None,
+    profile_steps=(10, 30),
     snapshot_meta: dict | None = None,
 ):
     """Epoch loop with schedule driving, validation, and snapshotting.
@@ -386,6 +406,14 @@ def fit(
     is drawn for the whole batch from the shared generator and applied to
     these rows), and the epoch's metric sums are added over the group once
     an epoch; snapshots, the progress line and ``log_fn`` are rank 0's.
+
+    ``profile_dir``: a ``torch.profiler`` trace of CPU and CUDA activity
+    over the steps ``profile_steps`` = [start, stop) counted from this
+    run's first step (so a run resumed past the window still profiles),
+    one Chrome trace file a rank (``trace_rank{r}.json``), with the JAX
+    package's messages: "Wrote device trace to ..." when the window closes
+    or the run ends inside it, a ``RuntimeWarning`` when the run ends
+    before it opens.
     """
     val_batch_size = val_batch_size or batch_size
     device = _device_of(state.model)
@@ -402,6 +430,8 @@ def fit(
     best_metric = -np.inf if maximize else np.inf
     steps_per_epoch = dataset.steps_per_epoch(batch_size)
     global_step = int(state.step)
+    start_step = global_step
+    profiler = None
 
     for epoch in range(initial_epoch, epochs):
         t0 = time.time()
@@ -411,6 +441,13 @@ def fit(
         for raw in dataset.train_batches(batch_size, epoch, seed, **sharded):
             lr = schedule.lr(epoch, global_step) if schedule.per_batch else epoch_lr
             lr = effective_lr(lr, decay, global_step)
+            if profile_dir is not None:
+                done_steps = global_step - start_step
+                if done_steps == profile_steps[0]:
+                    profiler = _start_trace(device)
+                elif profiler is not None and done_steps >= profile_steps[1]:
+                    _stop_trace(profiler, profile_dir, device)
+                    profile_dir = profiler = None
             state, metrics = train_step(state, raw, lr, rng)
             # Epoch-mean train metrics, summed on the device and fetched
             # once per epoch: reading one per step would make every step
@@ -458,4 +495,40 @@ def fit(
                 flush=True)
         if log_fn is not None and main:
             log_fn(epoch, {**train_metrics, **val_metrics, "lr": epoch_lr})
+
+    if profiler is not None:  # runs shorter than the window keep their trace
+        _stop_trace(profiler, profile_dir, device)
+    elif profile_dir is not None:
+        warnings.warn(
+            f"--profile_dir was set but the run finished after "
+            f"{global_step - start_step} steps, before the profile window "
+            f"start (step {profile_steps[0]}); no trace was written. "
+            f"Lower profile_steps or run more steps.",
+            RuntimeWarning,
+        )
     return state
+
+
+def _start_trace(device):
+    """A started ``torch.profiler`` session over CPU and, on a card, CUDA
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_trace(profiler, profile_dir, device):
+    """Ends the session once the device is done and writes this rank's
+    Chrome trace into ``profile_dir``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(
+        os.path.join(profile_dir, f"trace_rank{parallel.rank()}.json"))
+    print(f"Wrote device trace to {profile_dir}", flush=True)

@@ -71,19 +71,54 @@ def test_device_cuda_without_gpu_raises(tmp_path, embedding):
 
 
 @pytest.mark.parametrize("extra", [
-    # --remat, --cls_base, --finetune, --gpus, --bn_per_replica and every
-    # architecture are ported: each case still has a flag that is not
-    # ported (--spatial, --profile_dir), which is refused
+    # every flag is ported: each case runs, or is refused, as the JAX
+    # package's CLI runs or refuses it (--spatial must divide --gpus)
     ["--gpus", "4", "--remat", "--spatial", "2"], ["--bn_per_replica", "--profile_dir", "trace"],
     ["--gpus", "2", "--spatial", "2"], ["--spatial", "2"],
     ["--finetune", "w.pt", "--bn_per_replica", "--spatial", "2"], ["--profile_dir", "trace"],
     ["--profile_dir", "trace", "--cls_base", "top", "--cls_weight", "0.1"],
     ["--spatial", "2", "--architecture", "wrn-28-10"],
 ])
-def test_unported_flag_raises(tmp_path, embedding, extra):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        learn_image_embeddings.main(
-            _argv(tmp_path, embedding, "--device", "cpu", *extra))
+def test_unported_flag_raises(tmp_path, embedding, extra, capfd, recwarn):
+    """What the JAX package's ``resolve_mesh`` does with the flags (8 host
+    devices present, as the conftest gives it) the port's CLI does: the
+    refusal word for word where --spatial does not divide --gpus, else a
+    run (a small one: 16 px, two steps), with the grid it asks for and,
+    for --profile_dir, the JAX warning that the run ended before the
+    profile window."""
+    from semantic_embeddings_tpu.cli import common as jcommon
+    from semantic_embeddings_tpu.models import layers as JL
+
+    def flag(name, default):
+        return int(extra[extra.index(name) + 1]) if name in extra else default
+
+    try:
+        jcommon.resolve_mesh(flag("--gpus", 1), spatial=flag("--spatial", 1))
+        refusal = None
+    except SystemExit as e:
+        refusal = str(e)
+    finally:
+        JL.set_default_bn_groups(1)
+    # resnet-32 embeds with no top layer: --cls_base top takes a model with one
+    model = ["--architecture", "simple"] if "--cls_base" in extra else []
+    argv = _argv(tmp_path, embedding, "--device", "cpu", *extra, *model,
+                 "--dataset", "synthetic-10-8-4-16", "--batch_size", "4")
+    if refusal is not None:
+        assert "must divide the device count" in refusal
+        with pytest.raises(SystemExit) as ours:
+            learn_image_embeddings.main(argv)
+        assert str(ours.value) == refusal
+        return
+    learn_image_embeddings.main(argv)
+    out = capfd.readouterr().out  # the spawned ranks' too
+    gpus, spatial = flag("--gpus", 1), flag("--spatial", 1)
+    if gpus > 1:
+        assert f"spawning {gpus} data-parallel processes" in out
+    if spatial > 1:
+        assert f"a ({gpus // spatial}, {spatial}) (data, spatial) grid" in out
+    if "--profile_dir" in extra:
+        assert any("before the profile window start (step 10)" in str(w.message)
+                   for w in recwarn)
 
 
 # -- stage 3: the evaluation CLIs against the JAX package's ----------------

@@ -755,3 +755,71 @@ def test_learner_cli_on_every_card_matches_one_card(device, tmp_path):
     for k in one:
         np.testing.assert_allclose(every[k].numpy(), one[k].numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+
+
+# -- spatial partitioning: halo rows, and --spatial over NCCL -----------------
+
+
+@pytest.mark.parametrize("case", cc.HALO_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_kernels_match_plain_and_the_whole_image(device, case, dtype):
+    """Both kernels on each row block of the 448-px recipe's stage shapes at
+    S = 2 (and stage 4 at S = 4, blocks of 4, 4, 4, 2 rows) with the halo
+    rows: against their plain halo versions, y bitwise the whole-image
+    launch's rows, the blocks' sums and dw added up the whole image's
+    (``check_halo_shards``' bounds)."""
+    torch.backends.cudnn.allow_tf32 = False
+    before = (cc.launches_conv_bn_stats_halo, cc.launches_filter_grad_halo)
+    x, w, dy = cc.check_inputs(case[:5], dtype, torch.Generator(device=device).manual_seed(0))
+    got = cc.check_halo_shards(x, w, dy, case[5])
+    assert got["y_vs_whole_bitwise"]
+    blocks = len(cc.row_shards(x, case[5]))
+    assert (cc.launches_conv_bn_stats_halo - before[0],
+            cc.launches_filter_grad_halo - before[1]) == (blocks, blocks)
+
+
+@pytest.mark.parametrize("gpus", [2, 4])
+def test_spatial_grid_over_nccl_matches_one_card(device, tmp_path, gpus):
+    """``learn_image_embeddings --gpus G --spatial 2`` (a (G / 2, 2) grid,
+    one rank a card, NCCL; the halo rows of rn18's convs and every
+    ``conv_b``'s kernels exchanged between cards): after one step on a
+    global batch of 16 at 32 px its model dump against ``--gpus 1``'s.  The
+    bound is f32's on the card, not the CPU's (1.3e-7 there with gloo
+    ranks): cuDNN picks its algorithms by shape, so a block of rows rounds
+    otherwise than the whole image, and an f32 ResNet step on the card lies
+    up to 0.06-0.07 of a tensor's update from the f64 step (chip_smoke 16b,
+    17b), either run; so each parameter within a quarter of its one-card
+    update, which a wrong halo row or a gradient off by a factor of S
+    exceeds; the running statistics within 1e-4 relative."""
+    from semantic_embeddings_torch.cli import common, learn_image_embeddings
+
+    if torch.cuda.device_count() < gpus:
+        pytest.skip(f"needs {gpus} cards")
+
+    def argv(out, *flags):
+        return ["--dataset", "synthetic-4-16-16-32", "--data_root", str(tmp_path),
+                "--embedding", "onehot", "--architecture", "rn18", "--batch_size", "16",
+                "--epochs", "1", "--lr_schedule", "SGD", "--sgd_lr", "0.05",
+                "--no_progress", "--model_dump", str(tmp_path / f"{out}.pt"), *flags]
+
+    learn_image_embeddings.main(argv("one"))
+    assert learn_image_embeddings.main(argv("grid", "--gpus", str(gpus),
+                                            "--spatial", "2")) is None
+    one, _ = common.load_checkpoint_raw(str(tmp_path / "one.pt"))
+    grid, _ = common.load_checkpoint_raw(str(tmp_path / "grid.pt"))
+    # the CLI's initial weights (4-d one-hot embedding, seed 0)
+    before = common.build_embedding_model(4, "rn18", "inv_corr", 0, seed=0)[0].state_dict()
+    assert sorted(one) == sorted(grid) == sorted(before)
+    ratios = {k: (grid[k] - one[k]).abs().max().item()
+              / max((one[k] - before[k]).abs().max().item(), 1e-30)
+              for k in one if "running_" not in k}
+    print("largest gap in units of the update:", max(ratios.values()),
+          max(ratios, key=ratios.get))
+    for k in one:
+        if "running_" in k:
+            np.testing.assert_allclose(grid[k].numpy(), one[k].numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+            continue
+        update = (one[k] - before[k]).abs().max().item()
+        gap = (grid[k] - one[k]).abs().max().item()
+        assert gap <= 0.25 * update + 1e-7, (k, gap, update)

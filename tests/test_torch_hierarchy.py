@@ -73,6 +73,48 @@ def test_pair_queries_match(taxonomies):
         assert ours.wup_similarity(a, b) == theirs.wup_similarity(a, b)
 
 
+def test_pairwise_matrices_device_matches_jax_bitwise(taxonomies):
+    """``pairwise_matrices_device`` on the CPU (``device="cpu"``) against
+    the JAX package's (XLA on the CPU): the f32 GEMM of the ancestor masks,
+    the gathered heights and the f32 divisions give bitwise equal matrices
+    on a tree; a DAG takes the host path in both.  Within 1e-7 of the host
+    path's f64 matrices."""
+    from semantic_embeddings_torch.hierarchy.vectorized import pairwise_matrices_device
+    from semantic_embeddings_tpu.hierarchy.vectorized import (
+        pairwise_matrices_device as jpairwise_matrices_device,
+    )
+
+    kind, ours, theirs = taxonomies
+    leaves = sorted(ours.leaves())
+    got = pairwise_matrices_device(ours, leaves, device="cpu")
+    want = jpairwise_matrices_device(theirs, leaves)
+    host = pairwise_matrices(ours, leaves)
+    for key in ("lcs_height", "wup"):
+        assert got[key].dtype == want[key].dtype == np.float64
+        np.testing.assert_array_equal(got[key], want[key])
+        np.testing.assert_allclose(got[key], host[key], rtol=0, atol=1e-7)
+
+
+def test_pairwise_matrices_device_refuses_disconnected_roots(tmp_path):
+    """Two trees: pairs across them share no hypernym, and both packages
+    say so with the same message."""
+    from semantic_embeddings_torch.hierarchy.vectorized import pairwise_matrices_device
+    from semantic_embeddings_tpu.hierarchy.vectorized import (
+        pairwise_matrices_device as jpairwise_matrices_device,
+    )
+
+    path = tmp_path / "forest.txt"
+    path.write_text("0 1\n0 2\n10 11\n10 12\n")
+    ours = ClassHierarchy.from_file(str(path), id_type=int)
+    theirs = JClassHierarchy.from_file(str(path), id_type=int)
+    with pytest.raises(ValueError) as got:
+        pairwise_matrices_device(ours, [1, 2, 11, 12], device="cpu")
+    with pytest.raises(ValueError) as want:
+        jpairwise_matrices_device(theirs, [1, 2, 11, 12])
+    assert str(got.value) == str(want.value)
+    assert "multiple disconnected roots" in str(got.value)
+
+
 def test_dense_matrices_match(taxonomies):
     _, ours, theirs = taxonomies
     leaves = sorted(ours.leaves())

@@ -224,10 +224,34 @@ def test_learn_center_loss_and_its_dump(tmp_path, fixed):
 
 
 @pytest.mark.parametrize("cli", [learn_classifier, learn_labelembedding, learn_center_loss])
-def test_learner_clis_refuse_the_multi_device_flags(tmp_path, cli):
-    # --gpus and --bn_per_replica are ported (tests/test_torch_parallel.py)
-    with pytest.raises(SystemExit, match="--spatial is not ported yet"):
-        cli.main(_argv(tmp_path, "--gpus", "2", "--spatial", "2"))
+def test_learner_clis_refuse_the_multi_device_flags(tmp_path, cli, capfd):
+    """``--gpus 2 --spatial 2`` does what the JAX package's CLIs do with it:
+    ``learn_classifier`` trains on a (1, 2) grid (two gloo ranks, each a
+    block of every image's rows); ``learn_labelembedding`` and
+    ``learn_center_loss`` parse --spatial and run exactly as ``--gpus 2``
+    (their JAX ``resolve_mesh`` calls leave it out): the model dumps are
+    bitwise equal."""
+    extra = ["--embed_dim", "16"] if cli is not learn_classifier else []
+    small = ["--dataset", "synthetic-10-8-4-16", "--batch_size", "4", "--epochs", "1",
+             "--lr_schedule", "SGD", "--sgd_lr", "0.05", *extra]
+
+    def run(name, *flags):
+        dump = str(tmp_path / f"{name}.pt")
+        assert cli.main(_argv(tmp_path, *small, "--model_dump", dump, *flags)) is None
+        return common.load_checkpoint_raw(dump)[0]
+
+    spatial = run("spatial", "--gpus", "2", "--spatial", "2")
+    out = capfd.readouterr().out
+    assert "spawning 2 data-parallel processes" in out
+    if cli is learn_classifier:
+        assert "a (1, 2) (data, spatial) grid" in out
+        assert all(torch.isfinite(v).all() for v in spatial.values())
+        return
+    assert "(data, spatial) grid" not in out
+    data = run("data", "--gpus", "2")
+    assert sorted(spatial) == sorted(data)
+    for k in data:
+        assert torch.equal(spatial[k], data[k]), k
 
 
 def test_synthetic_dataset_name_takes_an_image_size():

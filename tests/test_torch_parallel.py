@@ -118,14 +118,33 @@ def test_resolve_mesh_messages_match_jax(capsys, bn_per_replica):
         TL.set_default_bn_groups(1)
 
 
-def test_reject_unported_parallel_refuses_spatial_only():
-    args = learn_image_embeddings.build_parser().parse_args(
-        ["--dataset", "x", "--data_root", "x", "--embedding", "onehot", "--gpus", "4",
-         "--bn_per_replica"])
-    tcommon.reject_unported_parallel(args)
-    args.spatial = 2
-    with pytest.raises(SystemExit, match="one card has no second device"):
-        tcommon.reject_unported_parallel(args)
+@pytest.mark.parametrize("bn_per_replica", [False, True])
+@pytest.mark.parametrize("gpus,spatial", [(8, 4), (8, 2), (4, 4), (3, 2), (1, 2)])
+def test_resolve_with_spatial_matches_jax(capsys, bn_per_replica, gpus, spatial):
+    """``resolve_mesh`` with ``--spatial``: JAX's messages word for word (the
+    refusal, the BN note over the data shards, the per-replica line), and
+    its BatchNorm groups (one a data shard under ``--bn_per_replica``)."""
+    def outcome(resolve):
+        try:
+            resolve()
+        except SystemExit as e:
+            return "exit: " + str(e), capsys.readouterr().out
+        return TL.DEFAULT_BN_GROUPS if resolve is ours else JL.DEFAULT_BN_GROUPS, \
+            capsys.readouterr().out
+
+    def ours():
+        tcommon.resolve_mesh(gpus, bn_per_replica=bn_per_replica, available=8,
+                             spatial=spatial)
+
+    try:
+        ref = outcome(lambda: jcommon.resolve_mesh(gpus, bn_per_replica=bn_per_replica,
+                                                   spatial=spatial))
+        assert outcome(ours) == ref
+        if gpus % spatial:
+            assert f"--spatial {spatial} must divide the device count ({gpus})" in ref[0]
+    finally:
+        JL.set_default_bn_groups(1)
+        TL.set_default_bn_groups(1)
 
 
 # -- grouped BatchNorm in one process -----------------------------------------

@@ -289,3 +289,56 @@ def test_fused_loss_train_steps_match_jax():
     np.testing.assert_array_equal(ours.pop("predictions"), ref.pop("predictions"))
     for k in ref:
         np.testing.assert_allclose(ours[k], ref[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+# -- --profile_dir ---------------------------------------------------------------
+
+
+def _profiled_fit(profile_dir, steps, epochs):
+    """``fit`` of a tiny ``simple`` net (2 steps an epoch) with a profile
+    window."""
+    from semantic_embeddings_torch.data import SyntheticDataset
+    from semantic_embeddings_torch.models import build_network
+    from semantic_embeddings_torch.train import fit, make_eval_step, make_train_step
+    from semantic_embeddings_torch.train import new_train_state
+
+    data = SyntheticDataset(num_classes=4, n_train=16, n_test=8, size=8)
+    g = torch.Generator().manual_seed(0)
+    model = EmbeddingModel(build_network(4, "simple", generator=g).module, output="l2norm")
+    prepare = data.make_prepare("cpu")
+    emb = np.eye(4, dtype=np.float32)
+    fit(new_train_state(model), make_train_step(model, prepare, class_embedding=emb),
+        make_eval_step(model, prepare, class_embedding=emb), data,
+        S.PiecewiseSchedule([(0, 0.1)]), epochs=epochs, batch_size=8, verbose=False,
+        profile_dir=profile_dir, profile_steps=steps)
+
+
+def test_profile_dir_writes_a_trace_of_the_window(tmp_path, capsys):
+    """The JAX package's window, [start, stop) counted from this run's first
+    step: with ``profile_steps=(1, 3)`` over 4 steps the trace closes before
+    step 3 and is written (this rank's file), with JAX's message."""
+    import json
+    import os
+
+    _profiled_fit(str(tmp_path / "trace"), (1, 3), 2)
+    assert f"Wrote device trace to {tmp_path / 'trace'}" in capsys.readouterr().out
+    assert os.listdir(tmp_path / "trace") == ["trace_rank0.json"]
+    with open(tmp_path / "trace" / "trace_rank0.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv2d" in e.get("name", "") for e in events)
+
+
+def test_profile_dir_warns_when_the_run_ends_before_the_window(tmp_path, capsys):
+    """A run shorter than the window's start writes nothing and warns with
+    the JAX package's text; one that ends inside the window still writes
+    its trace."""
+    with pytest.warns(RuntimeWarning) as record:
+        _profiled_fit(str(tmp_path / "early"), (10, 30), 1)
+    assert str(record[0].message) == (
+        "--profile_dir was set but the run finished after 2 steps, before the "
+        "profile window start (step 10); no trace was written. Lower profile_steps "
+        "or run more steps.")
+    assert not (tmp_path / "early").exists()
+    _profiled_fit(str(tmp_path / "inside"), (1, 30), 1)
+    assert "Wrote device trace to" in capsys.readouterr().out
+    assert (tmp_path / "inside" / "trace_rank0.json").exists()
