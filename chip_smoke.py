@@ -278,6 +278,7 @@ N_TRAIN, N_TEST = 2000, 500
 RN50_BATCH = 128
 RN50_TRAIN, RN50_TEST = 512, 128
 RN50_CONVS = 16  # bottleneck blocks, each with one 3x3 conv_b feeding bn_b
+STAGE_BLOCKS = (3, 4, 6, 3)  # of them in each of ResNet-50's four stages
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 FMA
 # outside the tensor cores (TF32 stays off), f32-exact products on the
 # tensor cores as 3xTF32 (three TF32 products at 495 TFLOP/s each), and
@@ -3098,6 +3099,11 @@ def p17_halo_kernels(device, card, CC):
             grad_ms = time_ms(lambda: CC._launch_filter_grad(xs, dys, top, bottom), 20, 3)
             whole_conv = time_ms(lambda: CC._launch_conv_bn_stats(x, wt), 20, 3)
             whole_grad = time_ms(lambda: CC._launch_filter_grad(x, dy), 20, 3)
+            # the library call: conv2d_weight on the block's rows with its
+            # halo rows (zeros at the image's edge) concatenated
+            x_ext, wshape = CC._halo_extended(xs, top, bottom), tuple(wt.shape)
+            grad_lib = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_ext, wshape, dys, padding=(0, 1)), 20, 3)
             # each input read once (the shard, its two halo rows, the
             # weight or dy), each output written once
             elem = x.element_size()
@@ -3115,11 +3121,13 @@ def p17_halo_kernels(device, card, CC):
                                              "bound_by": conv_bound[1]},
                         "conv3x3_filter_grad": {"ms": grad_ms, "whole_scaled_ms":
                                                 whole_grad * rows / h, "bound_ms": grad_bound[0],
-                                                "bound_by": grad_bound[1]}}
+                                                "bound_by": grad_bound[1],
+                                                "library_ms": grad_lib}}
             print(f"17a {key}: shard of {rows} rows + {halo_rows} halo rows: conv+stats "
                   f"{conv_ms:.4f} ms (whole image scaled {whole_conv * rows / h:.4f}, bound "
                   f"{conv_bound[0]:.4f}), filter grad {grad_ms:.4f} ms (whole scaled "
-                  f"{whole_grad * rows / h:.4f}, bound {grad_bound[0]:.4f}); y vs plain "
+                  f"{whole_grad * rows / h:.4f}, conv2d_weight {grad_lib:.4f}, bound "
+                  f"{grad_bound[0]:.4f}); y vs plain "
                   f"{err['y_vs_plain']:.3g}, y bitwise the whole image's "
                   f"{err['y_vs_whole_bitwise']}, sums vs whole {err['s_vs_whole_of_abs']:.3g} / "
                   f"{err['ss_vs_whole_of_abs']:.3g} of sum |y|, dw vs whole "
@@ -3554,6 +3562,14 @@ def main(argv=None):
                  for dtype in (torch.float32, torch.bfloat16)}
     for key, value in instances.items():
         print(f"instance {key}: {value}")
+    check("wgmma" in instances["conv3x3_filter_grad bfloat16"]
+          and "mma.sync" in instances["conv3x3_filter_grad float32"], instances)
+    # the bf16 filter gradient's wgmma on its own (register A, the MN-major
+    # descriptor at whole-row offsets) against torch.matmul; raises beyond
+    # 1e-5 of each entry's sum of |terms|
+    wgmma_err = CC.check_wgmma_selftest(torch.Generator(device=device).manual_seed(14))
+    print(f"wgmma self-test at (rows, start row) {CC.WGMMA_SELFTEST_CASES}: max |err| "
+          f"{wgmma_err:.3g} of the sum of |terms|")
     f32 = torch.float32
     for case in CC.CHECK_CASES:
         b, h, w, c, f = case
@@ -3617,6 +3633,24 @@ def main(argv=None):
                       + f"), kernel at {bound_ms / ms:.3f} of it  [{card}]")
             del x, wt, dy
     torch.cuda.empty_cache()
+    # a ResNet-50 step's share of each kernel: launches a step (3 / 4 / 6 / 3
+    # bottleneck blocks a stage) times ms a call, summed over the stages,
+    # for the kernel, the library call and the bound, at both shape sets
+    step_sums = {}
+    for kernel_name in ("conv3x3_bn_stats", "conv3x3_filter_grad"):
+        for dtype in (f32, torch.bfloat16):
+            for size, shapes in (("224", CC.STAGE_SHAPES), ("448", CC.STAGE_SHAPES_448)):
+                rows = [conv_times[kernel_name, case, dtype] for case in shapes]
+                key = f"{kernel_name} {str(dtype)[6:]} {size}"
+                step_sums[key] = {
+                    k: None if rows[0][k] is None
+                    else sum(n * r[k] for n, r in zip(STAGE_BLOCKS, rows))
+                    for k in ("ms", "library_ms", "bound_ms")}
+                lib = step_sums[key]["library_ms"]
+                print(f"step sum {key} (launches {STAGE_BLOCKS}): kernel "
+                      f"{step_sums[key]['ms']:.4f} ms, library "
+                      + (f"{lib:.4f} ms" if lib is not None else "none")
+                      + f", bound {step_sums[key]['bound_ms']:.4f} ms  [{card}]")
 
     # -- 5. slice 1 ----------------------------------------------------
     phase("5 slice 1: compute_class_embedding + learn_image_embeddings")
@@ -4112,6 +4146,12 @@ def main(argv=None):
             "by_shape": {f"{case} {str(dtype)[6:]}": conv_times[name, case, dtype]
                          for case in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448
                          for dtype in (f32, bf16)},
+            # phase 4: launches x ms a call over a step's stages, per dtype
+            # and shape set ("224": batch 128, "448": batch 24)
+            "step_sums": {key[len(name) + 1:]: value for key, value in step_sums.items()
+                          if key.startswith(name + " ")},
+            **({"wgmma_selftest_of_terms": wgmma_err} if name == "conv3x3_filter_grad"
+               else {}),
         })
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,

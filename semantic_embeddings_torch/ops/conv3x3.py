@@ -30,9 +30,11 @@ to XLA too) and dw with the second op.
 For CUDA tensors each op launches its kernel (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
 the wrapper raises.  Each has two instances, chosen by the dtype, and all
-four run on the tensor cores (``mma.sync``): bf16 products in bf16, f32
-ones as 3xTF32 (three TF32 products for each f32-exact one).
-:func:`instance` names what a dtype runs.  For CPU tensors the plain
+four run on the tensor cores: bf16 products in bf16 (the filter gradient on
+Hopper's warpgroup ``wgmma``, the conv + statistics on ``mma.sync``), f32
+ones as 3xTF32 on ``mma.sync`` (three TF32 products for each f32-exact
+one).  :func:`instance` names what a dtype runs; :func:`wgmma_selftest`
+runs the bf16 filter gradient's ``wgmma`` on its own.  For CPU tensors the plain
 versions run.  The dispatcher picks by the tensor's device, nothing else:
 there is no fallback from a kernel to its plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
@@ -84,6 +86,8 @@ def _kernels():
         wgrad.conv3x3_filter_grad_copy_width.restype = i32
         wgrad.conv3x3_filter_grad_scratch.argtypes = [ptr, ptr] + [i32] * 6
         wgrad.conv3x3_filter_grad_scratch.restype = ctypes.c_longlong
+        wgrad.conv3x3_filter_grad_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+        wgrad.conv3x3_filter_grad_wgmma_selftest.restype = i32
         for lib, name in ((fwd, "conv3x3_bn_stats"), (wgrad, "conv3x3_filter_grad")):
             query = getattr(lib, f"{name}_instance")
             query.argtypes, query.restype = [i32], ctypes.c_char_p
@@ -248,10 +252,9 @@ def _launch_filter_grad(x, dy, top=None, bottom=None):
 def filter_grad_copy_width(x, dy):
     """The copy width, in elements, that the filter-gradient kernel of x's
     dtype takes for these CUDA operands (H*W and both pointers must be
-    multiples of it).  bf16: 8 or 4 (16- or 8-byte ``cp.async``), or 1 where
-    neither fits and the kernel first repacks both into planes padded to a
-    multiple of 8 elements.  f32: 4 (16-byte ``cp.async``), or 1 (the
-    repack)."""
+    multiples of it): 16-byte ``cp.async``, 8 elements in bf16 and 4 in f32,
+    or 1 where that does not fit and the kernel first repacks both into
+    planes padded to a multiple of 8 elements."""
     return _kernels()[1].conv3x3_filter_grad_copy_width(
         x.data_ptr(), dy.data_ptr(), x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
 
@@ -268,9 +271,38 @@ def conv_bn_stats_copy_width(x):
 
 def instance(kernel, dtype):
     """What ``kernel`` ("conv3x3_bn_stats" or "conv3x3_filter_grad") runs on
-    operands of ``dtype``, as its library reports it (which ``mma``)."""
+    operands of ``dtype``, as its library reports it (which ``mma`` or
+    ``wgmma``, and its tile)."""
     lib = _kernels()[0 if kernel == "conv3x3_bn_stats" else 1]
     return getattr(lib, f"{kernel}_instance")(int(dtype == torch.bfloat16)).decode()
+
+
+#: pixel rows of x a channel that the bf16 filter gradient stages a step (its
+#: transposed B operand), the most rows :func:`wgmma_selftest` takes
+WGMMA_B_ROWS = 240
+
+
+def wgmma_selftest(a, b, row):
+    """One ``wgmma`` of the bf16 filter-gradient instance on its own: the
+    f32 (64, 32) product of ``a`` (64, 16) and ``b[row:row + 16]`` for
+    contiguous bf16 CUDA tensors ``a`` and ``b`` (rows, 32), rows <=
+    :data:`WGMMA_B_ROWS`.  ``a`` goes into registers as the kernel
+    loads dy, ``b`` into the kernel's transposed layout of x, read through
+    its matrix descriptor started ``row`` pixel rows in.  Synchronizes."""
+    if (a.shape != (64, 16) or b.ndim != 2 or b.shape[1] != 32
+            or not 16 <= b.shape[0] <= WGMMA_B_ROWS or not 0 <= row <= b.shape[0] - 16):
+        raise ValueError(f"wgmma self-test takes a (64, 16) and b (16..240, 32) with "
+                         f"row + 16 <= rows; got {tuple(a.shape)}, {tuple(b.shape)}, {row}")
+    _check(a[None, None], b[None, None], "wgmma self-test")
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"wgmma self-test takes bf16 operands, not {a.dtype}")
+    d = torch.empty((64, 32), dtype=torch.float32, device=a.device)
+    code = _kernels()[1].conv3x3_filter_grad_wgmma_selftest(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), b.shape[0], row,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(code, "wgmma self-test")
+    torch.cuda.synchronize(a.device)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -443,8 +475,9 @@ def plain_conv3x3_bn_stats(x, w, top=None, bottom=None):
 #: then ragged shapes (nothing a multiple of a tile; F and 9C past one tile)
 STAGE_SHAPES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
                 (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
-#: shapes whose planes (H*W) take each copy width of the bf16 filter-gradient
-#: kernel: 8 elements (16 bytes), 4, and 1 (H*W = 49: repacked planes)
+#: shapes whose planes (H*W) take each copy width of the bf16 conv +
+#: statistics kernel: 8 elements (16 bytes), 4, and 1 (H*W = 49: repacked
+#: planes); the bf16 filter gradient takes 8, then repacks the other two
 ALIGN_CASES = [(4, 8, 8, 24, 80), (4, 14, 14, 32, 64), (4, 7, 7, 40, 72)]
 #: the mid 3x3 conv of each ResNet-50 stage at 448 px, batch 24 (the
 #: CosineLoss.md CUB recipe): planes of 12,544 to 196 pixels, N*H*W up to
@@ -478,7 +511,8 @@ CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
 #: H100 at the stage shapes: the f32 instance (3xTF32, each two k8 slices'
 #: products summed from zero in the tensor cores and added to the running
 #: sums with rounded f32 adds) 0.3-1.0e-6 of max |dw|; the bf16 instance
-#: (exact products, f32 accumulation in the tensor cores) 2.4-5.2e-6.
+#: (exact products, f32 accumulation in the tensor cores, on wgmma)
+#: 2.2-4.2e-6.
 #: Against the plain version, dw may differ by the plain version's own
 #: distance from f64 (cuDNN's f32 algorithm, or the rounding of dw to bf16)
 #: plus that bound.  The statistics are held to bounds derived from the
@@ -579,6 +613,37 @@ def check_against_plain(x, w, dy):
         "plain_dw_vs_f64_of_max": ((dw_p.double() - dw64).abs().max()
                                    / dw64.abs().max()).item(),
     }
+
+
+#: (rows of b, start row) at which :func:`check_wgmma_selftest` runs the
+#: wgmma on its own: all rows from the first, from an odd row, from the
+#: last start, and a shorter b
+WGMMA_SELFTEST_CASES = [(WGMMA_B_ROWS, 0), (WGMMA_B_ROWS, 5),
+                        (WGMMA_B_ROWS, WGMMA_B_ROWS - 16), (40, 17)]
+
+
+def check_wgmma_selftest(generator):
+    """Runs :func:`wgmma_selftest` at :data:`WGMMA_SELFTEST_CASES` on
+    N(0, 1) bf16 values drawn from the CUDA ``generator`` and asserts that
+    every entry of d equals ``torch.matmul`` of the same values in f64
+    within 1e-5 of its sum of |terms|: 16 exact bf16 products summed in f32
+    are within 16 * 2**-23 of it.  Returns the largest error in those
+    units."""
+    device = generator.device
+    worst = 0.0
+    for rows, row in WGMMA_SELFTEST_CASES:
+        a = torch.randn((64, 16), generator=generator, device=device).bfloat16()
+        b = torch.randn((rows, 32), generator=generator, device=device).bfloat16()
+        d = wgmma_selftest(a, b, row)
+        rows_b = b[row:row + 16].double()
+        ref = torch.matmul(a.double(), rows_b)
+        scale = torch.matmul(a.double().abs(), rows_b.abs()).clamp_min(1e-30)
+        err = ((d.double() - ref).abs() / scale).max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"wgmma self-test at rows {rows}, row {row}: d differs from "
+                                 f"torch.matmul by {err:.3g} of the sum of |terms|")
+        worst = max(worst, err)
+    return worst
 
 
 #: (B, H, W, C, F, S) at which the halo launches are checked: the mid 3x3

@@ -91,6 +91,96 @@ def test_plain_filter_grad_matches_pallas_prototype(dtype):
     np.testing.assert_allclose(got.permute(2, 3, 1, 0).numpy(), np.asarray(ref), **tol)
 
 
+def _wgmma_filter_grad_model(x, dy, top=None, bottom=None, chunk=2):
+    """dw as the bf16 ``wgmma`` instance computes it, in numpy: pipeline
+    steps of 64 pixels of one image; dy's tile masked per kw (kw = 0 without
+    the pixels of the image's left column, kw = 2 without its right one);
+    x's pixel rows of the step (for each kh a window of 80 from plane pixel
+    p0 + (kh - 1) W - 1 rounded down to 8 pixels; zeros, or the halo rows,
+    outside the plane) transposed to [c / 8][row][8] with C padded to whole
+    groups, every tap read at its whole-row offset; nine f32 products (F x
+    16 pixels x C) a 16-pixel slice, slices past the plane skipped; blocks of
+    ``chunk`` steps summed in f32, then the splits added in order in f32."""
+    n_img, c_in, h, w = x.shape
+    f_out = dy.shape[1]
+    hw, step, win, vec = h * w, 64, 80, 8  # 16-byte copies (or the repack)
+    cp = -(-c_in // 8) * 8
+    per_image = -(-hw // step)
+    total = n_img * per_image
+
+    def halo(t):
+        return np.zeros((n_img, c_in, w), np.float32) if t is None else t[:, :, 0]
+
+    # each plane with its row -1 before it and row H after it, zeros beyond
+    ext = np.zeros((n_img, cp, hw + 2 * w), np.float32)
+    ext[:, :c_in] = np.concatenate([halo(top), x.reshape(n_img, c_in, hw), halo(bottom)], axis=2)
+    dw = np.zeros((9, f_out, cp), np.float32)
+    for t0 in range(0, total, chunk):
+        acc = np.zeros((9, f_out, cp), np.float32)
+        for t in range(t0, min(t0 + chunk, total)):
+            n, p0 = t // per_image, t % per_image * step
+            pix = p0 + np.arange(step)
+            d = np.zeros((f_out, step), np.float32)
+            d[:, pix < hw] = dy[n].reshape(f_out, hw)[:, pix[pix < hw]]
+            col = pix % w
+            masked = (d * (col >= 1), d, d * (col <= w - 2))
+            # the plane pixel of each row, and the row of (pixel 0, kh, kw = 0)
+            firsts = [p0 + (kh - 1) * w - 1 for kh in range(3)]
+            idx = np.concatenate([f - f % vec + np.arange(win) for f in firsts])
+            row0 = [kh * win + firsts[kh] % vec for kh in range(3)]
+            ok = (idx >= -w) & (idx < hw + w)
+            rows = np.zeros((cp, 3 * win), np.float32)
+            rows[:, ok] = ext[n][:, idx[ok] + w]
+            xt = rows.reshape(cp // 8, 8, 3 * win).transpose(0, 2, 1)  # [c/8][row][8]
+            for ks in range(-(-min(step, hw - p0) // 16)):
+                for kh in range(3):
+                    for kw in range(3):
+                        r = row0[kh] + kw + 16 * ks + np.arange(16)
+                        b = xt[:, r, :].transpose(1, 0, 2).reshape(16, cp)
+                        a = masked[kw][:, 16 * ks:16 * ks + 16]
+                        acc[kh * 3 + kw] += np.matmul(a, b, dtype=np.float32)
+        dw += acc
+    return dw[:, :, :c_in].reshape(3, 3, f_out, c_in).transpose(2, 3, 0, 1)
+
+
+def _bf16_values(rng, shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), tc.ALIGN_CASES[0],
+                                  (3, 5, 14, 12, 16, "halo")])
+def test_wgmma_filter_grad_decomposition(case):
+    """The bf16 instance's decomposition (the numpy model above: dy masked
+    per kw, x transposed to [c / 8][pixel][8] and read at whole-row offsets,
+    f32 slices and ordered splits) against the Pallas prototype in
+    interpret mode and the plain version in f64, within ``DW_OF_MAX`` of
+    max |dw|.  Ragged cases have C not a multiple of 8; the halo case gives
+    x's rows -1 and H (the prototype sees them as rows of a taller image
+    whose dy is zero there)."""
+    b, h, w, c, f = case[:5]
+    rng = np.random.default_rng(sum(case[:5]))
+    x, dy = _bf16_values(rng, (b, c, h, w)), _bf16_values(rng, (b, f, h, w))
+    top = bottom = None
+    if len(case) > 5:
+        top, bottom = _bf16_values(rng, (b, c, 1, w)), _bf16_values(rng, (b, c, 1, w))
+    got = _wgmma_filter_grad_model(x, dy, top, bottom)
+
+    def t64(a):
+        return None if a is None else torch.from_numpy(a).double()
+
+    ref = tc._plain_filter_grad(t64(x), t64(dy), t64(top), t64(bottom)).numpy()
+    xj, dyj = x.transpose(0, 2, 3, 1), dy.transpose(0, 2, 3, 1)
+    if top is not None:  # the taller image: the halo rows on, dy zero on them
+        xj = np.concatenate([top.transpose(0, 2, 3, 1), xj, bottom.transpose(0, 2, 3, 1)], 1)
+        dyj = np.pad(dyj, ((0, 0), (1, 1), (0, 0), (0, 0)))
+    proto = np.asarray(j_filter_grad(jnp.asarray(xj, jnp.bfloat16), jnp.asarray(dyj, jnp.bfloat16),
+                                     batch_tile=1, interpret=True)).transpose(3, 2, 0, 1)
+    bound = tc.DW_OF_MAX * np.abs(ref).max()
+    assert got.shape == ref.shape == proto.shape == (f, c, 3, 3)
+    assert np.abs(got - ref).max() <= bound
+    assert np.abs(got - proto).max() <= bound
+
+
 def _tf32(t):
     """f32 -> TF32 (10 mantissa bits), round to nearest with ties away from
     zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits to

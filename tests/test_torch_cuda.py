@@ -106,14 +106,15 @@ def test_conv_kernels_are_deterministic(device, dtype):
 
 
 def test_filter_grad_copy_widths(device):
-    """ALIGN_CASES give the bf16 kernel each of its copy widths: 8, 4, and 1
-    (the repack)."""
+    """ALIGN_CASES give the bf16 kernel both of its copy paths: 16-byte
+    copies (8 elements) where H*W % 8 == 0, else the repack (1): H*W = 196
+    (% 8 == 4) and 49."""
     widths = []
     for case in cc.ALIGN_CASES:
         x, _, dy = cc.check_inputs(case, torch.bfloat16,
                                    torch.Generator(device=device).manual_seed(0))
         widths.append(cc.filter_grad_copy_width(x, dy))
-    assert widths == [8, 4, 1]
+    assert widths == [8, 1, 1]
 
 
 def test_filter_grad_bf16_misaligned_pointers(device):
@@ -163,16 +164,34 @@ def test_filter_grad_f32_misaligned_pointers(device):
 
 
 def test_conv_kernels_run_on_the_tensor_cores(device):
-    """Both kernels run f32 as the 3xTF32 instance and bf16 as the m16n8k16
-    one."""
+    """Both kernels run f32 as the 3xTF32 instance on mma.sync; bf16 runs
+    the filter gradient on Hopper's warpgroup wgmma and the conv +
+    statistics on mma.sync m16n8k16."""
     assert cc.instance("conv3x3_filter_grad", torch.float32) == (
         "tensor cores: mma.sync m16n8k8 3xTF32")
     assert cc.instance("conv3x3_filter_grad", torch.bfloat16) == (
-        "tensor cores: mma.sync m16n8k16 bf16")
+        "tensor cores: wgmma m64n32k16 bf16, 64 f x 32 c x 9 taps a warpgroup, "
+        "1 warpgroup a block where F <= 64, else 2")
     assert cc.instance("conv3x3_bn_stats", torch.bfloat16) == (
         "tensor cores: mma.sync m16n8k16 bf16")
     assert cc.instance("conv3x3_bn_stats", torch.float32) == (
         "tensor cores: mma.sync m16n8k8 3xTF32")
+
+
+def test_wgmma_selftest_matches_matmul(device):
+    """One wgmma of the bf16 filter gradient (A from registers, B through
+    the MN-major no-swizzle descriptor started at whole 16-byte rows)
+    against torch.matmul, at every start row of ``WGMMA_SELFTEST_CASES``."""
+    assert cc.check_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+
+
+def test_wgmma_selftest_rejects_rows_past_the_window(device):
+    a = torch.zeros((64, 16), dtype=torch.bfloat16, device=device)
+    b = torch.zeros((cc.WGMMA_B_ROWS, 32), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="row"):
+        cc.wgmma_selftest(a, b, cc.WGMMA_B_ROWS - 15)
+    with pytest.raises(TypeError):
+        cc.wgmma_selftest(a.float(), b.float(), 0)
 
 
 @pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((3, 5, 10, 16, 40), 2),
