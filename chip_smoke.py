@@ -21,15 +21,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    their plain versions, and f32 y and dw against f64, in f32 and bf16
    (TF32 off), at the four ResNet-50 stage shapes at batch 128 (224 px) and
    at batch 24 (448 px, the CUB recipe's), four ragged shapes and three
-   shapes that take each copy path (16- or 8-byte copies, or the repack);
-   print the instance each dtype runs, the copy width each shape takes and
-   the distance of y from f64 (the kernel's and cuDNN's).  At the eight
+   shapes that take each copy path (f32: 16- or 8-byte copies, or the
+   repack; bf16: 16-byte planes, or the repack), after each bf16 kernel's
+   ``wgmma`` on its own against ``torch.matmul`` (the conv's at each N it
+   uses); print the instance each dtype runs, the copy width each shape
+   takes and the distance of y from f64 (the kernel's and cuDNN's).  At the eight
    stage shapes time both kernels, their plain versions and cuDNN's
    wgrad, and print each kernel's bound (the larger of operations over the
    peak and bytes over 3.35 TB/s; the peak is bf16's 989 TFLOP/s, and for
    f32 that of f32-exact products on the tensor cores, 3xTF32 at 495 / 3
    TFLOP/s, with the f32 FMA units' 67 TFLOP/s beside it) and its share of
-   it.
+   it; give each kernel's device time by the kernels its wrapper launches,
+   each wrapper's host time a call, and the SHA-256 of each output on
+   inputs from a fixed seed (``conv_records``, which takes any tree's
+   ``ops.conv3x3``, so two trees' outputs can be compared bit for bit).
 5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
    taxonomy (20 superclasses x 5 leaves) with ``python -m
    semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
@@ -358,7 +363,8 @@ def device_ms(fn, iters=50, attempts=4):
     otherwise both are taken again, and after ``attempts`` the run fails.
     Where no record was lost the time is the windows' plain sum over
     ``iters``; else ``rescaled`` is true.  A kernel whose records all
-    vanish in both windows is not seen."""
+    vanish in both windows is not seen.  ``by_kernel_ms`` gives each
+    kernel's share of the time, by its name up to the argument list."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -375,15 +381,22 @@ def device_ms(fn, iters=50, attempts=4):
             launches[e.key] >= 1 and launches[e.key] * iters - iters // 10 <= e.count
             <= launches[e.key] * iters for e in kernels)
         lost = sum(launches[e.key] * iters - e.count for e in kernels)
-        ms = sum(e.self_device_time_total / e.count * launches[e.key] for e in kernels) / 1e3
-        return whole, launches, lost, ms
+        by_kernel = {e.key: e.self_device_time_total / e.count * launches[e.key] / 1e3
+                     for e in kernels}
+        return whole, launches, lost, by_kernel
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        (ok1, l1, lost1, t1), (ok2, l2, lost2, t2) = window(), window()
+        (ok1, l1, lost1, k1), (ok2, l2, lost2, k2) = window(), window()
+        t1, t2 = sum(k1.values()), sum(k2.values())
         if ok1 and ok2 and l1 == l2:
-            record = {"records_lost": [lost1, lost2], "rescaled": lost1 + lost2 > 0}
+            by_kernel = {}
+            for key in k1:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", key).split("(")[0]
+                by_kernel[name] = by_kernel.get(name, 0.0) + (k1[key] + k2[key]) / 2
+            record = {"records_lost": [lost1, lost2], "rescaled": lost1 + lost2 > 0,
+                      "by_kernel_ms": by_kernel}
             if record["rescaled"]:
                 print(f"torch.profiler lost {lost1} and {lost2} GPU kernel records of "
                       f"twice {iters} calls; each kernel's mean record is scaled by its "
@@ -392,6 +405,57 @@ def device_ms(fn, iters=50, attempts=4):
         print(f"torch.profiler lost {lost1} and {lost2} GPU kernel records of twice "
               f"{iters} calls, or the kernels differ (attempt {attempt + 1}); taken again")
     raise RuntimeError("torch.profiler lost kernel records in every attempt")
+
+
+def host_us(fn, iters=20, warmup=3):
+    """Median host time of one call of ``fn`` in microseconds: what the host
+    takes to run it and queue its kernels, without waiting for the device
+    (which finishes the calls after the last reading)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def conv_records(CC, device, seed=4):
+    """For each stage shape of phase 4 and each dtype, on inputs from
+    ``seed``: the SHA-256 of the bytes of y, Σy and Σy² (one conv +
+    statistics launch) and of dw (one filter-gradient launch), and each
+    wrapper's host microseconds a call (``host_us``).  ``CC`` is a tree's
+    ``semantic_embeddings_torch.ops.conv3x3``, so that the kernels of two
+    trees can be held together bit for bit on the same inputs."""
+    import hashlib
+
+    import torch
+
+    def sha(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    records = {}
+    for case in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wt, dy = CC.check_inputs(case, dtype, gen)
+            y, s, ss = CC._launch_conv_bn_stats(x, wt)
+            dw = CC._launch_filter_grad(x, dy)
+            records[case, dtype] = {
+                "conv3x3_bn_stats": {
+                    "sha256": {"y": sha(y), "s": sha(s), "ss": sha(ss)},
+                    "host_us": host_us(lambda: CC._launch_conv_bn_stats(x, wt))},
+                "conv3x3_filter_grad": {
+                    "sha256": {"dw": sha(dw)},
+                    "host_us": host_us(lambda: CC._launch_filter_grad(x, dy))}}
+            del x, wt, dy, y, s, ss, dw
+    torch.cuda.empty_cache()
+    return records
 
 
 def profile_step(state, step, batches, label, path=None, n=10, batch=BATCH):
@@ -3562,14 +3626,19 @@ def main(argv=None):
                  for dtype in (torch.float32, torch.bfloat16)}
     for key, value in instances.items():
         print(f"instance {key}: {value}")
-    check("wgmma" in instances["conv3x3_filter_grad bfloat16"]
-          and "mma.sync" in instances["conv3x3_filter_grad float32"], instances)
-    # the bf16 filter gradient's wgmma on its own (register A, the MN-major
-    # descriptor at whole-row offsets) against torch.matmul; raises beyond
-    # 1e-5 of each entry's sum of |terms|
+    check(all("wgmma" in instances[f"{kernel} bfloat16"]
+              and "mma.sync" in instances[f"{kernel} float32"]
+              for kernel in ("conv3x3_bn_stats", "conv3x3_filter_grad")), instances)
+    # each bf16 kernel's wgmma on its own against torch.matmul; raises beyond
+    # 1e-5 of each entry's sum of |terms|: the filter gradient's (register A,
+    # the MN-major descriptor at whole-row offsets), the conv's (register A,
+    # the K-major weight descriptor at each tap's offset, each N it uses)
     wgmma_err = CC.check_wgmma_selftest(torch.Generator(device=device).manual_seed(14))
     print(f"wgmma self-test at (rows, start row) {CC.WGMMA_SELFTEST_CASES}: max |err| "
           f"{wgmma_err:.3g} of the sum of |terms|")
+    conv_wgmma_err = CC.check_conv_wgmma_selftest(torch.Generator(device=device).manual_seed(15))
+    print(f"conv wgmma self-test at N {CC.CONV_WGMMA_N}, taps 0, 4, 8: max |err| "
+          f"{conv_wgmma_err:.3g} of the sum of |terms|")
     f32 = torch.float32
     for case in CC.CHECK_CASES:
         b, h, w, c, f = case
@@ -3630,9 +3699,21 @@ def main(argv=None):
                       f"bound {bound_ms:.4f} ms ({bound_by}"
                       + (", 3xTF32 on the tensor cores; f32 FMA "
                          f"{fma_ms:.4f} ms" if fma_ms else "")
-                      + f"), kernel at {bound_ms / ms:.3f} of it  [{card}]")
+                      + f"), kernel at {bound_ms / ms:.3f} of it; device time by kernel "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_record["by_kernel_ms"].items())
+                      + f"  [{card}]")
             del x, wt, dy
     torch.cuda.empty_cache()
+    # each wrapper's host time a call beside its event and device times, and
+    # the hashes of its outputs (for holding two trees' kernels together)
+    for (case, dtype), record in conv_records(CC, device).items():
+        for kernel_name, r in record.items():
+            conv_times[kernel_name, case, dtype].update(r)
+            t = conv_times[kernel_name, case, dtype]
+            print(f"host {case} {str(dtype)[6:]} {kernel_name}: {r['host_us']:.1f} us a call "
+                  f"(event {t['ms'] * 1e3:.1f} us, device {t['device_ms'] * 1e3:.1f} us); "
+                  f"sha256 " + ", ".join(f"{k} {v[:16]}" for k, v in r["sha256"].items())
+                  + f"  [{card}]")
     # a ResNet-50 step's share of each kernel: launches a step (3 / 4 / 6 / 3
     # bottleneck blocks a stage) times ms a call, summed over the stages,
     # for the kernel, the library call and the bound, at both shape sets
@@ -3645,10 +3726,11 @@ def main(argv=None):
                 step_sums[key] = {
                     k: None if rows[0][k] is None
                     else sum(n * r[k] for n, r in zip(STAGE_BLOCKS, rows))
-                    for k in ("ms", "library_ms", "bound_ms")}
+                    for k in ("ms", "library_ms", "bound_ms", "device_ms", "host_us")}
                 lib = step_sums[key]["library_ms"]
                 print(f"step sum {key} (launches {STAGE_BLOCKS}): kernel "
-                      f"{step_sums[key]['ms']:.4f} ms, library "
+                      f"{step_sums[key]['ms']:.4f} ms (device {step_sums[key]['device_ms']:.4f} "
+                      f"ms, host {step_sums[key]['host_us'] / 1e3:.4f} ms), library "
                       + (f"{lib:.4f} ms" if lib is not None else "none")
                       + f", bound {step_sums[key]['bound_ms']:.4f} ms  [{card}]")
 
@@ -4150,8 +4232,8 @@ def main(argv=None):
             # and shape set ("224": batch 128, "448": batch 24)
             "step_sums": {key[len(name) + 1:]: value for key, value in step_sums.items()
                           if key.startswith(name + " ")},
-            **({"wgmma_selftest_of_terms": wgmma_err} if name == "conv3x3_filter_grad"
-               else {}),
+            "wgmma_selftest_of_terms": (wgmma_err if name == "conv3x3_filter_grad"
+                                        else conv_wgmma_err),
         })
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,

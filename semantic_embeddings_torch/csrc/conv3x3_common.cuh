@@ -1,9 +1,9 @@
 // Pieces shared by the 3x3 conv kernels (conv3x3_bn_stats.cu,
 // conv3x3_filter_grad.cu): the pipeline step, the x window, cp.async and
 // the warp-level tensor-core instructions, the split of f32 operands for
-// 3xTF32, the choice of copy width, the repack into padded planes for
-// operands no copy width fits, and the occupancy query the split rules
-// read.
+// 3xTF32, the warpgroup MMA's fences, waits and matrix descriptor, the
+// choice of copy width, the repack into padded planes for operands no copy
+// width fits, and the occupancy query the split rules read.
 //
 // The x window: one pipeline step covers kStep pixels p0 .. p0 + kStep - 1
 // of one image plane.  For each input channel and each kh, the step stages
@@ -141,6 +141,55 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// Hopper's warpgroup MMA (wgmma), shared by both bf16 kernels.  A
+// warpgroup is 4 consecutive warps (the first a multiple of 4).  m64nNk16
+// with A (64 x 16) in registers: warp w of the warpgroup holds rows 16w ..
+// 16w + 15 in mma.sync m16n8k16's A layout (a0: row g, columns 2t, 2t + 1;
+// a1: row g + 8; a2, a3: columns + 8), and B (16 x N) in shared memory
+// behind a matrix descriptor.  D (64 x N, f32) stays in registers: for each
+// n8 block j, d[4j .. 4j + 3] are m16n8's C fragment of warp w's rows (row
+// g: columns 8j + 2t, + 1; row g + 8: the same).
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's shared-memory stores (the generic proxy) before
+// wgmma's reads of them (the async proxy); a barrier then orders threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Pins accumulator registers across a wgmma pipeline: a compiler copy of
+// one between the issue and the wait would serialize the wgmmas.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The matrix descriptor of a B operand in shared memory without swizzle
+// (PTX ISA, "Matrix Descriptor Format"; CUTLASS's GmmaDescriptor): start
+// address >> 4 in bits 0-13; the leading byte offset >> 4 in bits 16-29,
+// the step from one core matrix (8 rows of 16 bytes, 128 contiguous bytes)
+// to the next along K; the stride byte offset >> 4 in bits 32-45, the step
+// to the next along M or N; base offset 0; layout type 0 (no swizzle) in
+// bits 62-63.  Adding k to the descriptor moves its start 16 k bytes on.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint64_t lbo, uint64_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) |
+         ((sbo >> 4) << 32);
 }
 
 // out[plane, p] = in[plane, p] for p < HW, 0 up to pitch: planes padded to

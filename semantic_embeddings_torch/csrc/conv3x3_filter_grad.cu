@@ -193,42 +193,7 @@ int reduce_splits(void* part, void* dw, int splits, int outputs, cudaStream_t st
 // bf16 instance: warpgroup MMA (wgmma)
 // ---------------------------------------------------------------------------
 
-// The wgmma pieces.  A warpgroup is 4 consecutive warps (the first a
-// multiple of 4).  m64nNk16 with A (64 x 16) in registers: warp w of the
-// warpgroup holds rows 16w .. 16w + 15 in mma.sync m16n8k16's A layout
-// (a0: row g, columns 2t, 2t + 1; a1: row g + 8; a2, a3: columns + 8), and
-// B (16 x N) in shared memory behind a matrix descriptor.  D (64 x N, f32)
-// stays in registers: for each n8 block j, d[4j .. 4j + 3] are m16n8's C
-// fragment of warp w's rows (row g: columns 8j + 2t, + 1; row g + 8: the
-// same).
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Waits until at most N of this warpgroup's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Orders this thread's shared-memory stores (the generic proxy) before
-// wgmma's reads of them (the async proxy); a barrier then orders threads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Pins accumulator registers across a wgmma pipeline: a compiler copy of
-// one between the issue and the wait would serialize the wgmmas.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
+// The wgmma pieces (fences, waits, the descriptor) are in conv3x3_common.cuh.
 
 constexpr int kWgC = 32;                // input channels per block: the wgmma's N
 constexpr int kWgGroups = kWgC / 8;     // 8-channel groups: core matrices along N
@@ -243,20 +208,14 @@ constexpr int kWgOutPitch = kWgC * 9 + 1;  // floats a row of the staged output 
 
 // B in shared memory: MN-major ("transposed", channels contiguous) without
 // swizzle, as rows of 8 channels (16 bytes) per pixel, [c / 8][pixel][8],
-// so a core matrix (8 pixels x 8 channels) is 128 contiguous bytes.  Its
-// matrix descriptor (PTX ISA, "Matrix Descriptor Format"; CUTLASS's
-// GmmaDescriptor): start address >> 4 in bits 0-13; the leading byte offset
-// >> 4 in bits 16-29, for this layout the step along K (the next 8 pixels:
-// 128 bytes); the stride byte offset >> 4 in bits 32-45, the step along N
-// (the next 8 channels: a window of pixel rows); base offset 0; layout
-// type 0 (no swizzle) in bits 62-63.  A start one pixel on adds 1.
+// so a core matrix (8 pixels x 8 channels) is 128 contiguous bytes.  In its
+// matrix descriptor (smem_desc) the leading byte offset is the step along K
+// (the next 8 pixels: 128 bytes), the stride byte offset the step along N
+// (the next 8 channels: a window of pixel rows).  A start one pixel on adds 1.
 constexpr uint64_t kWgLbo = 8 * 16;
 constexpr uint64_t kWgSbo = kWgRows * 16;
 
-__device__ __forceinline__ uint64_t b_desc(const void* p) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | ((kWgLbo >> 4) << 16) |
-         ((kWgSbo >> 4) << 32);
-}
+__device__ __forceinline__ uint64_t b_desc(const void* p) { return smem_desc(p, kWgLbo, kWgSbo); }
 
 // d += a (64 x 16, registers) * b (16 x 32, descriptor), bf16 in, f32 sums;
 // B MN-major (imm-trans-b = 1).

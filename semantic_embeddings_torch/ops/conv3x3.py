@@ -30,11 +30,11 @@ to XLA too) and dw with the second op.
 For CUDA tensors each op launches its kernel (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
 the wrapper raises.  Each has two instances, chosen by the dtype, and all
-four run on the tensor cores: bf16 products in bf16 (the filter gradient on
-Hopper's warpgroup ``wgmma``, the conv + statistics on ``mma.sync``), f32
-ones as 3xTF32 on ``mma.sync`` (three TF32 products for each f32-exact
-one).  :func:`instance` names what a dtype runs; :func:`wgmma_selftest`
-runs the bf16 filter gradient's ``wgmma`` on its own.  For CPU tensors the plain
+four run on the tensor cores: bf16 products in bf16 on Hopper's warpgroup
+``wgmma``, f32 ones as 3xTF32 on ``mma.sync`` (three TF32 products for each
+f32-exact one).  :func:`instance` names what a dtype runs;
+:func:`wgmma_selftest` and :func:`conv_wgmma_selftest` run each bf16
+kernel's ``wgmma`` on its own.  For CPU tensors the plain
 versions run.  The dispatcher picks by the tensor's device, nothing else:
 there is no fallback from a kernel to its plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
@@ -76,6 +76,8 @@ def _kernels():
         fwd.conv3x3_bn_stats_copy_width.restype = i32
         fwd.conv3x3_bn_stats.argtypes = [ptr] * 9 + [i32] * 6 + [ptr, ptr]
         fwd.conv3x3_bn_stats.restype = i32
+        fwd.conv3x3_bn_stats_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+        fwd.conv3x3_bn_stats_wgmma_selftest.restype = i32
         wgrad = load("conv3x3_filter_grad")
         wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 6 + [
             ctypes.POINTER(i32)]
@@ -262,9 +264,9 @@ def filter_grad_copy_width(x, dy):
 def conv_bn_stats_copy_width(x):
     """The copy width, in elements, that the conv + statistics kernel of x's
     dtype takes for the CUDA tensor x (H*W and the pointer must be multiples
-    of it): bf16 8 or 4, f32 4 or 2 (16- or 8-byte ``cp.async``), or 1
-    where neither fits and the kernel first repacks x into planes padded to
-    a multiple of 8 elements."""
+    of it): bf16 8 (its tensor copies need planes of whole 16 bytes), f32 4
+    or 2 (16- or 8-byte ``cp.async``), or 1 where none fits and the kernel
+    first repacks x into planes padded to a multiple of 8 elements."""
     return _kernels()[0].conv3x3_bn_stats_copy_width(
         x.data_ptr(), x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
 
@@ -301,6 +303,37 @@ def wgmma_selftest(a, b, row):
         a.data_ptr(), b.data_ptr(), d.data_ptr(), b.shape[0], row,
         torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(code, "wgmma self-test")
+    torch.cuda.synchronize(a.device)
+    return d
+
+
+#: the wgmma widths N (output channels a warpgroup) of the bf16 conv +
+#: statistics kernel: 64 where F <= 64, else 128
+CONV_WGMMA_N = (64, 128)
+
+
+def conv_wgmma_selftest(a, b, tap):
+    """One ``wgmma`` of the bf16 conv + statistics instance on its own: the
+    f32 (64, N) product of ``a`` (64, 16) and ``b[tap]`` transposed, for
+    contiguous bf16 CUDA tensors ``a`` and ``b`` (9, N, 16), N in
+    :data:`CONV_WGMMA_N`.  ``a`` goes into registers as the kernel loads x's
+    transposed windows (``ldmatrix``), ``b`` into the kernel's weight slice
+    (K-major core matrices), read through its descriptor started at the
+    tap's offset.  Synchronizes."""
+    if (a.shape != (64, 16) or b.ndim != 3 or b.shape[0] != 9 or b.shape[2] != 16
+            or b.shape[1] not in CONV_WGMMA_N or not 0 <= tap < 9):
+        raise ValueError(f"conv wgmma self-test takes a (64, 16), b (9, N, 16) with N in "
+                         f"{CONV_WGMMA_N} and a tap in 0..8; got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tap}")
+    _check(a[None, None], b[None], "conv wgmma self-test")
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"conv wgmma self-test takes bf16 operands, not {a.dtype}")
+    n = b.shape[1]
+    d = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    code = _kernels()[0].conv3x3_bn_stats_wgmma_selftest(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), n, tap,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(code, "conv wgmma self-test")
     torch.cuda.synchronize(a.device)
     return d
 
@@ -475,9 +508,9 @@ def plain_conv3x3_bn_stats(x, w, top=None, bottom=None):
 #: then ragged shapes (nothing a multiple of a tile; F and 9C past one tile)
 STAGE_SHAPES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
                 (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
-#: shapes whose planes (H*W) take each copy width of the bf16 conv +
-#: statistics kernel: 8 elements (16 bytes), 4, and 1 (H*W = 49: repacked
-#: planes); the bf16 filter gradient takes 8, then repacks the other two
+#: shapes whose planes (H*W) take each copy path of the bf16 kernels: 8
+#: elements (16 bytes), then the repack into padded planes (1) for H*W % 8
+#: == 4 and for H*W = 49
 ALIGN_CASES = [(4, 8, 8, 24, 80), (4, 14, 14, 32, 64), (4, 7, 7, 40, 72)]
 #: the mid 3x3 conv of each ResNet-50 stage at 448 px, batch 24 (the
 #: CosineLoss.md CUB recipe): planes of 12,544 to 196 pixels, N*H*W up to
@@ -538,13 +571,14 @@ def check_inputs(case, dtype, generator):
             normal(b, f, h, wd))
 
 
-def _sum_depth(rows):
-    """The most additions any y term passes through in the kernel's sums,
-    one tree in both instances: 8 terms in order within a thread (7
-    additions), the 4 lanes of a row (2 levels), the block's two pixel
-    halves (1), then ceil(rows / 32) per phase and 32 phases in the second
-    pass."""
-    return 7 + 2 + 1 + -(-rows // 32) + 32
+def _sum_depth(rows, bf16):
+    """The most additions any y term passes through in the kernel's sums.
+    f32 (``mma.sync``): 8 terms in order within a thread (7 additions), the
+    4 lanes of a row (2 levels), the block's two pixel halves (1).  bf16
+    (``wgmma``): a thread's two rows of a column (1), the 8 lanes of a
+    column (3 levels), the warpgroup's 4 warps in order (3).  Both then
+    ceil(rows / 32) per phase and 32 phases in the second pass."""
+    return (1 + 3 + 3 if bf16 else 7 + 2 + 1) + -(-rows // 32) + 32
 
 
 def check_against_plain(x, w, dy):
@@ -579,7 +613,7 @@ def check_against_plain(x, w, dy):
     y64, yp64 = y.double(), y_p.double()
     n = y.numel() // y.shape[1]
     rows = _kernels()[0].conv3x3_bn_stats_partial_rows(x.shape[0], x.shape[2], x.shape[3])
-    u = _sum_depth(rows) * 2.0**-24
+    u = _sum_depth(rows, x.dtype == torch.bfloat16) * 2.0**-24
     dims = (0, 2, 3)
     for got, terms, terms_p in ((s, y64, yp64), (ss, y64 * y64, yp64 * yp64)):
         err = (got.double() - terms.sum(dims)).abs()
@@ -620,6 +654,30 @@ def check_against_plain(x, w, dy):
 #: last start, and a shorter b
 WGMMA_SELFTEST_CASES = [(WGMMA_B_ROWS, 0), (WGMMA_B_ROWS, 5),
                         (WGMMA_B_ROWS, WGMMA_B_ROWS - 16), (40, 17)]
+
+
+def check_conv_wgmma_selftest(generator):
+    """Runs :func:`conv_wgmma_selftest` at each N of :data:`CONV_WGMMA_N`
+    and taps 0, 4 and 8 on N(0, 1) bf16 values drawn from the CUDA
+    ``generator`` and asserts that every entry of d equals ``torch.matmul``
+    of the same values in f64 within 1e-5 of its sum of |terms| (16 exact
+    products summed in f32).  Returns the largest error in those units."""
+    device = generator.device
+    worst = 0.0
+    for n in CONV_WGMMA_N:
+        for tap in (0, 4, 8):
+            a = torch.randn((64, 16), generator=generator, device=device).bfloat16()
+            b = torch.randn((9, n, 16), generator=generator, device=device).bfloat16()
+            d = conv_wgmma_selftest(a, b, tap)
+            bt = b[tap].double().T
+            ref = torch.matmul(a.double(), bt)
+            scale = torch.matmul(a.double().abs(), bt.abs()).clamp_min(1e-30)
+            err = ((d.double() - ref).abs() / scale).max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"conv wgmma self-test at N {n}, tap {tap}: d differs "
+                                     f"from torch.matmul by {err:.3g} of the sum of |terms|")
+            worst = max(worst, err)
+    return worst
 
 
 def check_wgmma_selftest(generator):

@@ -181,6 +181,169 @@ def test_wgmma_filter_grad_decomposition(case):
     assert np.abs(got - proto).max() <= bound
 
 
+def _bf16_round(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _add(a, b):
+    """An f32 addition of (value, additions) pairs: the sum, and the most
+    additions any term of it has passed through."""
+    return (np.float32(a[0] + b[0]), np.maximum(a[1], b[1]) + 1)
+
+
+def _wgmma_conv_model(x, w, top=None, bottom=None):
+    """y, s and ss as the bf16 ``wgmma`` instance of the conv + statistics
+    kernel computes them, in numpy, and the most additions any y term passes
+    through in the sums.  Pipeline steps of 64 pixels of one image (pixels
+    as M); chunks of 16 channels, one f32 product (64 pixels x 16 channels
+    x N f, N = 64 where F <= 64, else 128) a tap; for each kh a window of 80
+    plane pixels from p0 + (kh - 1) W - 1 rounded down to 8 (zeros outside
+    the plane; the kh = 0 window takes row -1 from ``top``, the kh = 2
+    window row H from ``bottom``), transposed to [pixel][c], each pixel's
+    row at tap kw its window row + kw, or the zero row where the tap wraps
+    across the image's left or right edge; y rounded to bf16.  The sums of
+    the rounded y of a step: a thread's two rows of a column (16w + g and
+    16w + g + 8), the 8 lanes of a column (pairs g ^ 4, g ^ 2, g ^ 1), the 4
+    warps in order; then the second pass, 32 phases of rows in order."""
+    n_img, c_in, h, wd = x.shape
+    f_out = w.shape[0]
+    hw, step, box = h * wd, 64, 80
+    chunks = -(-c_in // 16)
+    nt = 64 if f_out <= 64 else 128
+    fp = -(-f_out // nt) * nt
+    per_image = -(-hw // step)
+    rows_total = n_img * per_image
+    wk = np.zeros((fp, chunks * 16, 9), np.float32)
+    wk[:f_out, :c_in] = w.reshape(f_out, c_in, 9)
+    planes = np.zeros((n_img, chunks * 16, hw), np.float32)
+    planes[:, :c_in] = x.reshape(n_img, c_in, hw)
+
+    def halo(t):
+        out = np.zeros((n_img, chunks * 16, wd), np.float32)
+        if t is not None:
+            out[:, :c_in] = t[:, :, 0]
+        return out
+
+    halos = {0: (halo(top), -wd) if top is not None else None,
+             2: (halo(bottom), hw) if bottom is not None else None}
+    y = np.zeros((n_img, f_out, hw), np.float32)
+    part = np.zeros((2, rows_total, f_out), np.float32)
+    for t in range(rows_total):
+        n, p0 = t // per_image, t % per_image * step
+        pix = p0 + np.arange(step)
+        valid, col = pix < hw, pix % wd
+        acc = np.zeros((step, fp), np.float32)
+        windows = []
+        for kh in range(3):
+            first = (p0 + (kh - 1) * wd - 1) // 8 * 8
+            idx = first + np.arange(box)
+            win = np.zeros((chunks * 16, box), np.float32)
+            inside = (idx >= 0) & (idx < hw)
+            win[:, inside] = planes[n][:, idx[inside]]
+            if halos.get(kh) is not None:
+                rows, lo = halos[kh]
+                on = (idx >= lo) & (idx < lo + wd)
+                win[:, on] = rows[n][:, idx[on] - lo]
+            windows.append((win.T, p0 + (kh - 1) * wd - 1 - first))  # [pixel][c], shift
+        for ch in range(chunks):
+            for kh in range(3):
+                xt, shift = windows[kh]
+                for kw in range(3):
+                    a = xt[np.arange(step) + shift + kw, ch * 16:ch * 16 + 16]
+                    wrap = (col == 0) if kw == 0 else (col == wd - 1) if kw == 2 else None
+                    if wrap is not None:
+                        a = np.where(wrap[:, None], np.float32(0), a)
+                    acc += np.matmul(a, wk[:, ch * 16:ch * 16 + 16, kh * 3 + kw].T,
+                                     dtype=np.float32)
+        yb = _bf16_round(acc)
+        y[n][:, pix[valid]] = yb[valid, :f_out].T
+        v = np.where(valid[:, None], yb, np.float32(0))[:, :f_out]
+        for q in range(2):  # Σy, Σy²
+            warps = []
+            for wq in range(4):
+                lanes = []
+                for g in range(8):
+                    v0, v1 = v[16 * wq + g], v[16 * wq + g + 8]
+                    if q == 0:
+                        lanes.append((np.float32(v0 + v1), 1))
+                    else:  # fma(v1, v1, v0 * v0): one rounding of the exact sum
+                        sq0 = (v0 * v0).astype(np.float32)
+                        lanes.append((np.float32(v1.astype(np.float64) ** 2 + sq0), 1))
+                for mask in (4, 2, 1):
+                    lanes = [_add(lanes[g], lanes[g ^ mask]) if not g & mask else None
+                             for g in range(8)]
+                    lanes = [lanes[g & ~mask] for g in range(8)]
+                warps.append(lanes[0])
+            total = warps[0]
+            for wq in range(1, 4):
+                total = _add(total, warps[wq])
+            part[q, t], depth_step = total
+    # the second pass: 32 phases of rows in order from 0, then the phases in order
+    stats, depth = [], 0
+    for q in range(2):
+        phases = []
+        for phase in range(32):
+            acc_p = (np.zeros(f_out, np.float32), 0)
+            for row in range(phase, rows_total, 32):
+                acc_p = _add(acc_p, (part[q, row], depth_step))
+            phases.append(acc_p)
+        total = (np.zeros(f_out, np.float32), 0)
+        for acc_p in phases:
+            total = _add(total, acc_p)
+        stats.append(total[0])
+        depth = max(depth, int(np.max(total[1])))
+    return y.reshape(n_img, f_out, h, wd), stats[0], stats[1], depth, rows_total
+
+
+@pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), tc.ALIGN_CASES[0],
+                                  (3, 5, 14, 12, 16, "halo")])
+def test_wgmma_conv_bn_stats_decomposition(case):
+    """The bf16 conv + statistics instance's decomposition (the numpy model
+    above: pixels as M, 16-channel chunks by tap, wrapped taps from the zero
+    row, y rounded to bf16, the statistics' tree) against the Pallas
+    prototype in interpret mode and the plain version: y within one bf16
+    ulp, and Σy and Σy² within the model tree's rounding bound
+    (``_sum_depth``, which the model's own count of additions must equal)
+    of f64 sums of each reference's y, plus the two y's difference.  Ragged
+    cases have C and F past whole tiles; ALIGN_CASES[0] has F = 80, one
+    tile of 128; the halo case gives x's rows -1 and H (the prototype sees
+    a taller image and its middle rows)."""
+    b, h, w, c, f = case[:5]
+    rng = np.random.default_rng(sum(case[:5]) + 7)
+    x = _bf16_values(rng, (b, c, h, w))
+    k = _bf16_round(rng.normal(0, 0.1, (f, c, 3, 3)))
+    top = bottom = None
+    if len(case) > 5:
+        top, bottom = _bf16_values(rng, (b, c, 1, w)), _bf16_values(rng, (b, c, 1, w))
+    y, s, ss, depth, rows = _wgmma_conv_model(x, k, top, bottom)
+    assert depth == tc._sum_depth(rows, True)
+    u = depth * 2.0**-24
+
+    def t16(a):
+        return None if a is None else torch.from_numpy(a).bfloat16()
+
+    y_p, _, _ = tc._plain_conv_bn_stats(t16(x), t16(k), t16(top), t16(bottom))
+    xj = x.transpose(0, 2, 3, 1)
+    if top is not None:  # the taller image: the halo rows on; y's rows 1 .. H
+        xj = np.concatenate([top.transpose(0, 2, 3, 1), xj, bottom.transpose(0, 2, 3, 1)], 1)
+    y_j, _, _ = j_conv_bn_stats(jnp.asarray(xj, jnp.bfloat16),
+                                jnp.asarray(k.transpose(2, 3, 1, 0), jnp.bfloat16), interpret=True)
+    y_j = np.asarray(y_j, np.float32).transpose(0, 3, 1, 2)
+    if top is not None:
+        y_j = y_j[:, :, 1:h + 1]
+    y64 = y.astype(np.float64)
+    for ref in (y_p.float().numpy(), y_j):
+        assert ref.shape == y.shape == (b, f, h, w)
+        np.testing.assert_allclose(y, ref, rtol=2**-7, atol=1e-6)
+        r64 = ref.astype(np.float64)
+        for got, terms, terms_r in ((s, y64, r64), (ss, y64 * y64, r64 * r64)):
+            bound = u * np.abs(terms).sum((0, 2, 3)) + np.abs(terms - terms_r).sum((0, 2, 3))
+            assert (np.abs(got - terms_r.sum((0, 2, 3))) <= bound).all()
+            # and the tree's own rounding against f64 sums of the model's y
+            assert (np.abs(got - terms.sum((0, 2, 3)))
+                    <= u * np.abs(terms).sum((0, 2, 3))).all()
+
+
 def _tf32(t):
     """f32 -> TF32 (10 mantissa bits), round to nearest with ties away from
     zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits to

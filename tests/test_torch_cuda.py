@@ -164,16 +164,16 @@ def test_filter_grad_f32_misaligned_pointers(device):
 
 
 def test_conv_kernels_run_on_the_tensor_cores(device):
-    """Both kernels run f32 as the 3xTF32 instance on mma.sync; bf16 runs
-    the filter gradient on Hopper's warpgroup wgmma and the conv +
-    statistics on mma.sync m16n8k16."""
+    """Both kernels run f32 as the 3xTF32 instance on mma.sync and bf16 on
+    Hopper's warpgroup wgmma."""
     assert cc.instance("conv3x3_filter_grad", torch.float32) == (
         "tensor cores: mma.sync m16n8k8 3xTF32")
     assert cc.instance("conv3x3_filter_grad", torch.bfloat16) == (
         "tensor cores: wgmma m64n32k16 bf16, 64 f x 32 c x 9 taps a warpgroup, "
         "1 warpgroup a block where F <= 64, else 2")
     assert cc.instance("conv3x3_bn_stats", torch.bfloat16) == (
-        "tensor cores: mma.sync m16n8k16 bf16")
+        "tensor cores: wgmma m64nNk16 bf16, 64 pixels x N f a warpgroup, N = 64 where F <= 64, "
+        "else 128, 2 warpgroups a block")
     assert cc.instance("conv3x3_bn_stats", torch.float32) == (
         "tensor cores: mma.sync m16n8k8 3xTF32")
 
@@ -183,6 +183,17 @@ def test_wgmma_selftest_matches_matmul(device):
     the MN-major no-swizzle descriptor started at whole 16-byte rows)
     against torch.matmul, at every start row of ``WGMMA_SELFTEST_CASES``."""
     assert cc.check_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+
+
+def test_conv_wgmma_selftest_matches_matmul(device):
+    """One wgmma of the bf16 conv + statistics kernel (A from registers, B
+    the weight slice behind the K-major descriptor started at a tap's
+    offset) against torch.matmul, at each N the kernel uses and taps 0, 4
+    and 8; an N it does not use is refused."""
+    assert cc.check_conv_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    a = torch.zeros((64, 16), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="tap"):
+        cc.conv_wgmma_selftest(a, torch.zeros((9, 32, 16), dtype=torch.bfloat16, device=device), 0)
 
 
 def test_wgmma_selftest_rejects_rows_past_the_window(device):
@@ -235,21 +246,22 @@ def test_conv_bn_stats_f32_is_deterministic(device, case):
 
 
 def test_conv_bn_stats_copy_widths(device):
-    """ALIGN_CASES give the bf16 conv + statistics kernel each of its x
-    paths: 16-byte copies, 8-byte copies, and the repack."""
+    """ALIGN_CASES give the bf16 conv + statistics kernel both of its x
+    paths: tensor copies of the planes (8 elements: H*W % 8 == 0), else the
+    repack (1): H*W = 196 and 49."""
     widths = []
     for case in cc.ALIGN_CASES:
         x, _, _ = cc.check_inputs(case, torch.bfloat16,
                                   torch.Generator(device=device).manual_seed(0))
         widths.append(cc.conv_bn_stats_copy_width(x))
-    assert widths == [8, 4, 1]
+    assert widths == [8, 1, 1]
 
 
-@pytest.mark.parametrize("offset, width", [(4, 4), (1, 1)])
+@pytest.mark.parametrize("offset, width", [(4, 1), (1, 1)])
 def test_conv_bn_stats_bf16_misaligned_pointers(device, offset, width):
-    """x that starts 8 bytes past a 16-byte boundary takes 8-byte copies, 2
-    bytes past it the repack, where H*W % 8 == 0; y, s and ss are the same
-    bits as from aligned x, and hold against the plain version."""
+    """x that starts 8 or 2 bytes past a 16-byte boundary is repacked even
+    where H*W % 8 == 0 (a tensor copy needs 16-byte planes); y, s and ss are
+    the same bits as from aligned x, and hold against the plain version."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.bfloat16,
                                torch.Generator(device=device).manual_seed(9))
