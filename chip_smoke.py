@@ -22,9 +22,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (TF32 off), at the four ResNet-50 stage shapes at batch 128 (224 px) and
    at batch 24 (448 px, the CUB recipe's), four ragged shapes and three
    shapes that take each copy path (f32: 16- or 8-byte copies, or the
-   repack; bf16: 16-byte planes, or the repack), after each bf16 kernel's
-   ``wgmma`` on its own against ``torch.matmul`` (the conv's at each N it
-   uses); print the instance each dtype runs, the copy width each shape
+   repack; bf16: 16-byte planes, or the repack), after each ``wgmma``
+   kernel's product on its own against ``torch.matmul`` (the bf16 conv's
+   at each N it uses) and the f32 filter gradient's accumulation against
+   f64 by the pixels it sums in the tensor cores; print the instance each
+   dtype runs, the copy width each shape
    takes and the distance of y from f64 (the kernel's and cuDNN's).  At the eight
    stage shapes time both kernels, their plain versions and cuDNN's
    wgrad, and print each kernel's bound (the larger of operations over the
@@ -3148,6 +3150,9 @@ def p17_halo_kernels(device, card, CC):
     bound."""
     import torch
 
+    from semantic_embeddings_torch.cli import common
+
+    common.set_float32_precision()  # TF32 off for every check against the plain versions
     gen = torch.Generator(device=device).manual_seed(17)
     out = {}
     for case in CC.HALO_CASES:
@@ -3482,7 +3487,8 @@ def phase17(device, card, tmp, embedding, emb_path, CC):
     t_phase = time.perf_counter()
     out = {}
     phase("17a the conv kernels with halo rows at the 448-px recipe's shard shapes "
-          "(S = 2, stage 4 also S = 4), f32 and bf16, vs plain and vs the whole image")
+          "(S = 2, stage 4 also S = 4), f32 and bf16, vs plain and vs the whole image "
+          "(TF32 off)")
     out["17a"] = p17_halo_kernels(device, card, CC)
     torch.cuda.empty_cache()
     phase(f"17b the CUB recipe (ResNet-50 @ {P17_SIZE}, batch {P17_BATCH}, bf16, "
@@ -3627,18 +3633,33 @@ def main(argv=None):
     for key, value in instances.items():
         print(f"instance {key}: {value}")
     check(all("wgmma" in instances[f"{kernel} bfloat16"]
-              and "mma.sync" in instances[f"{kernel} float32"]
-              for kernel in ("conv3x3_bn_stats", "conv3x3_filter_grad")), instances)
-    # each bf16 kernel's wgmma on its own against torch.matmul; raises beyond
-    # 1e-5 of each entry's sum of |terms|: the filter gradient's (register A,
-    # the MN-major descriptor at whole-row offsets), the conv's (register A,
-    # the K-major weight descriptor at each tap's offset, each N it uses)
+              for kernel in ("conv3x3_bn_stats", "conv3x3_filter_grad"))
+          and "wgmma" in instances["conv3x3_filter_grad float32"]
+          and "mma.sync" in instances["conv3x3_bn_stats float32"], instances)
+    # each wgmma kernel's product on its own against torch.matmul; raises
+    # beyond 1e-5 of each entry's sum of |terms|: the bf16 filter gradient's
+    # (register A, the MN-major descriptor at whole-row offsets), the bf16
+    # conv's (register A, the K-major weight descriptor at each tap's
+    # offset, each N it uses), the f32 filter gradient's (3xTF32: register A
+    # split in registers, B by swizzled tensor copies split in shared
+    # memory)
     wgmma_err = CC.check_wgmma_selftest(torch.Generator(device=device).manual_seed(14))
     print(f"wgmma self-test at (rows, start row) {CC.WGMMA_SELFTEST_CASES}: max |err| "
           f"{wgmma_err:.3g} of the sum of |terms|")
     conv_wgmma_err = CC.check_conv_wgmma_selftest(torch.Generator(device=device).manual_seed(15))
     print(f"conv wgmma self-test at N {CC.CONV_WGMMA_N}, taps 0, 4, 8: max |err| "
           f"{conv_wgmma_err:.3g} of the sum of |terms|")
+    tf32_err = CC.check_tf32_selftest(torch.Generator(device=device).manual_seed(16))
+    print(f"tf32 wgmma self-test at 1-13 slices: max |err| "
+          f"{tf32_err:.3g} of the sum of |terms|")
+    # the f32 filter gradient's accumulation: products summed in the tensor
+    # cores over 8 .. 64 pixels (the kernel's depth: 64) or all 4,096, then
+    # f32 adds; its distance from f64 in units of max |d|
+    tf32_acc = CC.tf32_accumulation(torch.Generator(device=device).manual_seed(17))
+    print("tf32 accumulation over 4,096 pixels, max |err| / max |d| by pixels summed in "
+          "the tensor cores: " + ", ".join(f"{k or 'all'} {v:.3g}" for k, v in tf32_acc.items())
+          + f"  [{card}]")
+    check(tf32_acc[8 * CC.TF32_FLUSH_SLICES] <= CC.DW_OF_MAX / 4, tf32_acc)
     f32 = torch.float32
     for case in CC.CHECK_CASES:
         b, h, w, c, f = case
@@ -3958,6 +3979,11 @@ def main(argv=None):
         "conv3x3_filter_grad": RN50_CONVS * steps}, fit_counts)
     check(rn50_launches["conv3x3_bn_stats"]
           == fit_counts["conv3x3_bn_stats"] + RN50_CONVS * val_batches, rn50_launches)
+    # the f32 steps' filter gradients ran on its TF32 wgmma instance
+    fit_instance = CC.instance("conv3x3_filter_grad", torch.float32)
+    print(f"the f32 filter gradient's {fit_counts['conv3x3_filter_grad']} launches in fit ran "
+          f"{fit_instance}")
+    check("wgmma" in fit_instance, fit_instance)
     printed = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", tee.buf.getvalue())
     check(len(printed) >= 4, printed)
     for key, value in printed:
@@ -4234,6 +4260,11 @@ def main(argv=None):
                           if key.startswith(name + " ")},
             "wgmma_selftest_of_terms": (wgmma_err if name == "conv3x3_filter_grad"
                                         else conv_wgmma_err),
+            # the f32 filter gradient's TF32 wgmma on its own, and its
+            # accumulation's distance from f64 by pixels summed in the
+            # tensor cores (0: all 4,096)
+            **({"tf32_selftest_of_terms": tf32_err, "tf32_accumulation_of_max": tf32_acc}
+               if name == "conv3x3_filter_grad" else {}),
         })
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,

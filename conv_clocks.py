@@ -1,22 +1,21 @@
 #!/usr/bin/env python3
-"""Where the cycles of the bf16 conv + statistics kernel go, from clock64()
-counters, on one GPU.
+"""Where the cycles of the 3x3 conv kernels go, from clock64() counters, on
+one GPU.
 
     python3 conv_clocks.py
 
-The script copies this checkout's ``conv3x3_bn_stats.cu`` into
-``build/clocks/`` with probes: thread 0 of three blocks reads ``clock64()``
-between marks placed around each piece of the block's work and adds each
-interval to that piece's bucket; the probe blocks then write the buckets and
-their total.  The marks are found by exact text, so an edit of the lines
-they name makes the script stop and say which text it misses.  It builds
-the copy with ``nvcc`` against ``conv3x3_common.cuh``, runs the bf16
-instance 5 times at the 56x56x64 and 14x14x256 ResNet-50 stage shapes (batch
-128), and prints each probe block's cycles by bucket, with shares, and a call's
-time with the probes in.  Thread 0 issues the ``wgmma`` instance's weight
-copies, so its view shows their issue; the reads of ``clock64()`` order the
-instructions around them, so the buckets are the probed kernel's, not the
-unprobed one's.
+The kernels' own sources hold the probes: ``CLOCK_MARK(i)`` in
+``csrc/conv3x3_bn_stats.cu`` and ``csrc/conv3x3_filter_grad.cu``, which
+compile to nothing unless ``CONV3X3_CLOCKS`` is defined
+(``csrc/conv3x3_common.cuh``; the build of ``_build.py`` never defines it).
+This script builds both sources with ``nvcc -DCONV3X3_CLOCKS`` (and
+``_build.NVCC_FLAGS``) into ``build/clocks/``, runs each probed instance 5
+times at the 56x56x64 and 14x14x256 ResNet-50 stage shapes (batch 128,
+through the port's own wrappers), and prints, for thread 0 of three blocks
+(at 1/8, 1/2 and 7/8 of the grid), its cycles by bucket with shares, and a
+call's time with the probes in.  Instances: the conv + statistics in bf16,
+the filter gradient in bf16 and f32.  The reads of ``clock64()`` order the
+instructions around them, so the buckets are the probed build's.
 """
 
 from __future__ import annotations
@@ -27,71 +26,31 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(ROOT, "semantic_embeddings_torch", "csrc", "conv3x3_bn_stats.cu")
-PROBE_BLOCKS = (100, 300, 450)
 
-_HEAD = """  const long long clk0 = clock64();
-  const int probe = threadIdx.x != 0 ? -1 : blockIdx.x == {0} ? 0 : blockIdx.x == {1} ? 1
-                  : blockIdx.x == {2} ? 2 : -1;
-  long long ck[12] = {{}};
-  long long tp = clk0;
-#define MARK(i) {{ const long long tn = clock64(); ck[i] += tn - tp; tp = tn; }}
-""".format(*PROBE_BLOCKS)
-_TAIL = """  if (probe >= 0) {
-    for (int i = 1; i < 12; ++i) conv_clocks[probe][i] = ck[i];
-    conv_clocks[probe][0] = clock64() - clk0;
-  }
-#undef MARK
-"""
-_READ = """extern "C" {
-int read_clocks(unsigned long long* out) {
-  const int err = static_cast<int>(cudaMemcpyFromSymbol(out, conv_clocks, sizeof(conv_clocks)));
-  static unsigned long long zeros[3][12] = {};
-  cudaMemcpyToSymbol(conv_clocks, zeros, sizeof(zeros));
-  return err;
-}
-"""
-
-BUCKETS = ["setup", "barriers", "copy issue", "x wait", "transpose", "weight wait",
-           "products", "products' wait", "epilogue: sums", "epilogue: y"]
-# (text, the same text with marks): each text must occur once in the source
-MARKS = [
-    ("  uint16_t* raw = reinterpret_cast", _HEAD + "  uint16_t* raw = reinterpret_cast"),
-    ("  load_weight(0);\n", "  MARK(1)\n  load_weight(0);\n"),
-    ("  for (int i = 0; i < chunks; ++i) {\n    if (active) mbar_wait(xbar, i & 1);\n",
-     "  MARK(3)\n  for (int i = 0; i < chunks; ++i) {\n    if (active) mbar_wait(xbar, i & 1);\n"
-     "    MARK(4)\n"),
-    ("    __syncthreads();  // x(i) is whole; xt is free; slot (i + 1) % 2's wgmmas are done\n"
-     "    if (i + 1 < chunks) load_weight(i + 1);\n    transpose();\n"
-     "    __syncthreads();  // xt is whole; raw is free\n"
-     "    if (i + 1 < chunks) load_x(i + 1);\n",
-     "    __syncthreads();  // x(i) is whole; xt is free; slot (i + 1) % 2's wgmmas are done\n"
-     "    MARK(2)\n    if (i + 1 < chunks) load_weight(i + 1);\n    MARK(3)\n    transpose();\n"
-     "    MARK(5)\n    __syncthreads();  // xt is whole; raw is free\n    MARK(2)\n"
-     "    if (i + 1 < chunks) load_x(i + 1);\n    MARK(3)\n"),
-    ("    mbar_wait(&bars[i & 1], (i >> 1) & 1);\n",
-     "    mbar_wait(&bars[i & 1], (i >> 1) & 1);\n    MARK(6)\n"),
-    ("    wgmma_wait<0>();\n    fence_operands(acc);\n  }\n"
-     "  __syncthreads();  // every warp is done with the ring and the transposed windows\n",
-     "    MARK(7)\n    wgmma_wait<0>();\n    fence_operands(acc);\n    MARK(8)\n  }\n"
-     "  __syncthreads();  // every warp is done with the ring and the transposed windows\n"
-     "  MARK(2)\n"),
-    ("  if (!active) return;\n", "  MARK(9)\n  if (!active) return;\n"),
-    ("    store_y(std::integral_constant<int, 1>{});\n",
-     "    store_y(std::integral_constant<int, 1>{});\n  MARK(10)\n" + _TAIL),
-]
+# bucket i: the cycles between a CLOCK_MARK and the CLOCK_MARK(i) after it
+CONV_BUCKETS = {1: "setup", 2: "barriers", 3: "copy issue", 4: "x wait", 5: "transpose",
+                6: "weight wait", 7: "products", 8: "products' wait", 9: "epilogue: sums",
+                10: "epilogue: y"}
+GRAD_BUCKETS = {1: "setup", 2: "copy wait (bf16: + barriers)", 3: "copy issue",
+                4: "split / transpose", 5: "A fragments", 6: "products", 7: "products' wait",
+                8: "sums", 9: "epilogue", 10: "barriers (f32)"}
 
 
-def probed():
-    """The kernel's source with the probes in."""
-    text = open(SOURCE).read()
-    for old, new in MARKS + [
-            ("namespace {\n", "__device__ unsigned long long conv_clocks[3][12];\n\nnamespace {\n"),
-            ('extern "C" {\n', _READ)]:
-        if text.count(old) != 1:
-            raise SystemExit(f"conv_clocks: the source does not hold this text once:\n{old}")
-        text = text.replace(old, new)
-    return text
+def build(name):
+    """``csrc/<name>.cu`` with the probes compiled in, loaded."""
+    from semantic_embeddings_torch import _build
+
+    out_dir = os.path.join(ROOT, "build", "clocks")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, f"lib{name}_clocks.so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-DCONV3X3_CLOCKS", "-o",
+                           lib_path, str(_build.CSRC / f"{name}.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"conv_clocks: nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.conv3x3_clocks_read.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def main():
@@ -101,68 +60,51 @@ def main():
         print("conv_clocks: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from semantic_embeddings_torch._build import find_nvcc
     from semantic_embeddings_torch.ops import conv3x3 as CC
 
-    out_dir = os.path.join(ROOT, "build", "clocks")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, "conv3x3_bn_stats_clocks.cu")
-    with open(src, "w") as f:
-        f.write(probed())
-    lib_path = os.path.join(out_dir, "libconv_clocks.so")
-    subprocess.run([find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-I", os.path.join(ROOT, "semantic_embeddings_torch", "csrc"),
-                    "-o", lib_path, src], check=True)
-    lib = ctypes.CDLL(lib_path)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_bn_stats_partial_rows.argtypes = [i32] * 3
-    lib.conv3x3_bn_stats_scratch.argtypes = [ptr] + [i32] * 6
-    lib.conv3x3_bn_stats_scratch.restype = ctypes.c_longlong
-    lib.conv3x3_bn_stats.argtypes = [ptr] * 9 + [i32] * 6 + [ptr, ptr]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
+    fwd, wgrad = build("conv3x3_bn_stats"), build("conv3x3_filter_grad")
+    CC._libs = CC.declare(fwd, wgrad)  # the wrappers now launch the probed builds
+    runs = [("conv3x3_bn_stats", torch.bfloat16, fwd, CONV_BUCKETS),
+            ("conv3x3_filter_grad", torch.bfloat16, wgrad, GRAD_BUCKETS),
+            ("conv3x3_filter_grad", torch.float32, wgrad, GRAD_BUCKETS)]
     for case in (CC.STAGE_SHAPES[0], CC.STAGE_SHAPES[2]):
-        b, h, w, c, f = case
-        x, wt, _ = CC.check_inputs(case, torch.bfloat16,
-                                   torch.Generator(device="cuda").manual_seed(0))
-        rows = lib.conv3x3_bn_stats_partial_rows(b, h, w)
-        y = torch.empty((b, f, h, w), dtype=torch.bfloat16, device="cuda")
-        part = torch.empty((2, rows, f), device="cuda")
-        sums = torch.empty((2, f), device="cuda")
-        scratch = torch.empty(lib.conv3x3_bn_stats_scratch(x.data_ptr(), b, c, h, w, f, 1),
-                              dtype=torch.uint8, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def call():
-            code = lib.conv3x3_bn_stats(
-                x.data_ptr(), wt.data_ptr(), None, None, y.data_ptr(), part[0].data_ptr(),
-                part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), b, c, h, w, f, 1,
-                scratch.data_ptr(), stream)
-            if code:
-                raise RuntimeError(f"conv_clocks: launch failed, CUDA error {code}")
-
-        for _ in range(5):
-            call()
-        torch.cuda.synchronize()
-        clocks = (ctypes.c_ulonglong * 36)()
-        if lib.read_clocks(clocks):
-            raise RuntimeError("conv_clocks: could not read the counters")
-        for k, block in enumerate(PROBE_BLOCKS):
-            counts = list(clocks[12 * k:12 * k + 12])
-            if counts[0]:
-                print(f"{case} block {block}: {counts[0]} cycles; " + ", ".join(
-                    f"{name} {counts[i + 1]} ({counts[i + 1] / counts[0]:.3f})"
-                    for i, name in enumerate(BUCKETS)) + f"  [{card}]")
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            call()
-        end.record()
-        torch.cuda.synchronize()
-        print(f"{case}: {start.elapsed_time(end) / 20:.4f} ms a call with the probes in  [{card}]")
+        for kernel, dtype, lib, buckets in runs:
+            x, wt, dy = CC.check_inputs(case, dtype,
+                                        torch.Generator(device="cuda").manual_seed(0))
+            if kernel == "conv3x3_bn_stats":
+                def call():
+                    return CC._launch_conv_bn_stats(x, wt)
+            else:
+                def call():
+                    return CC._launch_filter_grad(x, dy)
+            clocks = (ctypes.c_ulonglong * 48)()
+            lib.conv3x3_clocks_read(clocks)  # clears what earlier launches left
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+            if lib.conv3x3_clocks_read(clocks):
+                raise RuntimeError("conv_clocks: could not read the counters")
+            label = f"{kernel} {str(dtype)[6:]} {case}"
+            for k, where in enumerate(("1/8", "1/2", "7/8")):
+                counts = list(clocks[16 * k:16 * k + 16])
+                if counts[0]:
+                    print(f"{label} block at {where} of the grid: {counts[0]} cycles; " + ", ".join(
+                        f"{name} {counts[i]} ({counts[i] / counts[0]:.3f})"
+                        for i, name in buckets.items()) + f"  [{card}]")
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(20):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+            print(f"{label}: {start.elapsed_time(end) / 20:.4f} ms a call with the probes in"
+                  f"  [{card}]")
+            del x, wt, dy
     return 0
 
 

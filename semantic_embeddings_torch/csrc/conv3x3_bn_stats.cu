@@ -363,56 +363,6 @@ struct WgConv {
   static_assert(kWgs * 4 * 2 * NT * 4 <= kWgs * kTElems * 2, "the column sums must fit");
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra LAB_WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The barrier's phase now also waits for `bytes` more (and this thread's
-// arrival).
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// `bytes` (a multiple of 16) from the global src to the shared dst by the
-// bulk copy engine (TMA without a tensor map), completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// The box of the tensor map at (pixel, channel, image) to the shared dst,
-// by the TMA unit, completing on `bar`; elements outside the tensor (before
-// or past a plane, channels past C) land as zeros.
-__device__ __forceinline__ void tma_load_x(void* dst, const CUtensorMap* map, int pixel, int c,
-                                           int n, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(pixel), "r"(c), "r"(n)
-      : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -486,6 +436,7 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
   const int p0 = active ? (t - n * per_image) * kStep : 0;
   const int chunks = (C + kTcC - 1) / kTcC;
 
+  CLOCKS_BEGIN
   uint16_t* raw = reinterpret_cast<uint16_t*>(smem + L::kRawOff) + wg * kRawElems;
   uint16_t* xt = reinterpret_cast<uint16_t*>(smem + L::kXtOff) + wg * kTElems;
   uint16_t* zero_row = reinterpret_cast<uint16_t*>(smem + L::kZeroOff);
@@ -521,7 +472,7 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
     if (lane == 0 && wq >= 1 && active) {
       const int kh = wq - 1;
       if (kh == 0) mbar_arrive_expect(xbar, kRawElems * 2);
-      tma_load_x(raw + kh * kTcC * kXBox, &xmap, first[kh], ch * kTcC, n, xbar);
+      tma_load_3d(raw + kh * kTcC * kXBox, &xmap, first[kh], ch * kTcC, n, xbar);
     }
   };
   // Halo rows: window elements of rows -1 and H come from top and bottom
@@ -577,21 +528,30 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
 #pragma unroll
   for (int e = 0; e < NT / 2; ++e) acc[e] = 0.f;
 
+  CLOCK_MARK(1)
   load_weight(0);
   load_x(0);
+  CLOCK_MARK(3)
   for (int i = 0; i < chunks; ++i) {
     if (active) mbar_wait(xbar, i & 1);
+    CLOCK_MARK(4)
     if (top != nullptr || bottom != nullptr) patch_halo(i);
     __syncthreads();  // x(i) is whole; xt is free; slot (i + 1) % 2's wgmmas are done
+    CLOCK_MARK(2)
     if (i + 1 < chunks) load_weight(i + 1);
+    CLOCK_MARK(3)
     transpose();
+    CLOCK_MARK(5)
     __syncthreads();  // xt is whole; raw is free
+    CLOCK_MARK(2)
     if (i + 1 < chunks) load_x(i + 1);
+    CLOCK_MARK(3)
 
     // 9 wgmma, one a tap, in three groups of one kh: each group's A
     // fragments are loaded while the previous group's products run; the
     // third reuses the first's registers once its products are done.
     mbar_wait(&bars[i & 1], (i >> 1) & 1);
+    CLOCK_MARK(6)
     const uint64_t desc = smem_desc(smem + (i & 1) * L::kWBytes, NT * 16, 128);
     unsigned a[2][3][4];
     fence_operands(acc);
@@ -610,10 +570,13 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
                            desc + static_cast<uint64_t>((kh * 3 + kw) * NT * 2));
       wgmma_commit();
     }
+    CLOCK_MARK(7)
     wgmma_wait<0>();
     fence_operands(acc);
+    CLOCK_MARK(8)
   }
   __syncthreads();  // every warp is done with the ring and the transposed windows
+  CLOCK_MARK(2)
 
   // Epilogue: y rounded to bf16 into the staged tile [f][pixel]; per-column
   // sums of the rounded values and their squares: the thread's two rows,
@@ -651,6 +614,7 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
     }
   }
   __syncthreads();
+  CLOCK_MARK(9)
   if (!active) return;
   for (int fl = wtid; fl < NT; fl += 128) {
     if (f0 + fl >= F) break;
@@ -683,47 +647,21 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
     store_y(std::integral_constant<int, 2>{});
   else
     store_y(std::integral_constant<int, 1>{});
+  CLOCK_MARK(10)
+  CLOCKS_END
 }
 
 // Output channels a block of the bf16 instance: 64 where F <= 64 (one tile
 // is all of F), else 128.
 inline int bf16_tile(int F) { return F <= 64 ? 64 : 128; }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found) == cudaSuccess &&
-                    found == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // x (planes `pitch` elements apart, a multiple of 8, 16-byte aligned) as a
 // tensor of (H*W pixels, C, B) with boxes of 80 pixels x 16 channels: the
 // pixels from H*W up to the pitch, like those before 0, lie outside it.
 int x_tensor_map(CUtensorMap* map, const void* x, int B, int C, int HW, int pitch) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HW), static_cast<cuuint64_t>(C),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pitch) * 2,
-                                 static_cast<cuuint64_t>(pitch) * C * 2};
-  const cuuint32_t box[3] = {kXBox, kTcC, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-                              strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, HW, C, B,
+                       static_cast<long long>(pitch) * 2, static_cast<long long>(pitch) * C * 2,
+                       kXBox, kTcC, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int NT>

@@ -1,9 +1,11 @@
 // Pieces shared by the 3x3 conv kernels (conv3x3_bn_stats.cu,
 // conv3x3_filter_grad.cu): the pipeline step, the x window, cp.async and
 // the warp-level tensor-core instructions, the split of f32 operands for
-// 3xTF32, the warpgroup MMA's fences, waits and matrix descriptor, the
-// choice of copy width, the repack into padded planes for operands no copy
-// width fits, and the occupancy query the split rules read.
+// 3xTF32, the warpgroup MMA's fences, waits and matrix descriptors, the
+// mbarriers and TMA copies (bulk and tensor) with the tensor map's
+// encoding, the choice of copy width, the repack into padded planes for
+// operands no copy width fits, the occupancy query the split rules read,
+// and the clock probes that conv_clocks.py compiles in (CONV3X3_CLOCKS).
 //
 // The x window: one pipeline step covers kStep pixels p0 .. p0 + kStep - 1
 // of one image plane.  For each input channel and each kh, the step stages
@@ -22,9 +24,69 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#ifdef CONV3X3_CLOCKS
+// Clock probes, compiled in only where CONV3X3_CLOCKS is defined (by
+// conv_clocks.py; the build of _build.py never defines it, and without it
+// the macros below are empty).  Thread 0 of three blocks of a launch (those
+// at 1/8, 1/2 and 7/8 of its grid, in linear order) reads clock64() at each
+// CLOCK_MARK(i) and adds the interval since the previous mark to bucket i;
+// CLOCKS_END stores the buckets, and the total since CLOCKS_BEGIN in bucket
+// 0, to conv3x3_clocks[probe], which conv3x3_clocks_read copies out and
+// clears.  The reads of clock64() order the instructions around them, so
+// the buckets are those of the probed build.
+__device__ unsigned long long conv3x3_clocks[3][16];
+
+namespace conv3x3 {
+struct ClockProbe {
+  long long ck[16];
+  long long t0, tp;
+  int probe;
+  __device__ __forceinline__ ClockProbe() {
+    const unsigned blocks = gridDim.x * gridDim.y * gridDim.z;
+    const unsigned id = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    probe = threadIdx.x != 0 ? -1
+            : id == blocks / 8 ? 0
+            : id == blocks / 2 ? 1
+            : id == blocks / 8 * 7 ? 2
+                                   : -1;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ck[i] = 0;
+    t0 = tp = clock64();
+  }
+  __device__ __forceinline__ void mark(int i) {
+    const long long tn = clock64();
+    ck[i] += tn - tp;
+    tp = tn;
+  }
+  __device__ __forceinline__ void done() {
+    if (probe < 0) return;
+#pragma unroll
+    for (int i = 1; i < 16; ++i) conv3x3_clocks[probe][i] = ck[i];
+    conv3x3_clocks[probe][0] = clock64() - t0;
+  }
+};
+}  // namespace conv3x3
+
+extern "C" int conv3x3_clocks_read(unsigned long long* out) {
+  static unsigned long long zeros[3][16] = {};
+  const int err = static_cast<int>(cudaMemcpyFromSymbol(out, conv3x3_clocks, sizeof(zeros)));
+  cudaMemcpyToSymbol(conv3x3_clocks, zeros, sizeof(zeros));
+  return err;
+}
+
+#define CLOCKS_BEGIN conv3x3::ClockProbe clocks_;
+#define CLOCK_MARK(i) clocks_.mark(i);
+#define CLOCKS_END clocks_.done();
+#else
+#define CLOCKS_BEGIN
+#define CLOCK_MARK(i)
+#define CLOCKS_END
+#endif
 
 namespace conv3x3 {
 
@@ -190,6 +252,109 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint64_t lbo, uint64_t sbo) {
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) |
          ((sbo >> 4) << 32);
+}
+
+// The descriptor of an operand that a tensor copy landed with the 128-byte
+// swizzle (CU_TENSOR_MAP_SWIZZLE_128B), K-major: rows of 128 bytes of K, 8
+// rows (1,024 bytes, the swizzle's atom, which must start 1,024-byte
+// aligned) a core-matrix group along M or N, so the stride byte offset is
+// 1,024 and the leading byte offset unused (1); layout type 1 in bits
+// 62-63.  A start `b` bytes into a row (a multiple of 16, below 128) reads
+// the K values from there: the hardware applies the swizzle to the address.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  return smem_desc(p, 16, 1024) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Waits for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The barrier's phase now also waits for `bytes` more (and this thread's
+// arrival).
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from the global src to the shared dst by the
+// bulk copy engine (TMA without a tensor map), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first,
+// to the shared dst by the TMA unit, completing on `bar`; elements outside
+// the tensor (before or past any of its extents) land as zeros.  The
+// innermost coordinate must be a multiple of 16 bytes: any other stopped a
+// kernel with an illegal instruction on an H100.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found) == cudaSuccess &&
+                    found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over `base` as a 3-D tensor of extents (d0, d1, d2),
+// innermost first, d1 and d2 steps `s1` and `s2` bytes apart (multiples of
+// 16), in boxes of b0 x b1 x 1 elements, with the given swizzle; 0, or
+// cudaErrorNotSupported / cudaErrorInvalidValue where the driver has no
+// encoder or refuses the map.
+inline int tensor_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                         long long d0, long long d1, long long d2, long long s1, long long s2,
+                         int b0, int b1, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1), static_cast<cuuint64_t>(s2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult res = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // out[plane, p] = in[plane, p] for p < HW, 0 up to pitch: planes padded to

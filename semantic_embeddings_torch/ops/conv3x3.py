@@ -31,10 +31,11 @@ For CUDA tensors each op launches its kernel (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
 the wrapper raises.  Each has two instances, chosen by the dtype, and all
 four run on the tensor cores: bf16 products in bf16 on Hopper's warpgroup
-``wgmma``, f32 ones as 3xTF32 on ``mma.sync`` (three TF32 products for each
-f32-exact one).  :func:`instance` names what a dtype runs;
-:func:`wgmma_selftest` and :func:`conv_wgmma_selftest` run each bf16
-kernel's ``wgmma`` on its own.  For CPU tensors the plain
+``wgmma``, f32 ones as 3xTF32 (three TF32 products for each f32-exact one),
+the filter gradient's on TF32 ``wgmma``, the conv's on ``mma.sync``.
+:func:`instance` names what a dtype runs; :func:`wgmma_selftest`,
+:func:`conv_wgmma_selftest` and :func:`tf32_selftest` run each ``wgmma``
+kernel's product on its own.  For CPU tensors the plain
 versions run.  The dispatcher picks by the tensor's device, nothing else:
 there is no fallback from a kernel to its plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
@@ -66,35 +67,42 @@ def _kernels():
     if _libs is None:
         from .._build import load
 
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fwd = load("conv3x3_bn_stats")
-        fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32] * 3
-        fwd.conv3x3_bn_stats_partial_rows.restype = i32
-        fwd.conv3x3_bn_stats_scratch.argtypes = [ptr] + [i32] * 6
-        fwd.conv3x3_bn_stats_scratch.restype = ctypes.c_longlong
-        fwd.conv3x3_bn_stats_copy_width.argtypes = [ptr, i32, i32, i32]
-        fwd.conv3x3_bn_stats_copy_width.restype = i32
-        fwd.conv3x3_bn_stats.argtypes = [ptr] * 9 + [i32] * 6 + [ptr, ptr]
-        fwd.conv3x3_bn_stats.restype = i32
-        fwd.conv3x3_bn_stats_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
-        fwd.conv3x3_bn_stats_wgmma_selftest.restype = i32
-        wgrad = load("conv3x3_filter_grad")
-        wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 6 + [
-            ctypes.POINTER(i32)]
-        wgrad.conv3x3_filter_grad_splits.restype = i32
-        wgrad.conv3x3_filter_grad.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
-        wgrad.conv3x3_filter_grad.restype = i32
-        wgrad.conv3x3_filter_grad_copy_width.argtypes = [ptr, ptr, i32, i32, i32]
-        wgrad.conv3x3_filter_grad_copy_width.restype = i32
-        wgrad.conv3x3_filter_grad_scratch.argtypes = [ptr, ptr] + [i32] * 6
-        wgrad.conv3x3_filter_grad_scratch.restype = ctypes.c_longlong
-        wgrad.conv3x3_filter_grad_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
-        wgrad.conv3x3_filter_grad_wgmma_selftest.restype = i32
-        for lib, name in ((fwd, "conv3x3_bn_stats"), (wgrad, "conv3x3_filter_grad")):
-            query = getattr(lib, f"{name}_instance")
-            query.argtypes, query.restype = [i32], ctypes.c_char_p
-        _libs = (fwd, wgrad)
+        _libs = declare(load("conv3x3_bn_stats"), load("conv3x3_filter_grad"))
     return _libs
+
+
+def declare(fwd, wgrad):
+    """``(fwd, wgrad)`` with the C functions' argument and result types
+    declared: the libraries of ``csrc/conv3x3_bn_stats.cu`` and
+    ``csrc/conv3x3_filter_grad.cu`` (conv_clocks.py passes its probed
+    builds)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fwd.conv3x3_bn_stats_partial_rows.argtypes = [i32] * 3
+    fwd.conv3x3_bn_stats_partial_rows.restype = i32
+    fwd.conv3x3_bn_stats_scratch.argtypes = [ptr] + [i32] * 6
+    fwd.conv3x3_bn_stats_scratch.restype = ctypes.c_longlong
+    fwd.conv3x3_bn_stats_copy_width.argtypes = [ptr, i32, i32, i32]
+    fwd.conv3x3_bn_stats_copy_width.restype = i32
+    fwd.conv3x3_bn_stats.argtypes = [ptr] * 9 + [i32] * 6 + [ptr, ptr]
+    fwd.conv3x3_bn_stats.restype = i32
+    fwd.conv3x3_bn_stats_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    fwd.conv3x3_bn_stats_wgmma_selftest.restype = i32
+    wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    wgrad.conv3x3_filter_grad_splits.restype = i32
+    wgrad.conv3x3_filter_grad.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
+    wgrad.conv3x3_filter_grad.restype = i32
+    wgrad.conv3x3_filter_grad_copy_width.argtypes = [ptr, ptr, i32, i32, i32]
+    wgrad.conv3x3_filter_grad_copy_width.restype = i32
+    wgrad.conv3x3_filter_grad_scratch.argtypes = [ptr, ptr] + [i32] * 6
+    wgrad.conv3x3_filter_grad_scratch.restype = ctypes.c_longlong
+    wgrad.conv3x3_filter_grad_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    wgrad.conv3x3_filter_grad_wgmma_selftest.restype = i32
+    wgrad.conv3x3_filter_grad_tf32_selftest.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    wgrad.conv3x3_filter_grad_tf32_selftest.restype = i32
+    for lib, name in ((fwd, "conv3x3_bn_stats"), (wgrad, "conv3x3_filter_grad")):
+        query = getattr(lib, f"{name}_instance")
+        query.argtypes, query.restype = [i32], ctypes.c_char_p
+    return fwd, wgrad
 
 
 # ---------------------------------------------------------------------------
@@ -254,9 +262,10 @@ def _launch_filter_grad(x, dy, top=None, bottom=None):
 def filter_grad_copy_width(x, dy):
     """The copy width, in elements, that the filter-gradient kernel of x's
     dtype takes for these CUDA operands (H*W and both pointers must be
-    multiples of it): 16-byte ``cp.async``, 8 elements in bf16 and 4 in f32,
-    or 1 where that does not fit and the kernel first repacks both into
-    planes padded to a multiple of 8 elements."""
+    multiples of it): 16 bytes, 8 elements in bf16 (``cp.async``) and 4 in
+    f32 (tensor copies, whose planes must be whole 16 bytes), or 1 where
+    that does not fit and the kernel first repacks both into planes padded
+    to a multiple of 8 elements."""
     return _kernels()[1].conv3x3_filter_grad_copy_width(
         x.data_ptr(), dy.data_ptr(), x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
 
@@ -305,6 +314,78 @@ def wgmma_selftest(a, b, row):
     _raise_on(code, "wgmma self-test")
     torch.cuda.synchronize(a.device)
     return d
+
+
+def tf32_selftest(a, b, depth):
+    """A chain of the f32 filter-gradient instance's TF32 ``wgmma`` on its
+    own: the f32 (64, 64) product ``a @ b.T`` of contiguous f32 CUDA
+    tensors ``a`` and ``b`` (64, K), K a multiple of 8: ``a``
+    split into big and small TF32 parts in registers, ``b`` landed by
+    tensor copies with the 128-byte swizzle and split in shared memory,
+    three ``wgmma`` a k8 slice (3xTF32); the products of ``depth``
+    consecutive slices summed in the tensor cores from zero, then added to
+    the running sums in f32 (0: all of K in the tensor cores).
+    Synchronizes."""
+    if (a.ndim != 2 or b.ndim != 2 or a.shape[0] != 64 or b.shape[0] != 64
+            or a.shape[1] != b.shape[1] or a.shape[1] % 8 or a.shape[1] < 8 or depth < 0):
+        raise ValueError(f"tf32 self-test takes a and b (64, K), K a multiple of 8, and a "
+                         f"depth >= 0; got {tuple(a.shape)}, {tuple(b.shape)}, {depth}")
+    _check(a[None, None], b[None, None], "tf32 self-test")
+    if a.dtype != torch.float32:
+        raise TypeError(f"tf32 self-test takes f32 operands, not {a.dtype}")
+    d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    code = _kernels()[1].conv3x3_filter_grad_tf32_selftest(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), 64, a.shape[1] // 8, depth,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(code, "tf32 self-test")
+    torch.cuda.synchronize(a.device)
+    return d
+
+
+#: slices of 8 pixels whose products the f32 filter gradient sums in the
+#: tensor cores before one f32 add to its running sums: a pipeline step
+TF32_FLUSH_SLICES = 8
+
+
+def check_tf32_selftest(generator):
+    """Runs :func:`tf32_selftest` at 1, 3, 8 and 13 slices (the chain
+    crossing the 64-pixel copies), with the
+    kernel's :data:`TF32_FLUSH_SLICES`, on N(0, 1) f32 values drawn from
+    the CUDA ``generator``, and asserts that every entry of d equals
+    ``torch.matmul`` of the same values in f64 within 1e-5 of its sum of
+    |terms|: 3xTF32 products are f32-exact to about 2**-20 relative, one
+    TF32 product only to 2**-11.  Returns the largest error in those
+    units."""
+    device = generator.device
+    worst = 0.0
+    for slices in (1, 3, 8, 13):
+        a = torch.randn((64, 8 * slices), generator=generator, device=device)
+        b = torch.randn((64, 8 * slices), generator=generator, device=device)
+        d = tf32_selftest(a, b, TF32_FLUSH_SLICES)
+        ref = torch.matmul(a.double(), b.double().T)
+        scale = torch.matmul(a.double().abs(), b.double().abs().T).clamp_min(1e-30)
+        err = ((d.double() - ref).abs() / scale).max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"tf32 self-test at {slices} slices: d differs from "
+                                 f"torch.matmul by {err:.3g} of the sum of |terms|")
+        worst = max(worst, err)
+    return worst
+
+
+def tf32_accumulation(generator, pixels=4096, depths=(1, 2, 4, 8, 0)):
+    """How far the f32 filter gradient's accumulation lands from f64: for
+    each depth in slices of 8 pixels (0: all of them), ``tf32_selftest`` of
+    N(0, 1) f32 values, a (64, ``pixels``) and b (64, ``pixels``) from the
+    CUDA ``generator`` (a block's share of a split is a few thousand
+    pixels), its max |d - f64| over the max |f64|.  Returns
+    ``{pixels summed in the tensor cores (0: all): that error}``."""
+    device = generator.device
+    a = torch.randn((64, pixels), generator=generator, device=device)
+    b = torch.randn((64, pixels), generator=generator, device=device)
+    ref = torch.matmul(a.double(), b.double().T)
+    scale = ref.abs().max().item()
+    return {8 * depth: (tf32_selftest(a, b, depth).double() - ref).abs().max().item() / scale
+            for depth in depths}
 
 
 #: the wgmma widths N (output channels a warpgroup) of the bf16 conv +
@@ -541,9 +622,11 @@ CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
 #: 401,408 products, each block of the kernel at most a few thousand of them
 #: and the splits in order, whose rounding errors, adding as a random walk,
 #: stay near 1e-6 of max |dw|; 1e-5 of it is the bound.  Measured on an
-#: H100 at the stage shapes: the f32 instance (3xTF32, each two k8 slices'
-#: products summed from zero in the tensor cores and added to the running
-#: sums with rounded f32 adds) 0.3-1.0e-6 of max |dw|; the bf16 instance
+#: H100 at the stage shapes: the f32 instance (3xTF32 on TF32 wgmma, each
+#: tap's products of a 64-pixel step summed from zero in the tensor cores
+#: and added to the running sums with one rounded f32 add; summed over a
+#: whole split in the tensor cores they would land 1.4-3.2e-5 away,
+#: :func:`tf32_accumulation`) 5.0-7.0e-7 of max |dw|; the bf16 instance
 #: (exact products, f32 accumulation in the tensor cores, on wgmma)
 #: 2.2-4.2e-6.
 #: Against the plain version, dw may differ by the plain version's own

@@ -143,27 +143,101 @@ def _wgmma_filter_grad_model(x, dy, top=None, bottom=None, chunk=2):
     return dw[:, :, :c_in].reshape(3, 3, f_out, c_in).transpose(2, 3, 0, 1)
 
 
+def _split_tf32_np(a):
+    """The kernels' split of f32 values into TF32 parts (``split_tf32`` in
+    conv3x3_common.cuh): big rounded to nearest with ties away from zero by
+    an integer add and mask, small = a - big (exact) truncated to TF32."""
+    a = np.ascontiguousarray(a, np.float32)
+    big = ((a.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    small = ((a - big).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    return big, small
+
+
+def _tf32_filter_grad_model(x, dy, top=None, bottom=None, chunk=2):
+    """dw as the f32 instance (3xTF32 on TF32 ``wgmma``) computes it, in
+    numpy: dw^T tiles (channels x f) over pipeline steps of 64 pixels of one
+    image; for each kh a window of x of 76 plane pixels from p0 + (kh - 1) W
+    - 1 rounded down to 4 (zeros outside the plane, or the halo rows); the
+    A operand of tap (kh, kw) and pixel p is window element p + kw + the
+    start's rounding, zero where the tap wraps across the image's left
+    (kw = 0) or right (kw = 2) edge, split into big and small TF32 parts;
+    dy (zero past the plane) split likewise; per slice of 8 pixels (slices
+    past the plane skipped) the three products a_small b_big + a_big b_small
+    + a_big b_big, summed over the step in the tensor cores (exactly here,
+    then rounded to f32) and added to the running sums with an f32 add;
+    blocks of ``chunk`` steps, then the splits added in order in f32."""
+    n_img, c_in, h, w = x.shape
+    f_out = dy.shape[1]
+    hw, step, box = h * w, 64, 76
+    per_image = -(-hw // step)
+    total = n_img * per_image
+
+    def halo(t):
+        return np.zeros((n_img, c_in, w), np.float32) if t is None else t[:, :, 0]
+
+    # each plane with its row -1 before it and row H after it, zeros beyond
+    ext = np.concatenate([halo(top), x.reshape(n_img, c_in, hw), halo(bottom)], axis=2)
+    dw = np.zeros((9, f_out, c_in), np.float32)
+    for t0 in range(0, total, chunk):
+        acc = np.zeros((9, f_out, c_in), np.float32)
+        for t in range(t0, min(t0 + chunk, total)):
+            n, p0 = t // per_image, t % per_image * step
+            pix = p0 + np.arange(step)
+            d = np.zeros((f_out, step), np.float32)
+            d[:, pix < hw] = dy[n].reshape(f_out, hw)[:, pix[pix < hw]]
+            npx = 8 * -(-min(step, hw - p0) // 8)
+            d_big, d_small = _split_tf32_np(d[:, :npx])
+            col = pix[:npx] % w
+            for kh in range(3):
+                start = p0 + (kh - 1) * w - 1
+                first = start & ~3
+                idx = first + np.arange(box)
+                ok = (idx >= -w) & (idx < hw + w)
+                win = np.zeros((c_in, box), np.float32)
+                win[:, ok] = ext[n][:, idx[ok] + w]
+                for kw in range(3):
+                    a = win[:, start - first + kw + np.arange(npx)]
+                    if kw != 1:
+                        a = np.where((col == 0) if kw == 0 else (col == w - 1), np.float32(0), a)
+                    a_big, a_small = _split_tf32_np(a)
+                    prod = (a_small.astype(np.float64) @ d_big.T + a_big.astype(np.float64)
+                            @ d_small.T + a_big.astype(np.float64) @ d_big.T)
+                    acc[kh * 3 + kw] += prod.astype(np.float32).T
+        dw += acc
+    return dw.reshape(3, 3, f_out, c_in).transpose(2, 3, 0, 1)
+
+
 def _bf16_values(rng, shape):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16().float().numpy()
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), tc.ALIGN_CASES[0],
                                   (3, 5, 14, 12, 16, "halo")])
-def test_wgmma_filter_grad_decomposition(case):
-    """The bf16 instance's decomposition (the numpy model above: dy masked
-    per kw, x transposed to [c / 8][pixel][8] and read at whole-row offsets,
-    f32 slices and ordered splits) against the Pallas prototype in
+def test_wgmma_filter_grad_decomposition(case, dtype):
+    """Each instance's decomposition against the Pallas prototype in
     interpret mode and the plain version in f64, within ``DW_OF_MAX`` of
-    max |dw|.  Ragged cases have C not a multiple of 8; the halo case gives
-    x's rows -1 and H (the prototype sees them as rows of a taller image
-    whose dy is zero there)."""
+    max |dw|: bf16 (``_wgmma_filter_grad_model``: dy masked per kw, x
+    transposed to [c / 8][pixel][8] and read at whole-row offsets, f32
+    slices and ordered splits), f32 (``_tf32_filter_grad_model``: x masked
+    per kw at any shift, 3xTF32 splits of both operands, a step's products
+    summed before each f32 add, ordered splits).  Ragged cases have C not a
+    multiple of 8; the halo case gives x's rows -1 and H (the prototype
+    sees them as rows of a taller image whose dy is zero there)."""
     b, h, w, c, f = case[:5]
     rng = np.random.default_rng(sum(case[:5]))
-    x, dy = _bf16_values(rng, (b, c, h, w)), _bf16_values(rng, (b, f, h, w))
+    if dtype == "bf16":
+        def values(shape):
+            return _bf16_values(rng, shape)
+    else:
+        def values(shape):
+            return rng.normal(size=shape).astype(np.float32)
+    x, dy = values((b, c, h, w)), values((b, f, h, w))
     top = bottom = None
     if len(case) > 5:
-        top, bottom = _bf16_values(rng, (b, c, 1, w)), _bf16_values(rng, (b, c, 1, w))
-    got = _wgmma_filter_grad_model(x, dy, top, bottom)
+        top, bottom = values((b, c, 1, w)), values((b, c, 1, w))
+    model = _wgmma_filter_grad_model if dtype == "bf16" else _tf32_filter_grad_model
+    got = model(x, dy, top, bottom)
 
     def t64(a):
         return None if a is None else torch.from_numpy(a).double()
@@ -173,7 +247,8 @@ def test_wgmma_filter_grad_decomposition(case):
     if top is not None:  # the taller image: the halo rows on, dy zero on them
         xj = np.concatenate([top.transpose(0, 2, 3, 1), xj, bottom.transpose(0, 2, 3, 1)], 1)
         dyj = np.pad(dyj, ((0, 0), (1, 1), (0, 0), (0, 0)))
-    proto = np.asarray(j_filter_grad(jnp.asarray(xj, jnp.bfloat16), jnp.asarray(dyj, jnp.bfloat16),
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    proto = np.asarray(j_filter_grad(jnp.asarray(xj, jdt), jnp.asarray(dyj, jdt),
                                      batch_tile=1, interpret=True)).transpose(3, 2, 0, 1)
     bound = tc.DW_OF_MAX * np.abs(ref).max()
     assert got.shape == ref.shape == proto.shape == (f, c, 3, 3)
@@ -357,23 +432,26 @@ def _tf32_truncated(t):
 
 
 def _filter_grad_in_tf32(x, dy, products):
-    """dw from TF32 operands, summed in f64: ``products`` 3 is the f32
-    kernel's 3xTF32 (a_big * b_big + a_big * b_small + a_small * b_big with
-    a_big = tf32(a) rounded, a_small = a - a_big truncated to TF32); 1 is a
-    single TF32 product.  The kernel's f32 accumulation is held on the
-    card."""
+    """dw from TF32 operands, summed in f64, as the f32 kernel (TF32
+    ``wgmma``) pairs them: x is the A operand, split in registers into x_big
+    = tf32(x) rounded and x_small = x - x_big truncated to TF32; dy is B,
+    split likewise in shared memory; ``products`` 3 is its 3xTF32, the
+    three ``wgmma`` of a slice in their order, x_small * dy_big + x_big *
+    dy_small + x_big * dy_big; 1 is a single TF32 product, x_big * dy_big.
+    The kernel's f32 accumulation (a step's products summed in the tensor
+    cores, then f32 adds) is held on the card and in
+    ``_tf32_filter_grad_model``."""
     xb, db = _tf32(x), _tf32(dy)
-    pairs = [(xb, db), (xb, _tf32_truncated(dy - db)),
-             (_tf32_truncated(x - xb), db)][:products]
-    return sum(tc._plain_filter_grad(a.double(), b.double()) for a, b in pairs)
+    pairs = [(_tf32_truncated(x - xb), db), (xb, _tf32_truncated(dy - db)), (xb, db)]
+    return sum(tc._plain_filter_grad(a.double(), b.double()) for a, b in pairs[-products:])
 
 
 @pytest.mark.parametrize("products", [3, 1])
-@pytest.mark.parametrize("case", [(4, 8, 8, 8, 16), (2, 13, 9, 5, 10)])
+@pytest.mark.parametrize("case", [(4, 8, 8, 8, 16), (2, 13, 9, 5, 10), (3, 7, 7, 40, 72)])
 def test_3xtf32_filter_grad_within_dw_of_max(case, products):
-    """The f32 filter-gradient kernel's split: 3xTF32 keeps dw within
-    ``DW_OF_MAX`` of max |dw| of the f64 reference; one TF32 product (2**-11
-    relative) misses that bound."""
+    """The f32 filter-gradient kernel's split (x in registers, dy in shared
+    memory): 3xTF32 keeps dw within ``DW_OF_MAX`` of max |dw| of the f64
+    reference; one TF32 product (2**-11 relative) misses that bound."""
     b, h, w, c, f = case
     rng = np.random.default_rng(sum(case))
     x = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(np.float32))

@@ -143,9 +143,9 @@ def _shifted(t, elements):
 @pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((4, 7, 7, 40, 72), 1),
                                          ((2, 13, 9, 16, 24), 1)])
 def test_filter_grad_f32_copy_paths(device, case, width):
-    """f32 planes take 16-byte copies where H*W % 4 == 0, else a repack into
-    planes padded to 8 floats (H*W = 49, an odd ragged plane); dw holds
-    against f64 on either path."""
+    """f32 planes take tensor copies where H*W % 4 == 0 (their strides must
+    be whole 16 bytes), else a repack into planes padded to 8 floats (H*W =
+    49, an odd ragged plane); dw holds against f64 on either path."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, dy = cc.check_inputs(case, torch.float32,
                                torch.Generator(device=device).manual_seed(6))
@@ -164,10 +164,11 @@ def test_filter_grad_f32_misaligned_pointers(device):
 
 
 def test_conv_kernels_run_on_the_tensor_cores(device):
-    """Both kernels run f32 as the 3xTF32 instance on mma.sync and bf16 on
-    Hopper's warpgroup wgmma."""
+    """Both kernels run bf16 on Hopper's warpgroup wgmma and f32 as 3xTF32:
+    the filter gradient on TF32 wgmma, the conv + statistics on mma.sync."""
     assert cc.instance("conv3x3_filter_grad", torch.float32) == (
-        "tensor cores: mma.sync m16n8k8 3xTF32")
+        "tensor cores: wgmma m64n64k8 3xTF32, 64 c x 64 f x 3 taps a warpgroup, "
+        "3 warpgroups a block")
     assert cc.instance("conv3x3_filter_grad", torch.bfloat16) == (
         "tensor cores: wgmma m64n32k16 bf16, 64 f x 32 c x 9 taps a warpgroup, "
         "1 warpgroup a block where F <= 64, else 2")
@@ -194,6 +195,34 @@ def test_conv_wgmma_selftest_matches_matmul(device):
     a = torch.zeros((64, 16), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError, match="tap"):
         cc.conv_wgmma_selftest(a, torch.zeros((9, 32, 16), dtype=torch.bfloat16, device=device), 0)
+
+
+def test_tf32_selftest_matches_matmul(device):
+    """The f32 filter gradient's TF32 wgmma chain on its own (x's A fragment
+    split in registers, dy landed by 128-byte-swizzled tensor copies and
+    split in shared memory, three wgmma a k8 slice, each step's products
+    summed before an f32 add) against torch.matmul in f64, at chains of 1
+    to 13 slices; an N other than the kernel's 64 and a bf16 operand are
+    refused."""
+    assert cc.check_tf32_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    a = torch.zeros((64, 8), device=device)
+    with pytest.raises(ValueError, match="64, K"):
+        cc.tf32_selftest(a, torch.zeros((32, 8), device=device), cc.TF32_FLUSH_SLICES)
+    with pytest.raises(TypeError):
+        cc.tf32_selftest(a.bfloat16(), torch.zeros((64, 8), device=device).bfloat16(), 8)
+
+
+def test_tf32_accumulation_depth(device):
+    """Why the f32 filter gradient adds each step's products to its running
+    sums in f32: over 4,096 pixels (a block's share of a split), products
+    summed in the tensor cores 8 to 64 pixels at a time land within
+    DW_OF_MAX / 4 of max |d| from f64, the kernel's 64 among them; all
+    4,096 summed there land farther than the kernel's depth (1.4-3.2e-5 on
+    an H100, past DW_OF_MAX)."""
+    errs = cc.tf32_accumulation(torch.Generator(device=device).manual_seed(1))
+    kernel_depth = 8 * cc.TF32_FLUSH_SLICES
+    assert all(errs[k] <= cc.DW_OF_MAX / 4 for k in (8, 16, 32, 64)), errs
+    assert errs[0] > errs[kernel_depth], errs
 
 
 def test_wgmma_selftest_rejects_rows_past_the_window(device):
