@@ -21,11 +21,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    their plain versions, and f32 y and dw against f64, in f32 and bf16
    (TF32 off), at the four ResNet-50 stage shapes at batch 128 (224 px) and
    at batch 24 (448 px, the CUB recipe's), four ragged shapes and three
-   shapes that take each copy path (f32: 16- or 8-byte copies, or the
-   repack; bf16: 16-byte planes, or the repack), after each ``wgmma``
-   kernel's product on its own against ``torch.matmul`` (the bf16 conv's
-   at each N it uses) and the f32 filter gradient's accumulation against
-   f64 by the pixels it sums in the tensor cores; print the instance each
+   shapes that take each copy path (16-byte planes, or the repack), after
+   each ``wgmma`` kernel's product on its own against ``torch.matmul`` (each
+   conv instance's at each N it uses) and the f32 kernels' accumulation
+   against f64 by the terms they sum in the tensor cores; print the instance each
    dtype runs, the copy width each shape
    takes and the distance of y from f64 (the kernel's and cuDNN's).  At the eight
    stage shapes time both kernels, their plain versions and cuDNN's
@@ -3632,17 +3631,15 @@ def main(argv=None):
                  for dtype in (torch.float32, torch.bfloat16)}
     for key, value in instances.items():
         print(f"instance {key}: {value}")
-    check(all("wgmma" in instances[f"{kernel} bfloat16"]
-              for kernel in ("conv3x3_bn_stats", "conv3x3_filter_grad"))
-          and "wgmma" in instances["conv3x3_filter_grad float32"]
-          and "mma.sync" in instances["conv3x3_bn_stats float32"], instances)
+    check(all("wgmma" in value for value in instances.values()), instances)
     # each wgmma kernel's product on its own against torch.matmul; raises
     # beyond 1e-5 of each entry's sum of |terms|: the bf16 filter gradient's
     # (register A, the MN-major descriptor at whole-row offsets), the bf16
     # conv's (register A, the K-major weight descriptor at each tap's
     # offset, each N it uses), the f32 filter gradient's (3xTF32: register A
     # split in registers, B by swizzled tensor copies split in shared
-    # memory)
+    # memory), the f32 conv's (3xTF32: register A split in registers, the
+    # weight slice split in shared memory and read at each tap's offset)
     wgmma_err = CC.check_wgmma_selftest(torch.Generator(device=device).manual_seed(14))
     print(f"wgmma self-test at (rows, start row) {CC.WGMMA_SELFTEST_CASES}: max |err| "
           f"{wgmma_err:.3g} of the sum of |terms|")
@@ -3660,6 +3657,19 @@ def main(argv=None):
           "the tensor cores: " + ", ".join(f"{k or 'all'} {v:.3g}" for k, v in tf32_acc.items())
           + f"  [{card}]")
     check(tf32_acc[8 * CC.TF32_FLUSH_SLICES] <= CC.DW_OF_MAX / 4, tf32_acc)
+    conv_tf32_err = CC.check_conv_tf32_selftest(torch.Generator(device=device).manual_seed(18))
+    print(f"conv tf32 wgmma self-test at N {CC.CONV_WGMMA_N}, 1-8 chunks: max |err| "
+          f"{conv_tf32_err:.3g} of the sum of |terms|")
+    # the f32 conv's accumulation over 4,608 terms: products summed in the
+    # tensor cores a chunk at a time (the kernel's 72) or more, or all, then
+    # f32 adds; its distance from f64 in units of max |d|, at each N
+    conv_tf32_acc = {n: CC.conv_tf32_accumulation(torch.Generator(device=device).manual_seed(19), n)
+                     for n in CC.CONV_WGMMA_N}
+    for n, errs in conv_tf32_acc.items():
+        print(f"conv tf32 accumulation over 4,608 terms at N {n}, max |err| / max |d| by terms "
+              "summed in the tensor cores: " + ", ".join(f"{k or 'all'} {v:.3g}"
+                                                         for k, v in errs.items()) + f"  [{card}]")
+        check(errs[CC.CONV_TF32_CHUNK * CC.CONV_TF32_FLUSH] <= CC.Y_OF_MAX / 4, errs)
     f32 = torch.float32
     for case in CC.CHECK_CASES:
         b, h, w, c, f = case
@@ -4260,11 +4270,14 @@ def main(argv=None):
                           if key.startswith(name + " ")},
             "wgmma_selftest_of_terms": (wgmma_err if name == "conv3x3_filter_grad"
                                         else conv_wgmma_err),
-            # the f32 filter gradient's TF32 wgmma on its own, and its
-            # accumulation's distance from f64 by pixels summed in the
-            # tensor cores (0: all 4,096)
+            # each f32 instance's TF32 wgmma chain on its own, and its
+            # accumulation's distance from f64 by terms summed in the tensor
+            # cores (0: all; the filter gradient's over 4,096 pixels, the
+            # conv's over 4,608 terms at each N)
             **({"tf32_selftest_of_terms": tf32_err, "tf32_accumulation_of_max": tf32_acc}
-               if name == "conv3x3_filter_grad" else {}),
+               if name == "conv3x3_filter_grad" else
+               {"tf32_selftest_of_terms": conv_tf32_err,
+                "tf32_accumulation_of_max": conv_tf32_acc}),
         })
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,

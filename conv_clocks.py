@@ -13,8 +13,8 @@ This script builds both sources with ``nvcc -DCONV3X3_CLOCKS`` (and
 times at the 56x56x64 and 14x14x256 ResNet-50 stage shapes (batch 128,
 through the port's own wrappers), and prints, for thread 0 of three blocks
 (at 1/8, 1/2 and 7/8 of the grid), its cycles by bucket with shares, and a
-call's time with the probes in.  Instances: the conv + statistics in bf16,
-the filter gradient in bf16 and f32.  The reads of ``clock64()`` order the
+call's time with the probes in.  Instances: the conv + statistics and the
+filter gradient, each in bf16 and f32.  The reads of ``clock64()`` order the
 instructions around them, so the buckets are the probed build's.
 """
 
@@ -28,7 +28,7 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # bucket i: the cycles between a CLOCK_MARK and the CLOCK_MARK(i) after it
-CONV_BUCKETS = {1: "setup", 2: "barriers", 3: "copy issue", 4: "x wait", 5: "transpose",
+CONV_BUCKETS = {1: "setup", 2: "barriers", 3: "copy issue", 4: "x wait", 5: "transpose / halo rows",
                 6: "weight wait", 7: "products", 8: "products' wait", 9: "epilogue: sums",
                 10: "epilogue: y"}
 GRAD_BUCKETS = {1: "setup", 2: "copy wait (bf16: + barriers)", 3: "copy issue",
@@ -69,6 +69,7 @@ def main():
     fwd, wgrad = build("conv3x3_bn_stats"), build("conv3x3_filter_grad")
     CC._libs = CC.declare(fwd, wgrad)  # the wrappers now launch the probed builds
     runs = [("conv3x3_bn_stats", torch.bfloat16, fwd, CONV_BUCKETS),
+            ("conv3x3_bn_stats", torch.float32, fwd, CONV_BUCKETS),
             ("conv3x3_filter_grad", torch.bfloat16, wgrad, GRAD_BUCKETS),
             ("conv3x3_filter_grad", torch.float32, wgrad, GRAD_BUCKETS)]
     for case in (CC.STAGE_SHAPES[0], CC.STAGE_SHAPES[2]):

@@ -120,61 +120,109 @@
 //     Stages 3-4 still compute about a quarter of padding: 196 = 3 x 64 + 4
 //     pixels, and 49 of 64.
 //
-// f32 instance: a warp-level tensor-core GEMM, 3xTF32 on mma.sync m16n8k8
-// (TF32 in, f32 accumulate; the split and the mma in conv3x3_common.cuh):
-// three TF32 products for each f32-exact one.  M = output channels f, N =
-// pixels, K = 9C, fed by a 2-stage cp.async ring.
-//   - A block owns 64 f (4 warps, 3 blocks an SM) or, where F >= 128, 128 f
-//     (8 warps, 2 blocks an SM) x one pipeline step of conv3x3_common.cuh
-//     (64 pixels of one image), each warp 32 f x 32 pixels, and runs the
-//     whole K = 9C itself in chunks of 8 input channels x 9 taps (one tap is
-//     one k8 slice).  The 128 f block stages and transposes each x window
-//     for twice the outputs: 7-8% faster than the 64 f block at the
-//     ResNet-50 stages 2-4 (below).  Each output is the same sum in the same
-//     order in either.  The grid is ceil(F / FT) x B * ceil(H*W / 64).
-//   - The weight is permuted once a call to wp[f][c / 8][kh, kw][c % 8] and
-//     staged for each chunk with 16-byte cp.async.  x: the chunk's windows
-//     (8 c x 3 kh, from plane pixel p0 + (kh - 1) W - 1 on, zero outside
-//     the plane) staged with cp.async in NCHW order and transposed once a
-//     chunk in shared memory to [kh][pixel][c]: an n8 x k8 B fragment is 8
-//     pixels x 8 channels at a fixed tap, ldmatrix takes one row address per
-//     pixel, so the shift by kw costs nothing, and a tap that wraps across
-//     the image's left or right edge points its row at a row of zeros.
-//   - ldmatrix reads f32 as it reads bf16: an 8 x 8 b16 matrix is an 8 x 4
-//     f32 one, so one ldmatrix.x4 over weight rows [f][k] gives a0-a3, and
-//     over the transposed rows [pixel][c] the matrices at c and c + 4 give
-//     b0 and b1 of an n8 tile.  Weight rows of 72 + 4 floats (304 bytes)
-//     and transposed rows of 20 floats (80 bytes) are conflict-free.
-//   - The split: x is split once a chunk, in the transpose, into its TF32
-//     big and small parts, stored side by side in each transposed row
-//     ([kh][pixel][8 big, 8 small]).  Each x value serves 3 kw and every
-//     warp of its pixels, so splitting it there and not after each ldmatrix
-//     took a third of the instructions per mma away.  The weight is split in
-//     registers after ldmatrix: split once a call, it would double the bytes
-//     that every block of pixels stages again.
-//   - The tensor cores' own accumulation truncates, so the running sums stay
-//     out of it: the three products of the 3 taps of one kh (24 channels x
-//     taps) sum in the tensor cores from zero, and the running sums take
-//     them with one rounded f32 add, 3C / 8 adds for each y.
-//   - Copies: 16-byte cp.async where H*W % 4 == 0, 8-byte where H*W is even,
-//     each also limited by x's alignment, else the repack into planes padded
-//     to 8 floats (stage 4's 49 pixels, odd ragged planes).
-//   - Epilogue: y as f32 (64-bit stores of pixel pairs), and the sums of y
-//     and y^2 per channel: 8 a thread in order, then across the 4 lanes of
-//     a row (__shfl_xor_sync 1, 2), then the block's two pixel halves
-//     through shared memory, into per-step partials.
-//   - Measured (chip_smoke.py phase 4, H100 80GB HBM3 at 700 W; per-stage
-//     times in PERF.md): 0.62-0.79 ms a call at the ResNet-50 stage
-//     shapes, 23-29% of the 3xTF32 bound, 2.0-2.5x the SIMT kernel it
-//     replaced (1.52-1.58 ms); the 64 f block, timed against it in one run
-//     on that card through a switch since removed, 0.672 / 0.822 / 0.851 ms
-//     at stages 2-4 against 0.624 / 0.760 / 0.782.  Stages 3-4
-//     compute nearly a quarter of padding: 196 = 3 x 64 + 4 pixels, and 49
-//     of 64.  Tried in temporary variants on an H100 and dropped, each
-//     slower at every stage shape: both operands split after each ldmatrix
-//     with one rounded add a tap (the first build); warps of 32 f x 64
-//     pixels (half the weight splits per mma, but 255 registers and
-//     spills).
+// f32 instance: Hopper's warpgroup MMA with TF32 operands, wgmma.mma_async
+// m64nNk8 (f32 accumulate), as 3xTF32 (the split in conv3x3_common.cuh):
+// each f32 operand v is split into big = tf32(v) and small = v - big
+// truncated to TF32, and each product is small * big + big * small + big *
+// big, f32-exact to about 2^-20 relative.  The block is the bf16
+// instance's: pixels as M, 64 a warpgroup, two warpgroups a block sharing
+// each weight slice of N = 64 output channels where F <= 64, else 128; the
+// whole K = 9C in the block, in chunks of 8 channels (one k8 slice a tap).
+//   - x is A, in registers.  TF32 wgmma takes shared-memory operands
+//     K-major only and a descriptor's start moves in 16-byte units, so a kw
+//     shift of one pixel can live only in the register operand, which also
+//     masks the taps that wrap across the image's left or right column.
+//     Each thread loads its fragment in mma.sync m16n8k8's TF32 A layout
+//     (a0 (row g, column t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t +
+//     4); rows are pixels, columns channels) with plain 32-bit shared loads
+//     straight from the windows as the tensor copies land them, [c][pixel]
+//     in rows of 72 floats (72 t + g mod 32 puts the 32 lanes on 32 banks),
+//     and splits it in registers: no transpose, which takes 17-33% of a
+//     bf16 block.  A tap's fragment is loaded while the previous tap's three
+//     wgmma run (wgmma.wait_group 1 frees the registers of the tap before).
+//   - The weight is B, K-major without swizzle, in the bf16 instance's
+//     slice layout at 32 bytes of K a row (slice_offset); a tap's B is the
+//     descriptor started tap * N * 32 bytes in.  The permutation splits it
+//     once a call, each slice's big parts then its small ones: every block
+//     stages twice the weight's bytes but splits nothing.  Those bytes are
+//     the most a call moves from L2: 9C x N x 8 a block (295 KB at the
+//     56x56x64 stage), 0.92 GB over its 3,136 blocks beside x's windows'
+//     0.35 GB, about 4 TB/s at 0.32 ms; four warpgroups sharing each slice
+//     halve them and were slower (below), so L2 does not set the time.
+//   - Accumulation: a y sums 9C <= 4,608 terms, and the tensor cores' own
+//     sums truncate: all 4,608 summed there land 2.8-3.5e-5 of max |y| from
+//     f64, past Y_OF_MAX = 1e-5 (conv_tf32_selftest_kernel, C entry
+//     conv3x3_bn_stats_tf32_selftest, at N = 64 and 128).  So a chunk's 72
+//     products (8 channels x 9 taps, 27 wgmma) go into a temporary from zero
+//     (scale-d 0 at its first) and the running sums take them with one
+//     rounded f32 add, C / 8 adds a y: 5.3-6.7e-7 (144 or 288 terms a flush:
+//     0.9-1.2e-6 or 1.8-2.2e-6).  32 + 32 accumulator registers a thread at
+//     N = 64, 64 + 64 at N = 128.
+//   - Copies: thread 0 issues all of a chunk's copies onto its slot's
+//     mbarrier, in a ring of 2 slots, one chunk ahead: the weight slice's
+//     two parts by one cp.async.bulk, and each warpgroup's three x windows
+//     by TMA tensor copies over x as (H*W pixels, C, B), boxes of 72 pixels
+//     x 8 channels from plane pixel p0 + (kh - 1) W - 1 rounded down to 4
+//     (a tensor copy's innermost coordinate must be a multiple of 16
+//     bytes); pixels outside the plane land as zeros.  The tensor's strides
+//     must be multiples of 16 bytes: where H*W % 4 != 0 or x is not 16-byte
+//     aligned, x is first repacked into planes padded to 8 floats (stage
+//     4's 49 pixels at 224 px).
+//   - A chunk: wait for its slot, patch the halo rows, barrier, issue the
+//     next chunk's copies, 9 taps of three wgmma, a commit group each,
+//     wgmma.wait_group 0, the f32 add.
+//   - Epilogue: the bf16 instance's (stage_tile, write_partials,
+//     store_rows), without the rounding: y through shared memory in rows of
+//     272 bytes, the same tree of sums.
+//   - Where the cycles go (conv_clocks.py, thread 0 of three blocks,
+//     56x56x64 and 14x14x256 at batch 128; H100 80GB HBM3, 700 W).  The
+//     mma.sync instance this replaces (M = 64 or 128 f, N = 64 pixels,
+//     every thread issuing cp.async copies of both operands, x transposed
+//     and split once a chunk, the weight split in registers after ldmatrix;
+//     read with marks in its own source, which went with it): the products
+//     (ldmatrix, the weight's split and the mma in line) 52-66% of a
+//     block's cycles, issuing the copies 27-35%, the transpose 5-7%.  This
+//     kernel at 56x56x64 / 14x14x256: the products (A fragments, the wgmma
+//     issue and the waits between taps) 44-50% / 57%, issuing the copies
+//     27-28% / 26% (thread 0, whose warpgroup waits for it), waiting for the
+//     last group 6% / 7%, for the copies 5% / 4%, the epilogue 5-6% / 3-4%.
+//   - Tried on an H100 in temporary variants, each timed in one call beside
+//     the others and the mma.sync instance (ResNet-50 step sums at 224 /
+//     448 px; the mma.sync instance 12.0-13.1 / 8.7-10.0 ms in those calls,
+//     this kernel 6.0-6.7 / 5.3-5.7):
+//       - the weight split in place in every block once its copy lands (as
+//         the f32 filter gradient splits dy), half the bytes: 6.9-7.0 /
+//         5.9 against 6.4-6.5 / 5.3-5.5 in the same call (the split took
+//         11-16% of a block's cycles);
+//       - the next chunk's wait, halo rows and split moved under the
+//         current chunk's wgmma: 8.1-8.4 / 6.8-6.9 against 6.8-6.9 /
+//         5.6-5.8 (104 bytes of spills at N = 64);
+//       - four warpgroups a block sharing each slice at N = 64, one block
+//         an SM (half the weight's bytes a pixel): 7.0 / 6.0 against 6.1-
+//         6.3 / 5.3; at F <= 64 only, 6.2-6.3 / 5.4; thread 0 then spends
+//         42-52% of its cycles issuing 13 copies a chunk;
+//       - three warpgroups a block at N = 128 (168 registers, 104-224 bytes
+//         of spills): 7.5-7.6 / 5.4-5.5 against 6.4-6.5 / 5.3-5.5, faster
+//         only at the 448-px stage 4 (0.39 against 0.45 ms: one wave of
+//         blocks where two warpgroups leave 1.45);
+//       - the x windows issued by lane 0 of warps 1-3 of each warpgroup:
+//         6.7-7.0 / 5.7-6.0 against 6.4-6.7 / 5.5-5.7; by the first thread
+//         of each warpgroup: 7.0-7.1 / 6.0-6.1; the weight's copy in halves
+//         by the first threads of both warpgroups: 6.6-6.7 / 5.9-6.0
+//         against 6.0 / 5.3 (a warp that issues copies holds up its whole
+//         warpgroup's wgmma, so spreading the issue spreads the stall);
+//         the copies issued after the first tap's group: 6.6-6.8 / 5.8
+//         against 6.4-6.7 / 5.5-5.7; the weight by a TMA tensor copy in
+//         place of the bulk copy: 5.9-6.1 / 5.2 against 6.0 / 5.3, the
+//         same;
+//       - a producer warp (a ninth warp issuing every copy up to 2 chunks
+//         ahead onto full and empty mbarriers, no block barrier in the
+//         loop) at N = 128, and at both N (one block an SM): 7.3-7.4 /
+//         5.4-5.7 against 6.7 / 5.1-5.2; without the issue stall its
+//         consumers wait on their own wgmma groups (18% of their cycles at
+//         14x14x256, against 7%).
+//     Stages 3-4 still compute about a quarter of padding: 196 = 3 x 64 + 4
+//     pixels, and 49 of 64.
 //
 // Both: a second kernel adds each channel's partials in a fixed order.  No
 // atomics: y, s and ss are the same on every run.  Pixels, channels and
@@ -183,8 +231,7 @@
 // Halo rows (spatial partitioning, where x is a block of an image's rows):
 // x's rows -1 and H may be given as (B, C, 1, W) tensors in place of the
 // SAME padding's zeros.  Only the windows that reach outside x's plane read
-// them, element by element: in f32 the window chunks staged with cp.async
-// (stage_x_chunk in conv3x3_common.cuh), in bf16 the kh = 0 and kh = 2
+// them, element by element: in both instances the kh = 0 and kh = 2
 // windows, whose elements outside the plane the tensor copy landed as zeros
 // (patch_halo).  x's planes keep the copy width chosen for them, and a null
 // pointer leaves every path as it was.  y and the partial sums cover x's own
@@ -193,16 +240,16 @@
 // 17a).
 //
 // ptxas (sm_90a, CUDA 12.9): the bf16 kernel at N = 128 128 registers (its
-// bound for 2 blocks of 256 threads an SM), 28 bytes of spills, 112,208
+// bound for 2 blocks of 256 threads an SM), 24 bytes of spills, 112,208
 // bytes of dynamic shared memory (the ring of 2 weight slices, 73,728; each
 // warpgroup's windows, 7,680 as copied and 11,520 transposed; a zero row;
-// 4 mbarriers); at N = 64 119 registers, no spills, 75,344 bytes; 2 blocks
-// an SM either way; its self-test 94 and 62 registers; the f32 kernel with 64 f 155
-// registers, no spills, 71,120 bytes (2 stages of 26,368, the split
-// windows of 17,280), 3 blocks an SM; with 128 f 128 registers (its bound
-// for 2 blocks of 256 threads an SM), 56-64 bytes of spills, 111,056
-// bytes; the weight permutation, the repack 16; the second pass 32
-// registers and 8,448 bytes.
+// 4 mbarriers); at N = 64 120 registers, no spills, 75,344 bytes; 2 blocks
+// an SM either way; its self-test 94 and 62 registers; the f32 kernel at N
+// = 64 127 registers, no spills, 101,392 bytes (2 slots of 50,688: the
+// weight slice's two parts, 36,864, and both warpgroups' windows), 2 blocks
+// an SM; at N = 128 209 registers, no spills, 175,120 bytes, 1 block an SM;
+// its self-test 98 and 162 registers; the weight permutation 18, the repack
+// 16; the second pass 32 registers and 8,448 bytes.
 //
 // The kernels launch on the caller's stream and allocate nothing; the C
 // entry point returns the first launch error (cudaGetLastError).
@@ -220,79 +267,67 @@ namespace {
 
 using namespace conv3x3;
 
-constexpr int kTcStages = 2;         // depth of the f32 instance's cp.async ring
 constexpr int kReduceChannels = 32;  // channels per block of the second pass
 constexpr int kReduceRows = 32;      // row phases per block of the second pass
 
-// wp[f][ch][tap][cl] = wt[f][ch * CC + cl][tap], 0 past C: the A operand's
-// K order, (c / CC, kh, kw, c % CC), for chunks of CC input channels.
-template <typename T, int CC>
-__global__ void __launch_bounds__(256)
-    permute_weights_kernel(const T* __restrict__ wt, T* __restrict__ wp, int C, int F,
-                           int chunks) {
-  constexpr int kK = CC * 9;
-  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  const long long per_f = static_cast<long long>(chunks) * kK;
-  if (i >= per_f * F) return;
-  const int f = static_cast<int>(i / per_f);
-  const int rem = static_cast<int>(i - f * per_f);
-  const int ch = rem / kK;
-  const int k = rem - ch * kK;
-  const int tap = k / CC;
-  const int c = ch * CC + k - tap * CC;
-  wp[i] = c < C ? wt[(static_cast<size_t>(f) * C + c) * 9 + tap] : static_cast<T>(0);
+// ---------------------------------------------------------------------------
+// Pieces of both instances
+// ---------------------------------------------------------------------------
+
+// The weight slice of one (f tile, chunk) as B of the wgmmas: NT f x the
+// chunk's channels at each of the 9 taps, K-major without swizzle, as core
+// matrices of 8 f x 16 bytes (E = 16 / sizeof(T) channels: 8 bf16, 4 f32;
+// 128 contiguous bytes), [tap][c / E][f / 8][f % 8][c % E].  A chunk is 2E
+// channels, one wgmma's K (32 bytes), so a tap's B starts tap * NT * 32
+// bytes in; the leading byte offset (the second E channels) is NT * 16
+// bytes, the stride byte offset (the next 8 f) 128.
+template <typename T>
+__host__ __device__ constexpr int slice_offset(int tap, int f, int c, int nt) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  return ((tap * 2 + c / E) * (nt / 8) + f / 8) * (8 * E) + (f % 8) * E + c % E;
 }
 
-template <typename T, int CC>
-int permute_weights(const void* wt, T* wp, int C, int F, cudaStream_t stream) {
-  const int chunks = (C + CC - 1) / CC;
-  const long long elems = static_cast<long long>(F) * chunks * CC * 9;
-  permute_weights_kernel<T, CC><<<static_cast<unsigned>((elems + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(wt), wp, C, F, chunks);
-  return static_cast<int>(cudaGetLastError());
+// Channels of a K chunk: one wgmma's 32 bytes of K at each tap.
+template <typename T>
+__host__ __device__ constexpr int chunk_channels() {
+  return 32 / static_cast<int>(sizeof(T));
 }
+
+// Output channels a block of each instance: 64 where F <= 64 (one tile is
+// all of F), else 128.
+inline int f_tile(int F) { return F <= 64 ? 64 : 128; }
+
+// The type of a store of BYTES bytes.
+template <int BYTES>
+struct VecOf;
+template <>
+struct VecOf<16> {
+  using type = uint4;
+};
+template <>
+struct VecOf<8> {
+  using type = uint2;
+};
+template <>
+struct VecOf<4> {
+  using type = unsigned;
+};
+template <>
+struct VecOf<2> {
+  using type = uint16_t;
+};
 
 // ---------------------------------------------------------------------------
 // bf16 instance: warpgroup MMA (wgmma)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcC = 16;             // input channels per K chunk: one wgmma's K at each tap
+constexpr int kTcC = chunk_channels<uint16_t>();  // input channels per K chunk: 16
 constexpr int kTcK = kTcC * 9;       // K values per chunk
 constexpr int kXBox = 80;            // pixels of an x window: 66 read past a start rounded down to 8
 constexpr int kRawElems = 3 * kTcC * kXBox;  // x as the copy lands it, [kh][c][pixel]
 constexpr int kTPitch = kTcC + 8;    // transposed rows [kh][pixel][c], 48 bytes: ldmatrix conflict-free
 constexpr int kTElems = 3 * kXBox * kTPitch;
 constexpr int kYPitch = kStep + 8;   // the staged output tile's rows [f][pixel], 144 bytes
-
-// The weight slice of one (f tile, chunk) as B of the wgmmas: NT f x 16
-// channels at each of the 9 taps, K-major without swizzle, as core matrices
-// of 8 f x 8 channels (128 contiguous bytes), [tap][c / 8][f / 8][f % 8][c % 8].
-// A tap's B starts tap * NT * 32 bytes in; the leading byte offset (the
-// second 8 channels) is NT * 16 bytes, the stride byte offset (the next 8 f)
-// 128.
-__host__ __device__ constexpr int b_offset(int tap, int f, int c, int nt) {
-  return ((tap * 2 + c / 8) * (nt / 8) + f / 8) * 64 + (f % 8) * 8 + c % 8;
-}
-
-// The type of a store of V bf16 elements.
-template <int V>
-struct VecOf;
-template <>
-struct VecOf<8> {
-  using type = uint4;
-};
-template <>
-struct VecOf<4> {
-  using type = uint2;
-};
-template <>
-struct VecOf<2> {
-  using type = unsigned;
-};
-template <>
-struct VecOf<1> {
-  using type = uint16_t;
-};
 
 // m64nNk16, bf16 in, f32 sums: d += a (64 x 16, registers) * b (16 x N,
 // K-major, descriptor).
@@ -402,6 +437,102 @@ __device__ __forceinline__ void reduce_over_g(float (&v)[M], int lane) {
   reduce_level<M / 8, 4>(v, lane);
 }
 
+// The value that y stores, rounded to T, into `out`; returns it as f32
+// (the statistics are those of the stored y).
+__device__ __forceinline__ float store_value(float v, float& out) {
+  out = v;
+  return v;
+}
+
+__device__ __forceinline__ float store_value(float v, uint16_t& out) {
+  const __nv_bfloat16 b = __float2bfloat16(v);
+  out = __bfloat16_as_ushort(b);
+  return __bfloat162float(b);
+}
+
+// The epilogue's first half, for a warpgroup's m64nNk accumulators (pixel
+// rows, f columns): y rounded to T into the staged tile [f][pixel] of rows
+// PITCH elements apart, and the per-column sums of the rounded values and
+// their squares: a thread's two rows (16 wq + g and + 8; ok0 and ok1 say
+// whether they are pixels of the plane), the 8 lanes of a column
+// (reduce_over_g), into sums[wq][s, ss][NT] for write_partials to add the 4
+// warps in order.
+template <typename T, int NT, int PITCH>
+__device__ __forceinline__ void stage_tile(const float (&acc)[NT / 2], T* tile_y, float* sums,
+                                           int wq, int lane, bool ok0, bool ok1) {
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int r0 = wq * 16 + g;
+  float s[NT / 4], ss[NT / 4];
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int fl = 8 * j + 2 * tig + e;
+      const float y0 = store_value(acc[4 * j + e], tile_y[fl * PITCH + r0]);
+      const float y1 = store_value(acc[4 * j + 2 + e], tile_y[fl * PITCH + r0 + 8]);
+      const float v0 = ok0 ? y0 : 0.f;
+      const float v1 = ok1 ? y1 : 0.f;
+      s[2 * j + e] = v0 + v1;
+      ss[2 * j + e] = fmaf(v1, v1, v0 * v0);
+    }
+  reduce_over_g(s, lane);
+  reduce_over_g(ss, lane);
+  constexpr int M = NT / 4;
+  const int base = (g >> 2) * (M / 2) + ((g >> 1) & 1) * (M / 4) + (g & 1) * (M / 8);
+#pragma unroll
+  for (int k = 0; k < M / 8; ++k) {
+    const int m = base + k;
+    const int fl = 8 * (m >> 1) + 2 * tig + (m & 1);
+    sums[(wq * 2 + 0) * NT + fl] = s[k];
+    sums[(wq * 2 + 1) * NT + fl] = ss[k];
+  }
+}
+
+// Step t's row of the partial sums: each column's 4 warp sums in order.
+template <int NT>
+__device__ __forceinline__ void write_partials(const float* sums, float* part_s, float* part_ss,
+                                               int t, int F, int f0, int wtid) {
+  for (int fl = wtid; fl < NT; fl += 128) {
+    if (f0 + fl >= F) break;
+    const size_t at = static_cast<size_t>(t) * F + f0 + fl;
+    part_s[at] = ((sums[0 * NT + fl] + sums[2 * NT + fl]) + sums[4 * NT + fl]) + sums[6 * NT + fl];
+    part_ss[at] =
+        ((sums[1 * NT + fl] + sums[3 * NT + fl]) + sums[5 * NT + fl]) + sums[7 * NT + fl];
+  }
+}
+
+// y from the staged tile: each f's 64 pixels are contiguous, written V
+// elements a store, the widest of 16, 8, 4 (or 2) bytes that the plane
+// (H*W % V == 0) and the pointer allow, neighbouring lanes on neighbouring
+// pixels.
+template <typename T, int NT, int PITCH>
+__device__ __forceinline__ void store_rows(const T* tile_y, T* y, int n, int F, int f0, int HW,
+                                           int p0, int wtid) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  auto rows = [&](auto width) {
+    constexpr int V = decltype(width)::value;
+    using Vec = typename VecOf<V * static_cast<int>(sizeof(T))>::type;
+    constexpr int per_row = kStep / V;
+    for (int i = wtid; i < NT * per_row; i += 128) {
+      const int fl = i / per_row;
+      const int q = (i - fl * per_row) * V;
+      if (f0 + fl >= F || p0 + q >= HW) continue;
+      *reinterpret_cast<Vec*>(y + (static_cast<size_t>(n) * F + f0 + fl) * HW + p0 + q) =
+          *reinterpret_cast<const Vec*>(tile_y + fl * PITCH + q);
+    }
+  };
+  const auto y_at = reinterpret_cast<uintptr_t>(y);
+  if (HW % E == 0 && y_at % 16 == 0)
+    rows(std::integral_constant<int, E>{});
+  else if (HW % (E / 2) == 0 && y_at % 8 == 0)
+    rows(std::integral_constant<int, E / 2>{});
+  else if (HW % (E / 4) == 0 && y_at % 4 == 0)
+    rows(std::integral_constant<int, E / 4>{});
+  else
+    rows(std::integral_constant<int, 1>{});
+}
+
 // Block (f tile, step group) of a 1-D grid: f tile = blockIdx.x % ceil(F /
 // NT), warpgroup wg owns step t = (blockIdx.x / ceil(F / NT)) * kWgs + wg of
 // the B * ceil(H*W / 64) steps, so the blocks of one step are neighbours and
@@ -424,7 +555,6 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
   const int wq = warp & 3;     // pixel rows 16 wq .. of its step
   const int wtid = tid & 127;  // thread within the warpgroup
   const int g = lane >> 2;
-  const int tig = lane & 3;
   const int HW = H * W;
   const int per_image = (HW + kStep - 1) / kStep;
   const int f_tiles = (F + NT - 1) / NT;
@@ -578,82 +708,21 @@ __global__ void __launch_bounds__(128 * kWgs, 2)
   __syncthreads();  // every warp is done with the ring and the transposed windows
   CLOCK_MARK(2)
 
-  // Epilogue: y rounded to bf16 into the staged tile [f][pixel]; per-column
-  // sums of the rounded values and their squares: the thread's two rows,
-  // then the 8 lanes of a column (reduce_over_g), then the 4 warps in order.
+  // Epilogue: y rounded to bf16 into the staged tile; the per-column sums
+  // into the transposed windows' space; step t's partials, then y
   uint16_t* tile_y = reinterpret_cast<uint16_t*>(smem) + wg * NT * kYPitch;
   float* sums = reinterpret_cast<float*>(smem + L::kXtOff) + wg * 4 * 2 * NT;  // [wq][s, ss][NT]
-  const int r0 = wq * 16 + g;
-  const bool ok0 = active && p0 + r0 < HW, ok1 = active && p0 + r0 + 8 < HW;
-  float s[NT / 4], ss[NT / 4];
-#pragma unroll
-  for (int j = 0; j < NT / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int fl = 8 * j + 2 * tig + e;
-      const __nv_bfloat16 b0 = __float2bfloat16(acc[4 * j + e]);
-      const __nv_bfloat16 b1 = __float2bfloat16(acc[4 * j + 2 + e]);
-      tile_y[fl * kYPitch + r0] = __bfloat16_as_ushort(b0);
-      tile_y[fl * kYPitch + r0 + 8] = __bfloat16_as_ushort(b1);
-      const float v0 = ok0 ? __bfloat162float(b0) : 0.f;
-      const float v1 = ok1 ? __bfloat162float(b1) : 0.f;
-      s[2 * j + e] = v0 + v1;
-      ss[2 * j + e] = fmaf(v1, v1, v0 * v0);
-    }
-  reduce_over_g(s, lane);
-  reduce_over_g(ss, lane);
-  {
-    constexpr int M = NT / 4;
-    const int base = (g >> 2) * (M / 2) + ((g >> 1) & 1) * (M / 4) + (g & 1) * (M / 8);
-#pragma unroll
-    for (int k = 0; k < M / 8; ++k) {
-      const int m = base + k;
-      const int fl = 8 * (m >> 1) + 2 * tig + (m & 1);
-      sums[(wq * 2 + 0) * NT + fl] = s[k];
-      sums[(wq * 2 + 1) * NT + fl] = ss[k];
-    }
-  }
+  stage_tile<uint16_t, NT, kYPitch>(acc, tile_y, sums, wq, lane,
+                                    active && p0 + wq * 16 + g < HW,
+                                    active && p0 + wq * 16 + g + 8 < HW);
   __syncthreads();
   CLOCK_MARK(9)
   if (!active) return;
-  for (int fl = wtid; fl < NT; fl += 128) {
-    if (f0 + fl >= F) break;
-    const size_t at = static_cast<size_t>(t) * F + f0 + fl;
-    part_s[at] = ((sums[0 * NT + fl] + sums[2 * NT + fl]) + sums[4 * NT + fl]) + sums[6 * NT + fl];
-    part_ss[at] =
-        ((sums[1 * NT + fl] + sums[3 * NT + fl]) + sums[5 * NT + fl]) + sums[7 * NT + fl];
-  }
-  // y: each f's 64 pixels are contiguous, written V elements a store, the
-  // widest that the plane (H*W % V == 0) and the pointer allow, neighbouring
-  // lanes on neighbouring pixels
-  auto store_y = [&](auto width) {
-    constexpr int V = decltype(width)::value;
-    using Vec = typename VecOf<V>::type;
-    constexpr int per_row = kStep / V;
-    for (int i = wtid; i < NT * per_row; i += 128) {
-      const int fl = i / per_row;
-      const int q = (i - fl * per_row) * V;
-      if (f0 + fl >= F || p0 + q >= HW) continue;
-      *reinterpret_cast<Vec*>(y + (static_cast<size_t>(n) * F + f0 + fl) * HW + p0 + q) =
-          *reinterpret_cast<const Vec*>(tile_y + fl * kYPitch + q);
-    }
-  };
-  const auto y_at = reinterpret_cast<uintptr_t>(y);
-  if (HW % 8 == 0 && y_at % 16 == 0)
-    store_y(std::integral_constant<int, 8>{});
-  else if (HW % 4 == 0 && y_at % 8 == 0)
-    store_y(std::integral_constant<int, 4>{});
-  else if (HW % 2 == 0 && y_at % 4 == 0)
-    store_y(std::integral_constant<int, 2>{});
-  else
-    store_y(std::integral_constant<int, 1>{});
+  write_partials<NT>(sums, part_s, part_ss, t, F, f0, wtid);
+  store_rows<uint16_t, NT, kYPitch>(tile_y, y, n, F, f0, HW, p0, wtid);
   CLOCK_MARK(10)
   CLOCKS_END
 }
-
-// Output channels a block of the bf16 instance: 64 where F <= 64 (one tile
-// is all of F), else 128.
-inline int bf16_tile(int F) { return F <= 64 ? 64 : 128; }
 
 // x (planes `pitch` elements apart, a multiple of 8, 16-byte aligned) as a
 // tensor of (H*W pixels, C, B) with boxes of 80 pixels x 16 channels: the
@@ -688,38 +757,64 @@ int launch_bf16(const void* x, const void* top, const void* bottom, const void* 
   CUtensorMap xmap;
   const int err = x_tensor_map(&xmap, x, B, C, H * W, pitch);
   if (err != 0) return err;
-  if (bf16_tile(F) == 64)
+  if (f_tile(F) == 64)
     return launch_bf16_tile<64>(xmap, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, stream);
   return launch_bf16_tile<128>(xmap, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, stream);
 }
 
-// wp[f tile][chunk][b_offset(tap, f % NT, c % 16, NT)] = wt[f][c][tap], 0
-// past F and C: the weight slices, each NT * 144 contiguous elements.  A
-// thread per element of wt padded to whole tiles and chunks, in wt's order.
+// The weight slices: wp[f tile][chunk][slice_offset<T>(tap, f % nt, c % CC,
+// nt)] = wt[f][c][tap], 0 past F and C, CC = chunk_channels<T>(), each
+// slice nt * 9 * CC contiguous elements.  f32 slices come in two parts, the
+// TF32 big parts, then the small ones (split_tf32), split here once a call
+// rather than in every block that stages them.  A thread per element of wt
+// padded to whole tiles and chunks, in wt's order.
+template <typename T>
+__host__ __device__ constexpr int weight_parts() {
+  return std::is_same<T, float>::value ? 2 : 1;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(256)
-    permute_weights_bf16_kernel(const uint16_t* __restrict__ wt, uint16_t* __restrict__ wp,
-                                int C, int F, int chunks, int nt) {
+    permute_weights_kernel(const T* __restrict__ wt, T* __restrict__ wp, int C, int F,
+                           int chunks, int nt) {
+  constexpr int CC = chunk_channels<T>();
   const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  const int per_f = chunks * kTcK;  // (c, tap) of one f, C padded to whole chunks
+  const int per_f = chunks * CC * 9;  // (c, tap) of one f, C padded to whole chunks
   if (i >= static_cast<long long>((F + nt - 1) / nt) * nt * per_f) return;
   const int f = static_cast<int>(i / per_f);
   const int rem = static_cast<int>(i - static_cast<long long>(f) * per_f);
   const int c = rem / 9;
   const int tap = rem - c * 9;
-  const size_t slice = static_cast<size_t>(f / nt) * chunks + c / kTcC;
-  wp[slice * nt * kTcK + b_offset(tap, f % nt, c % kTcC, nt)] =
-      f < F && c < C ? wt[(static_cast<size_t>(f) * C + c) * 9 + tap] : uint16_t(0);
+  const size_t slice = static_cast<size_t>(f / nt) * chunks + c / CC;
+  const T v = f < F && c < C ? wt[(static_cast<size_t>(f) * C + c) * 9 + tap] : T(0);
+  T* dst =
+      wp + slice * weight_parts<T>() * nt * CC * 9 + slice_offset<T>(tap, f % nt, c % CC, nt);
+  if constexpr (weight_parts<T>() == 2) {
+    unsigned big, small;
+    split_tf32(v, big, small);
+    dst[0] = __uint_as_float(big);
+    dst[nt * CC * 9] = __uint_as_float(small);
+  } else {
+    dst[0] = v;
+  }
 }
 
-long long bf16_weight_elems(int C, int F) {
-  const int nt = bf16_tile(F);
-  return static_cast<long long>((F + nt - 1) / nt) * nt * ((C + kTcC - 1) / kTcC) * kTcK;
+template <typename T>
+long long weight_elems(int C, int F) {
+  constexpr int CC = chunk_channels<T>();
+  const int nt = f_tile(F);
+  return static_cast<long long>((F + nt - 1) / nt) * nt * ((C + CC - 1) / CC) * CC * 9 *
+         weight_parts<T>();
 }
 
-int permute_weights_bf16(const void* wt, uint16_t* wp, int C, int F, cudaStream_t stream) {
-  const long long elems = bf16_weight_elems(C, F);
-  permute_weights_bf16_kernel<<<static_cast<unsigned>((elems + 255) / 256), 256, 0, stream>>>(
-      static_cast<const uint16_t*>(wt), wp, C, F, (C + kTcC - 1) / kTcC, bf16_tile(F));
+template <typename T>
+int permute_weights(const void* wt, T* wp, int C, int F, cudaStream_t stream) {
+  constexpr int CC = chunk_channels<T>();
+  const long long elems =
+      static_cast<long long>((F + f_tile(F) - 1) / f_tile(F)) * f_tile(F) * ((C + CC - 1) / CC) *
+      CC * 9;  // a thread per element of wt padded to whole tiles and chunks
+  permute_weights_kernel<T><<<static_cast<unsigned>((elems + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(wt), wp, C, F, (C + CC - 1) / CC, f_tile(F));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -739,7 +834,7 @@ __global__ void __launch_bounds__(128)
   for (int i = tid; i < 64 * kTcC; i += 128) as[(i / kTcC) * kTPitch + i % kTcC] = a[i];
   for (int i = tid; i < 9 * N * kTcC; i += 128) {
     const int c = i % kTcC, f = (i / kTcC) % N, k = i / (kTcC * N);
-    bs[b_offset(k, f, c, N)] = b[i];
+    bs[slice_offset<uint16_t>(k, f, c, N)] = b[i];
   }
   fence_proxy_async();
   __syncthreads();
@@ -761,330 +856,353 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// f32 instance (3xTF32)
+// f32 instance: TF32 warpgroup MMA (wgmma), 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kF32C = 8;                 // input channels per K chunk (x 9 taps)
-constexpr int kF32K = kF32C * 9;         // 72 K values per chunk, one k8 slice a tap
-constexpr int kF32WPitch = kF32K + 4;    // 304-byte rows: ldmatrix conflict-free
-constexpr int kF32XWin = window_len<4>();  // 72: the window of the widest copy
-constexpr int kF32RawPitch = kF32XWin;   // raw x rows [c * 3 + kh][pixel], 288 bytes
-constexpr int kF32TPitch = 2 * kF32C + 4;  // transposed rows [kh][pixel][big c, small c], 80 bytes
-constexpr int kF32RawElems = kF32C * 3 * kF32RawPitch;
-constexpr int kF32TElems = 3 * kF32XWin * kF32TPitch;
-static_assert(window_len<2>() <= kF32XWin, "x window exceeds its row");
+constexpr int kTfC = chunk_channels<float>();  // input channels per K chunk: 8
+constexpr int kTfK = kTfC * 9;                 // K values per chunk
+constexpr int kTfXBox = 72;        // pixels of an x window: 69 read past a start rounded down to 4
+constexpr int kTfWin = kTfC * kTfXBox;  // one kh window as the copy lands it, [c][pixel]
+constexpr int kTfYPitch = kStep + 4;    // the staged output tile's rows [f][pixel], 272 bytes
 
-// The block for FT output channels: FT / 32 x 2 warps (32 f x 32 pixels
-// each), and its shared memory.
-template <int FT>
-struct F32Block {
-  static constexpr int kThreads = FT * 2;
-  static constexpr int kWElems = FT * kF32WPitch;
-  static constexpr int kStageBytes = (kWElems + kF32RawElems) * 4;
-  static constexpr int kSmem = kTcStages * kStageBytes +
-                               (kF32TElems + kF32TPitch) * 4 +  // + a zero row
-                               2 * 2 * FT * 4;                  // the two pixel halves' sums
-  static_assert(kStageBytes % 16 == 0 && (kF32TElems * 4) % 16 == 0, "16-byte alignment");
+// kWgs warpgroups a block, each over one pipeline step (64 pixels of one
+// image), sharing the weight slices of NT output channels.  Shared memory:
+// a ring of 2 slots, each a weight slice's big and small TF32 parts (as the
+// permutation split them) and each warpgroup's three x windows; the 2
+// mbarriers of the slots.  After the last chunk the slots hold the staged
+// output tiles and the warps' column sums.
+template <int NT>
+struct TfConv {
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kWBytes = NT * kTfK * 4;  // one part of a weight slice
+  static constexpr int kXBytes = 3 * kTfWin * 4;
+  static constexpr int kSlotBytes = 2 * kWBytes + kWgs * kXBytes;
+  static constexpr int kBarOff = 2 * kSlotBytes;
+  static constexpr int kSmem = kBarOff + 2 * 8;
+  static constexpr int kSumsOff = kWgs * NT * kTfYPitch * 4;
+  static_assert(kWBytes % 128 == 0 && kXBytes % 128 == 0 && (kTfWin * 4) % 128 == 0,
+                "tensor copies land on 128 bytes");
+  static_assert(kSumsOff + kWgs * 4 * 2 * NT * 4 <= kBarOff, "the output tiles and sums must fit");
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
 };
 
-// Block (f tile, step t) of a 1-D grid: f tile = blockIdx.x % ceil(F / FT),
-// t = blockIdx.x / ceil(F / FT), so the blocks of one step are neighbours
-// and share its x windows in L2.  x planes lie `pitch` elements apart (H*W,
-// or more in a repacked copy).  Chunks of 8 input channels (one m16n8k8
-// slice a tap), FT output channels a block.
-template <int VEC, int FT>
-__global__ void __launch_bounds__(FT * 2, FT == 64 ? 3 : 2)
-    conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ top,
-                             const float* __restrict__ bottom, const float* __restrict__ wp,
-                             float* __restrict__ y, float* __restrict__ part_s,
-                             float* __restrict__ part_ss, int C, int H, int W, int F,
-                             int pitch) {
-  using Block = F32Block<FT>;
-  constexpr int kWarpsF = FT / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xt = reinterpret_cast<float*>(smem + kTcStages * Block::kStageBytes);
-  float* zero_row = xt + kF32TElems;
-  float* half_sums = zero_row + kF32TPitch;  // [2][2][FT]
+// Block (f tile, step group) of a 1-D grid as in the bf16 instance: f tile
+// = blockIdx.x % ceil(F / NT), warpgroup wg owns step t = (blockIdx.x /
+// ceil(F / NT)) * kWgs + wg.  xmap is x (or its repacked copy) as a tensor
+// of (H*W pixels, C, B) in boxes of 72 pixels x 8 channels; wp holds the
+// weight slices, [f tile][chunk][big, small].
+template <int NT>
+__global__ void __launch_bounds__(128 * kWgs, NT == 64 ? 2 : 1)
+    conv3x3_stats_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const float* __restrict__ top, const float* __restrict__ bottom,
+                              const float* __restrict__ wp, float* __restrict__ y,
+                              float* __restrict__ part_s, float* __restrict__ part_ss, int C,
+                              int H, int W, int F, int steps) {
+  using L = TfConv<NT>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;    // this warp's warpgroup
+  const int wq = warp & 3;     // pixel rows 16 wq .. of its step
+  const int wtid = tid & 127;  // thread within the warpgroup
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int HW = H * W;
+  const int per_image = (HW + kStep - 1) / kStep;
+  const int f_tiles = (F + NT - 1) / NT;
+  const int tile = blockIdx.x % f_tiles;
+  const int f0 = tile * NT;
+  const int group = blockIdx.x / f_tiles;
+  const int t = group * kWgs + wg;
+  const bool active = t < steps;  // the last block's second warpgroup may have none
+  const int n = active ? t / per_image : 0;
+  const int p0 = active ? (t - n * per_image) * kStep : 0;
+  const int chunks = (C + kTfC - 1) / kTfC;
 
+  CLOCKS_BEGIN
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  const float* wslices = wp + static_cast<size_t>(tile) * chunks * (2 * NT * kTfK);
+  auto slot_w = [&](int s) { return reinterpret_cast<float*>(smem + s * L::kSlotBytes); };
+  auto slot_x = [&](int s, int w) {
+    return reinterpret_cast<float*>(smem + s * L::kSlotBytes + 2 * L::kWBytes + w * L::kXBytes);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The copies of chunk ch into slot ch % 2, all by thread 0, on the slot's
+  // barrier: the weight slice's two parts (one cp.async.bulk) and, for each
+  // warpgroup with a step, its three windows, channels ch * 8 .. + 7 at 72
+  // plane pixels from p0 + (kh - 1) W - 1 rounded down to a multiple of 4
+  // (a tensor copy's innermost coordinate must be a multiple of 16 bytes);
+  // pixels outside the plane and channels past C land as zeros.  (Copies
+  // issued by other warps stall those warps' warpgroups instead: slower,
+  // head comment.)
+  auto load = [&](int ch) {
+    const int s = ch & 1;
+    const int wgs = min(kWgs, steps - group * kWgs);  // warpgroups with a step
+    mbar_arrive_expect(&bars[s], 2 * L::kWBytes + wgs * L::kXBytes);
+    bulk_load(slot_w(s), wslices + static_cast<size_t>(ch) * (2 * NT * kTfK), 2 * L::kWBytes,
+              &bars[s]);
+    for (int w = 0; w < wgs; ++w) {
+      const int tw = group * kWgs + w;
+      const int nw = tw / per_image;
+      const int pw = (tw - nw * per_image) * kStep;
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh)
+        tma_load_3d(slot_x(s, w) + kh * kTfWin, &xmap, (pw + (kh - 1) * W - 1) & ~3, ch * kTfC,
+                    nw, &bars[s]);
+    }
+  };
+  int first[3];
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) first[kh] = (p0 + (kh - 1) * W - 1) & ~3;
+  // Halo rows: window elements of rows -1 and H come from top and bottom
+  // (the copy landed zeros there), element by element, where given.
+  auto patch_halo = [&](float* xs, int ch) {
+    const float* rows[2] = {top, bottom};
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int kh = side * 2;
+      const int lo = side == 0 ? -W : HW;  // the halo row's pixels lo .. lo + W - 1
+      if (rows[side] == nullptr || first[kh] + kTfXBox <= lo || first[kh] >= lo + W) continue;
+      for (int i = wtid; i < kTfWin; i += 128) {
+        const int cl = i / kTfXBox;
+        const int k = first[kh] + i - cl * kTfXBox - lo;  // column in the halo row
+        const int c = ch * kTfC + cl;
+        if (k >= 0 && k < W && c < C)
+          xs[kh * kTfWin + i] = rows[side][(static_cast<size_t>(n) * C + c) * W + k];
+      }
+    }
+  };
+
+  // This thread's A elements at tap (kh, kw): pixel rows r0 = 16 wq + g and
+  // r0 + 8 of the step, channels tig and tig + 4 (a0 (r0, tig), a1 (r0 + 8,
+  // tig), a2 (r0, tig + 4), a3 (r0 + 8, tig + 4)), window element r + kw +
+  // the window start's rounding, split into big and small TF32 parts; zero
+  // where the tap wraps across the image's left or right edge.  Rows of 72
+  // floats put the 32 lanes' loads on 32 banks (72 tig + g mod 32).
+  const int r0 = wq * 16 + g;
+  const int col0 = (p0 + r0) % W, col1 = (p0 + r0 + 8) % W;
+  const bool left0 = col0 >= 1, left1 = col1 >= 1;
+  const bool right0 = col0 <= W - 2, right1 = col1 <= W - 2;
+  int at_kh[3];
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh)
+    at_kh[kh] = kh * kTfWin + tig * kTfXBox + r0 + (p0 + (kh - 1) * W - 1 - first[kh]);
+  auto load_a = [&](const float* xs, int tap, unsigned (&big)[4], unsigned (&small)[4]) {
+    const int kh = tap / 3, kw = tap - kh * 3;
+    const float* q = xs + at_kh[kh] + kw;
+    const bool ok0 = kw == 1 || (kw == 0 ? left0 : right0);
+    const bool ok1 = kw == 1 || (kw == 0 ? left1 : right1);
+    split_tf32(ok0 ? q[0] : 0.f, big[0], small[0]);
+    split_tf32(ok1 ? q[8] : 0.f, big[1], small[1]);
+    split_tf32(ok0 ? q[4 * kTfXBox] : 0.f, big[2], small[2]);
+    split_tf32(ok1 ? q[4 * kTfXBox + 8] : 0.f, big[3], small[3]);
+  };
+
+  float acc[NT / 2];  // the running sums, pixels x f
+  float tmp[NT / 2];  // one chunk's products, summed in the tensor cores
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) acc[e] = tmp[e] = 0.f;
+
+  CLOCK_MARK(1)
+  if (tid == 0) load(0);
+  CLOCK_MARK(3)
+  for (int i = 0; i < chunks; ++i) {
+    const int s = i & 1;
+    mbar_wait(&bars[s], (i >> 1) & 1);
+    CLOCK_MARK(4)
+    if (active && (top != nullptr || bottom != nullptr)) patch_halo(slot_x(s, wg), i);
+    CLOCK_MARK(5)
+    // slot s has landed and its halo rows are patched; every warpgroup is
+    // done with chunk i - 1, so slot (i + 1) % 2 is free for the next copies
+    __syncthreads();
+    CLOCK_MARK(2)
+    if (tid == 0 && i + 1 < chunks) load(i + 1);
+    CLOCK_MARK(3)
+    if (!active) continue;
+    const float* xs = slot_x(s, wg);
+    // 9 taps, each three wgmma (small * big, big * small, big * big) in a
+    // commit group into tmp, from zero at the chunk's first; each tap's A
+    // fragments are loaded while the previous tap's products run, into the
+    // registers of the tap before it once its group is done
+    const uint64_t db = smem_desc(slot_w(s), NT * 16, 128);
+    const uint64_t ds = smem_desc(slot_w(s) + NT * kTfK, NT * 16, 128);
+    unsigned a[2][2][4];  // [tap % 2][big, small]
+    load_a(xs, 0, a[0][0], a[0][1]);
+    fence_operands(tmp);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int b = tap & 1;
+      const uint64_t at = static_cast<uint64_t>(tap * NT * 2);  // tap * NT * 32 bytes
+      wgmma_fence();
+      Tf32Wgmma<NT>::mma(tmp, a[b][1], db + at, tap != 0);
+      Tf32Wgmma<NT>::mma(tmp, a[b][0], ds + at, 1);
+      Tf32Wgmma<NT>::mma(tmp, a[b][0], db + at, 1);
+      wgmma_commit();
+      if (tap < 8) {
+        wgmma_wait<1>();
+        load_a(xs, tap + 1, a[b ^ 1][0], a[b ^ 1][1]);
+      }
+    }
+    CLOCK_MARK(7)
+    // the chunk's 72 products of each y, summed in the tensor cores, join
+    // the running sums with one rounded f32 add (head comment)
+    wgmma_wait<0>();
+    fence_operands(tmp);
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) acc[e] += tmp[e];
+    CLOCK_MARK(8)
+  }
+  __syncthreads();  // every warp is done with the ring
+  CLOCK_MARK(2)
+
+  // Epilogue: y into the staged tile; the per-column sums beside the tiles;
+  // step t's partials, then y
+  float* tile_y = reinterpret_cast<float*>(smem) + wg * NT * kTfYPitch;
+  float* sums = reinterpret_cast<float*>(smem + L::kSumsOff) + wg * 4 * 2 * NT;  // [wq][s, ss][NT]
+  stage_tile<float, NT, kTfYPitch>(acc, tile_y, sums, wq, lane, active && p0 + r0 < HW,
+                                   active && p0 + r0 + 8 < HW);
+  __syncthreads();
+  CLOCK_MARK(9)
+  if (!active) return;
+  write_partials<NT>(sums, part_s, part_ss, t, F, f0, wtid);
+  store_rows<float, NT, kTfYPitch>(tile_y, y, n, F, f0, HW, p0, wtid);
+  CLOCK_MARK(10)
+  CLOCKS_END
+}
+
+// x (planes `pitch` floats apart, a multiple of 4, 16-byte aligned) as a
+// tensor of (H*W pixels, C, B) with boxes of 72 pixels x 8 channels: the
+// pixels from H*W up to the pitch, like those before 0, lie outside it.
+int x_tensor_map_f32(CUtensorMap* map, const void* x, int B, int C, int HW, int pitch) {
+  return tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, HW, C, B,
+                       static_cast<long long>(pitch) * 4, static_cast<long long>(pitch) * C * 4,
+                       kTfXBox, kTfC, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <int NT>
+int launch_f32_tile(const CUtensorMap& xmap, const void* top, const void* bottom, const void* wp,
+                    void* y, void* part_s, void* part_ss, int B, int C, int H, int W, int F,
+                    cudaStream_t stream) {
+  using L = TfConv<NT>;
+  const auto kernel = conv3x3_stats_tf32_kernel<NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long steps = static_cast<long long>(B) * ((H * W + kStep - 1) / kStep);
+  const long long blocks = (steps + kWgs - 1) / kWgs * ((F + NT - 1) / NT);
+  kernel<<<static_cast<unsigned>(blocks), L::kThreads, L::kSmem, stream>>>(
+      xmap, static_cast<const float*>(top), static_cast<const float*>(bottom),
+      static_cast<const float*>(wp), static_cast<float*>(y), static_cast<float*>(part_s),
+      static_cast<float*>(part_ss), C, H, W, F, static_cast<int>(steps));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* x, const void* top, const void* bottom, const void* wp, void* y,
+               void* part_s, void* part_ss, int B, int C, int H, int W, int F, int pitch,
+               cudaStream_t stream) {
+  CUtensorMap xmap;
+  const int err = x_tensor_map_f32(&xmap, x, B, C, H * W, pitch);
+  if (err != 0) return err;
+  if (f_tile(F) == 64)
+    return launch_f32_tile<64>(xmap, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, stream);
+  return launch_f32_tile<128>(xmap, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, stream);
+}
+
+// The TF32 wgmma chain as the f32 kernel issues it: d (64 x N, f32) = a (64
+// x K) times b (N x K)^T, K = 72 chunks in the kernel's order (chunk, tap,
+// 8 channels), both f32 row-major.  A chunk's b goes into the weight
+// slice's layout (slice_offset), split into its big and small parts as the
+// permutation splits the weight; a's fragments are loaded and split in
+// registers, as the kernel loads x's windows; each tap is three wgmma
+// against the descriptors started at the tap's offset.  The products of
+// `flush` consecutive chunks are summed in the tensor cores from zero and
+// added to the running sums with an f32 add, or with flush 0 every product
+// is summed in the tensor cores.
+template <int N>
+__global__ void __launch_bounds__(128)
+    conv_tf32_selftest_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                              float* __restrict__ d, int chunks, int flush) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* big = reinterpret_cast<float*>(smem);
+  float* small = big + N * kTfK;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  const int wf = warp % kWarpsF;   // this warp's 32 f: wf * 32 ..
-  const int wpx = warp / kWarpsF;  // this warp's 32 pixels: wpx * 32 ..
-  const int HW = H * W;
-  const int per_image = (HW + kStep - 1) / kStep;
-  const int f_tiles = (F + FT - 1) / FT;
-  const int f0 = (blockIdx.x % f_tiles) * FT;
-  const int t = blockIdx.x / f_tiles;
-  const int n = t / per_image;
-  const int p0 = (t - n * per_image) * kStep;
-  const int chunks = (C + kF32C - 1) / kF32C;
-
-  auto stage_w = [&](int slot) {
-    return reinterpret_cast<float*>(smem + slot * Block::kStageBytes);
-  };
-
-  // Stages chunk ch (channels ch * 8 .. + 7, all taps) into ring slot `slot`.
-  auto load_chunk = [&](int ch, int slot) {
-    float* ws = stage_w(slot);
-    float* raw = ws + Block::kWElems;
-    constexpr int w_row_chunks = kF32K / 4;
-    for (int i = tid; i < FT * w_row_chunks; i += Block::kThreads) {
-      const int r = i / w_row_chunks;
-      const int q = (i - r * w_row_chunks) * 4;
-      const int f = f0 + r;
-      const bool ok = f < F;
-      const float* src = ok ? wp + (static_cast<size_t>(f) * chunks + ch) * kF32K + q : wp;
-      copy_chunk<16>(ws + r * kF32WPitch + q, src, ok);
+  const int K = chunks * kTfK;
+  float acc[N / 2], tmp[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = tmp[e] = 0.f;
+  int in_window = 0;
+  for (int ch = 0; ch < chunks; ++ch) {
+    for (int i = tid; i < N * kTfK; i += 128) {
+      const int c = i % kTfC, f = (i / kTfC) % N, tap = i / (kTfC * N);
+      unsigned vb, vs;
+      split_tf32(b[static_cast<size_t>(f) * K + ch * kTfK + tap * kTfC + c], vb, vs);
+      big[slice_offset<float>(tap, f, c, N)] = __uint_as_float(vb);
+      small[slice_offset<float>(tap, f, c, N)] = __uint_as_float(vs);
     }
-    constexpr int x_row_chunks = window_len<VEC>() / VEC;
-    for (int i = tid; i < kF32C * 3 * x_row_chunks; i += Block::kThreads) {
-      const int row = i / x_row_chunks;  // cl * 3 + kh
-      const int q = (i - row * x_row_chunks) * VEC;
-      const int cl = row / 3;
-      const int kh = row - cl * 3;
-      const int c = ch * kF32C + cl;
-      const int pix = ((p0 + (kh - 1) * W - 1) & ~(VEC - 1)) + q;
-      const bool ok = c < C;
-      const size_t plane = static_cast<size_t>(n) * C + c;
-      stage_x_chunk<VEC>(raw + row * kF32RawPitch + q, ok ? x + plane * pitch : x,
-                         top ? top + plane * W : nullptr, bottom ? bottom + plane * W : nullptr,
-                         pix, HW, W, ok);
-    }
-  };
-
-  // raw[cl * 3 + kh][q] -> xt[kh][q][cl] (TF32 big) and xt[kh][q][8 + cl]
-  // (small), split once a chunk: a unit is 4 channels at 2 pixels, 4 64-bit
-  // loads and 4 16-byte stores.
-  auto transpose = [&](const float* raw) {
-    constexpr int pairs = kF32XWin / 2;
-    for (int u = tid; u < 3 * 2 * pairs; u += Block::kThreads) {
-      const int qp = u % pairs;
-      const int rest = u / pairs;
-      const int kh = rest % 3;
-      const int half = rest / 3;  // channels half * 4 ..
-      float2 v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = *reinterpret_cast<const float2*>(raw + ((half * 4 + j) * 3 + kh) * kF32RawPitch +
-                                                qp * 2);
-      uint4 big[2], small[2];  // pixel 2 qp, pixel 2 qp + 1
-      split_tf32(v[0].x, big[0].x, small[0].x);
-      split_tf32(v[1].x, big[0].y, small[0].y);
-      split_tf32(v[2].x, big[0].z, small[0].z);
-      split_tf32(v[3].x, big[0].w, small[0].w);
-      split_tf32(v[0].y, big[1].x, small[1].x);
-      split_tf32(v[1].y, big[1].y, small[1].y);
-      split_tf32(v[2].y, big[1].z, small[1].z);
-      split_tf32(v[3].y, big[1].w, small[1].w);
-      float* dst = xt + (kh * kF32XWin + qp * 2) * kF32TPitch + half * 4;
-#pragma unroll
-      for (int px = 0; px < 2; ++px) {
-        *reinterpret_cast<uint4*>(dst + px * kF32TPitch) = big[px];
-        *reinterpret_cast<uint4*>(dst + px * kF32TPitch + kF32C) = small[px];
-      }
-    }
-  };
-
-  // This lane's ldmatrix rows of B: pixel op[np] of the warp's n8 tiles
-  // 2 np, 2 np + 1 (row lane & 7 of matrix lane >> 3), channels c_off ..
-  // + 3 of the big parts, and 8 floats on of the small ones: an 8 x 8 b16
-  // matrix is 8 pixels x 4 f32 channels, so matrices 0 and 1 are b0 and b1
-  // of tile 2 np, 2 and 3 those of tile 2 np + 1.  And whether the pixel
-  // has a left and a right neighbour in its row.
-  const int mat = lane >> 3;
-  const int c_off = (mat & 1) * 4;
-  int op[2];
-  bool has_left[2], has_right[2];
-#pragma unroll
-  for (int np = 0; np < 2; ++np) {
-    op[np] = wpx * 32 + np * 16 + (mat >> 1) * 8 + (lane & 7);
-    const int w = (p0 + op[np]) % W;
-    has_left[np] = w >= 1;
-    has_right[np] = w <= W - 2;
-  }
-  int shift[3];
-#pragma unroll
-  for (int kh = 0; kh < 3; ++kh) shift[kh] = (p0 + (kh - 1) * W - 1) & (VEC - 1);
-
-  if (tid < kF32TPitch / 4)
-    reinterpret_cast<float4*>(zero_row)[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-  constexpr float zero[4] = {0.f, 0.f, 0.f, 0.f};
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kTcStages - 1; ++s) {
-    if (s < chunks) load_chunk(s, s);
-    cp_async_commit();
-  }
-
-  for (int i = 0; i < chunks; ++i) {
-    cp_async_wait<kTcStages - 2>();
-    __syncthreads();  // chunk i has landed; xt and slot (i - 1) % kTcStages are free
-    {
-      const int next = i + kTcStages - 1;
-      if (next < chunks) load_chunk(next, next % kTcStages);
-      cp_async_commit();
-    }
-    const float* ws = stage_w(i % kTcStages);
-    transpose(ws + Block::kWElems);
+    fence_proxy_async();
     __syncthreads();
-
-    // The three products of the 3 taps of one kh (24 channel-taps) sum in
-    // the tensor cores from zero; the running sums take them with one
-    // rounded f32 add.  The loop stays rolled in the 64 f block: unrolled,
-    // it spilled and ran slower; the 128 f block, held to 128 registers
-    // either way, runs faster unrolled (both timed in temporary variants).
-#pragma unroll(FT == 64 ? 1 : 3)
-    for (int kh = 0; kh < 3; ++kh) {
-      float d[2][4][4];
+    const uint64_t db = smem_desc(big, N * 16, 128), ds = smem_desc(small, N * 16, 128);
+    for (int tap = 0; tap < 9; ++tap) {
+      unsigned ab[4], as[4];
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const int tap = kh * 3 + kw;
-        unsigned a_big[2][4], a_small[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          unsigned raw[4];
-          ldmatrix_x4(raw, ws + (wf * 32 + mt * 16 + (lane & 15)) * kF32WPitch + tap * kF32C +
-                               (lane >> 4) * 4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(raw[e]), a_big[mt][e], a_small[mt][e]);
-        }
-        unsigned b_big[2][4], b_small[2][4];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const bool ok = kw == 1 || (kw == 0 ? has_left[np] : has_right[np]);
-          const float* rowp =
-              ok ? xt + (kh * kF32XWin + op[np] + kw + shift[kh]) * kF32TPitch + c_off
-                 : zero_row + c_off;
-          ldmatrix_x4(b_big[np], rowp);
-          ldmatrix_x4(b_small[np], rowp + kF32C);
-        }
-        // in rounds of 8 independent mma: small * big, big * small, big * big
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            if (kw == 0)
-              mma_tf32(d[mt][nt], a_small[mt], b_big[nt >> 1][(nt & 1) * 2],
-                       b_big[nt >> 1][(nt & 1) * 2 + 1], zero);
-            else
-              mma_tf32(d[mt][nt], a_small[mt], b_big[nt >> 1][(nt & 1) * 2],
-                       b_big[nt >> 1][(nt & 1) * 2 + 1], d[mt][nt]);
-          }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_tf32(d[mt][nt], a_big[mt], b_small[nt >> 1][(nt & 1) * 2],
-                     b_small[nt >> 1][(nt & 1) * 2 + 1], d[mt][nt]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_tf32(d[mt][nt], a_big[mt], b_big[nt >> 1][(nt & 1) * 2],
-                     b_big[nt >> 1][(nt & 1) * 2 + 1], d[mt][nt]);
+      for (int e = 0; e < 4; ++e) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const int row = 16 * warp + g + 8 * (e & 1), col = tig + 4 * (e >> 1);
+        split_tf32(a[static_cast<size_t>(row) * K + ch * kTfK + tap * kTfC + col], ab[e], as[e]);
       }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += d[mt][nt][e];
+      const uint64_t at = static_cast<uint64_t>(tap * N * 2);  // tap * N * 32 bytes
+      auto products = [&](float(&dst)[N / 2], int scale_d) {
+        fence_operands(dst);
+        wgmma_fence();
+        Tf32Wgmma<N>::mma(dst, as, db + at, scale_d);
+        Tf32Wgmma<N>::mma(dst, ab, ds + at, 1);
+        Tf32Wgmma<N>::mma(dst, ab, db + at, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dst);
+      };
+      if (flush == 0)
+        products(acc, 1);
+      else
+        products(tmp, tap != 0 || in_window != 0);
     }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: y as f32; per-channel sums of the stored values.
-  const bool pairs_aligned = (HW % 2 == 0) && (reinterpret_cast<uintptr_t>(y) % 8 == 0);
+    if (flush != 0 && ++in_window == flush) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int fl = wf * 32 + mt * 16 + g + r * 8;  // f - f0
-      const int f = f0 + fl;
-      float s = 0.f, ss = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int p = p0 + wpx * 32 + nt * 8 + tig * 2;
-        const float v0 = acc[mt][nt][r * 2], v1 = acc[mt][nt][r * 2 + 1];
-        const bool ok0 = f < F && p < HW, ok1 = f < F && p + 1 < HW;
-        if (ok0) {
-          float* dst = y + (static_cast<size_t>(n) * F + f) * HW + p;
-          if (ok1 && pairs_aligned) {
-            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-          } else {
-            dst[0] = v0;
-            if (ok1) dst[1] = v1;
-          }
-          s += v0;
-          ss = fmaf(v0, v0, ss);
-        }
-        if (ok1) {
-          s += v1;
-          ss = fmaf(v1, v1, ss);
-        }
-      }
-      // the 4 lanes of a row (tig) hold its pixels
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      }
-      if (tig == 0) {
-        half_sums[(wpx * 2 + 0) * FT + fl] = s;
-        half_sums[(wpx * 2 + 1) * FT + fl] = ss;
-      }
+      for (int e = 0; e < N / 2; ++e) acc[e] += tmp[e];
+      in_window = 0;
     }
-  __syncthreads();
-  if (tid < FT && f0 + tid < F) {
-    const size_t at = static_cast<size_t>(t) * F + f0 + tid;
-    part_s[at] = half_sums[0 * FT + tid] + half_sums[2 * FT + tid];
-    part_ss[at] = half_sums[1 * FT + tid] + half_sums[3 * FT + tid];
+    __syncthreads();  // every warp is done with the slice before the next is written
   }
+  if (flush != 0 && in_window != 0) {
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] += tmp[e];
+  }
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e)
+    d[(16 * warp + g + ((e >> 1) & 1) * 8) * N + (e >> 2) * 8 + 2 * tig + (e & 1)] = acc[e];
 }
 
-template <int VEC, int FT>
-int launch_f32_block(const void* x, const void* top, const void* bottom, const float* wp, void* y,
-                     void* part_s, void* part_ss, int B, int C, int H, int W, int F, int pitch,
-                     cudaStream_t stream) {
-  using Block = F32Block<FT>;
-  const auto kernel = conv3x3_stats_f32_kernel<VEC, FT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Block::kSmem);
+template <int N>
+int conv_tf32_selftest(const float* a, const float* b, float* d, int chunks, int flush,
+                       cudaStream_t stream) {
+  const int smem = 2 * N * kTfK * 4;
+  const auto kernel = conv_tf32_selftest_kernel<N>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long steps = static_cast<long long>(B) * ((H * W + kStep - 1) / kStep);
-  const long long blocks = steps * ((F + FT - 1) / FT);
-  kernel<<<static_cast<unsigned>(blocks), Block::kThreads, Block::kSmem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(top),
-      static_cast<const float*>(bottom), wp, static_cast<float*>(y), static_cast<float*>(part_s),
-      static_cast<float*>(part_ss), C, H, W, F, pitch);
+  kernel<<<1, 128, smem, stream>>>(a, b, d, chunks, flush);
   return static_cast<int>(cudaGetLastError());
-}
-
-// A block of the f32 instance owns 128 output channels where F >= 128
-// (faster than 64 at the ResNet-50 stages 2-4, see the header: half the x
-// windows staged and transposed per output, 16 warps an SM against 12),
-// else 64.
-template <int VEC>
-int launch_f32(const void* x, const void* top, const void* bottom, const float* wp, void* y,
-               void* part_s, void* part_ss, int B, int C, int H, int W, int F, int pitch,
-               cudaStream_t stream) {
-  if (F >= 128)
-    return launch_f32_block<VEC, 128>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F,
-                                      pitch, stream);
-  return launch_f32_block<VEC, 64>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F,
-                                   pitch, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1135,20 +1253,16 @@ int reduce_partials(void* part_s, void* part_ss, void* s, void* ss, int rows, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// Elements of the permuted weight: bf16 the weight slices (F rounded up to
-// whole tiles of NT x ceil(C / 16) chunks x 144); f32 F x ceil(C / 8) chunks
-// x 72.
-long long permuted_weight_elems(int C, int F, bool bf16) {
-  if (bf16) return bf16_weight_elems(C, F);
-  return static_cast<long long>(F) * ((C + kF32C - 1) / kF32C) * kF32K;
-}
-
-// The copy width, in elements, that the instance takes for x: bf16 8 (the
-// tensor copies need 16-byte planes), f32 4 or 2 (16- or 8-byte cp.async);
-// 1 where none fits and x is repacked into padded planes.
+// The copy width, in elements, that the instance takes for x: 16 bytes, 8
+// bf16 or 4 f32 elements (the tensor copies need planes of whole 16 bytes),
+// or 1 where that does not fit and x is repacked into padded planes.
 int copy_width_of(const void* x, int HW, bool bf16) {
   if (bf16) return copy_width<2>(HW, x) == 8 ? 8 : 1;
-  return copy_width<4>(HW, x);
+  return copy_width<4>(HW, x) == 4 ? 4 : 1;
+}
+
+long long permuted_weight_elems(int C, int F, bool bf16) {
+  return bf16 ? weight_elems<uint16_t>(C, F) : weight_elems<float>(C, F);
 }
 
 }  // namespace
@@ -1174,8 +1288,8 @@ long long conv3x3_bn_stats_scratch(const void* x, int B, int C, int H, int W, in
 }
 
 // The copy width, in elements, that the instance of this dtype takes for x
-// (bf16 8, f32 4 or 2, or 1 for the repack), so that a caller can see which
-// path ran.
+// (bf16 8, f32 4, or 1 for the repack), so that a caller can see which path
+// ran.
 int conv3x3_bn_stats_copy_width(const void* x, int H, int W, int is_bf16) {
   return copy_width_of(x, H * W, is_bf16 != 0);
 }
@@ -1195,32 +1309,25 @@ int conv3x3_bn_stats(const void* x, const void* wt, const void* top, const void*
   const int HW = H * W;
   const long long w_elems = permuted_weight_elems(C, F, is_bf16 != 0);
   const int pitch = padded_pitch(HW);
-  int err;
-  if (is_bf16) {
-    uint16_t* wp = static_cast<uint16_t*>(scratch);
-    err = permute_weights_bf16(wt, wp, C, F, st);
+  const bool bf16 = is_bf16 != 0;
+  int err = bf16 ? permute_weights<uint16_t>(wt, static_cast<uint16_t*>(scratch), C, F, st)
+                 : permute_weights<float>(wt, static_cast<float*>(scratch), C, F, st);
+  if (err != 0) return err;
+  // x itself where its planes suit the tensor copies, else repacked after
+  // the weight
+  const void* xs = x;
+  int xpitch = HW;
+  if (copy_width_of(x, HW, bf16) == 1) {
+    void* xp = static_cast<unsigned char*>(scratch) + w_elems * (bf16 ? 2 : 4);
+    const long long planes = static_cast<long long>(B) * C;
+    err = bf16 ? pad_planes<uint16_t>(x, xp, planes, HW, pitch, st)
+               : pad_planes<float>(x, xp, planes, HW, pitch, st);
     if (err != 0) return err;
-    if (copy_width_of(x, HW, true) == 8) {
-      err = launch_bf16(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st);
-    } else {
-      uint16_t* xp = wp + w_elems;
-      err = pad_planes<uint16_t>(x, xp, static_cast<long long>(B) * C, HW, pitch, st);
-      if (err == 0) err = launch_bf16(xp, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
-    }
-  } else {
-    float* wp = static_cast<float*>(scratch);
-    err = permute_weights<float, kF32C>(wt, wp, C, F, st);
-    if (err != 0) return err;
-    switch (copy_width_of(x, HW, false)) {
-      case 4: err = launch_f32<4>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
-      case 2: err = launch_f32<2>(x, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, HW, st); break;
-      default: {
-        float* xp = wp + w_elems;
-        err = pad_planes<float>(x, xp, static_cast<long long>(B) * C, HW, pitch, st);
-        if (err == 0) err = launch_f32<4>(xp, top, bottom, wp, y, part_s, part_ss, B, C, H, W, F, pitch, st);
-      }
-    }
+    xs = xp;
+    xpitch = pitch;
   }
+  err = bf16 ? launch_bf16(xs, top, bottom, scratch, y, part_s, part_ss, B, C, H, W, F, xpitch, st)
+             : launch_f32(xs, top, bottom, scratch, y, part_s, part_ss, B, C, H, W, F, xpitch, st);
   if (err != 0) return err;
   return reduce_partials(part_s, part_ss, s, ss, conv3x3_bn_stats_partial_rows(B, H, W), F, st);
 }
@@ -1229,7 +1336,8 @@ int conv3x3_bn_stats(const void* x, const void* wt, const void* top, const void*
 const char* conv3x3_bn_stats_instance(int is_bf16) {
   return is_bf16 ? "tensor cores: wgmma m64nNk16 bf16, 64 pixels x N f a warpgroup, N = 64 "
                    "where F <= 64, else 128, 2 warpgroups a block"
-                 : "tensor cores: mma.sync m16n8k8 3xTF32";
+                 : "tensor cores: wgmma m64nNk8 3xTF32, 64 pixels x N f a warpgroup, N = 64 "
+                   "where F <= 64, else 128, 2 warpgroups a block";
 }
 
 // The bf16 instance's wgmma on its own (conv_wgmma_selftest_kernel): d (64
@@ -1249,6 +1357,23 @@ int conv3x3_bn_stats_wgmma_selftest(const void* a, const void* b, void* d, int n
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 instance's TF32 wgmma chain on its own
+// (conv_tf32_selftest_kernel): d (64 x n, f32) = a (64 x K) times b (n x
+// K)^T, K = 72 chunks, a and b f32, row-major, contiguous; the products of
+// `flush` consecutive chunks summed in the tensor cores from zero, then
+// added in f32 (0: all of them in the tensor cores).  n is 64 or 128 (the
+// instance's tiles), chunks >= 1 and flush >= 0, else cudaErrorInvalidValue.
+int conv3x3_bn_stats_tf32_selftest(const void* a, const void* b, void* d, int n, int chunks,
+                                   int flush, void* stream) {
+  if (chunks < 1 || flush < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* pa = static_cast<const float*>(a);
+  const auto* pb = static_cast<const float*>(b);
+  if (n == 64) return conv_tf32_selftest<64>(pa, pb, static_cast<float*>(d), chunks, flush, st);
+  if (n == 128) return conv_tf32_selftest<128>(pa, pb, static_cast<float*>(d), chunks, flush, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

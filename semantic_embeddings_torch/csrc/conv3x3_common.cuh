@@ -1,8 +1,8 @@
 // Pieces shared by the 3x3 conv kernels (conv3x3_bn_stats.cu,
 // conv3x3_filter_grad.cu): the pipeline step, the x window, cp.async and
-// the warp-level tensor-core instructions, the split of f32 operands for
-// 3xTF32, the warpgroup MMA's fences, waits and matrix descriptors, the
-// mbarriers and TMA copies (bulk and tensor) with the tensor map's
+// ldmatrix, the split of f32 operands for 3xTF32, the warpgroup MMA's
+// fences, waits, TF32 products and matrix descriptors, the mbarriers and TMA
+// copies (bulk and tensor) with the tensor map's
 // encoding, the choice of copy width, the repack into padded planes for
 // operands no copy width fits, the occupancy query the split rules read,
 // and the clock probes that conv_clocks.py compiles in (CONV3X3_CLOCKS).
@@ -163,16 +163,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
                : "memory");
 }
 
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // 3xTF32: the tensor cores take f32 only as TF32 (10 mantissa bits), so an
 // f32-exact product of a and b costs three TF32 products,
 // a_small*b_big + a_big*b_small + a_big*b_big (a_small*b_small, 2^-22 of
@@ -193,26 +183,15 @@ __device__ __forceinline__ void split_tf32(float v, unsigned& big, unsigned& sma
   small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
 }
 
-// d = a (16 x 8, row-major) * b (8 x 8, column-major) + c, TF32 in, f32
-// sums.  Not volatile: the compiler may interleave independent products.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1, const float (&c)[4]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// Hopper's warpgroup MMA (wgmma), shared by both bf16 kernels.  A
-// warpgroup is 4 consecutive warps (the first a multiple of 4).  m64nNk16
-// with A (64 x 16) in registers: warp w of the warpgroup holds rows 16w ..
-// 16w + 15 in mma.sync m16n8k16's A layout (a0: row g, columns 2t, 2t + 1;
-// a1: row g + 8; a2, a3: columns + 8), and B (16 x N) in shared memory
-// behind a matrix descriptor.  D (64 x N, f32) stays in registers: for each
-// n8 block j, d[4j .. 4j + 3] are m16n8's C fragment of warp w's rows (row
-// g: columns 8j + 2t, + 1; row g + 8: the same).
+// Hopper's warpgroup MMA (wgmma), shared by the four instances.  A
+// warpgroup is 4 consecutive warps (the first a multiple of 4).  bf16
+// m64nNk16 with A (64 x 16) in registers: warp w of the warpgroup holds rows
+// 16w .. 16w + 15 in mma.sync m16n8k16's A layout (a0: row g, columns 2t,
+// 2t + 1; a1: row g + 8; a2, a3: columns + 8), and B (16 x N) in shared
+// memory behind a matrix descriptor (TF32 m64nNk8: Tf32Wgmma below).  D (64
+// x N, f32) stays in registers: for each n8 block j, d[4j .. 4j + 3] are
+// m16n8's C fragment of warp w's rows (row g: columns 8j + 2t, + 1; row g +
+// 8: the same).
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -241,6 +220,58 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+
+// m64nNk8 with TF32 operands, f32 sums, shared by the f32 instances of both
+// kernels: d = (scale_d ? d : 0) + a (64 x 8, registers) * b (8 x N, K-major
+// behind a descriptor).  A's TF32 layout is mma.sync m16n8k8's: a0 (row g,
+// column t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), warp w of the
+// warpgroup rows 16 w on (the other order measured 0.6-4 of the sum of
+// |terms| away on an H100).  TF32 takes no transpose: both operands are
+// K-major.
+template <int N>
+struct Tf32Wgmma;
+
+template <>
+struct Tf32Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const unsigned (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Tf32Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const unsigned (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
 
 // The matrix descriptor of a B operand in shared memory without swizzle
 // (PTX ISA, "Matrix Descriptor Format"; CUTLASS's GmmaDescriptor): start

@@ -602,24 +602,6 @@ __global__ void __launch_bounds__(128)
 constexpr int kTfC = 64;          // input channels per block: the wgmma's M
 constexpr int kTfF = 64;          // output channels per block: the wgmma's N
 
-// m64n64k8, TF32 in, f32 sums: d = (scale_d ? d : 0) + a (64 x 8,
-// registers) * b (8 x 64, K-major behind a descriptor).  TF32 takes no
-// transpose: both operands are K-major.
-__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsigned (&a)[4],
-                                                    uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
 // The big and small TF32 parts of n floats at v (a multiple of 4, 16-byte
 // aligned), by `threads` threads: v keeps the big parts, small takes the
 // rest (split_tf32), element for element, so any layout (a swizzled one
@@ -706,9 +688,9 @@ __global__ void __launch_bounds__(128)
       auto products = [&](float(&dst)[N / 2], int scale_d) {
         fence_operands(dst);
         wgmma_fence();
-        wgmma_m64n64k8_tf32(dst, as, db, scale_d);
-        wgmma_m64n64k8_tf32(dst, ab, ds, 1);
-        wgmma_m64n64k8_tf32(dst, ab, db, 1);
+        Tf32Wgmma<kTfF>::mma(dst, as, db, scale_d);
+        Tf32Wgmma<kTfF>::mma(dst, ab, ds, 1);
+        Tf32Wgmma<kTfF>::mma(dst, ab, db, 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dst);
@@ -917,9 +899,9 @@ __global__ void __launch_bounds__(384, 1)
         const uint64_t at = static_cast<uint64_t>(((s >> 2) * L::kDyBox + (s & 3) * 32) >> 4);
         if (s == 0) fence_operands(tmp);
         wgmma_fence();
-        wgmma_m64n64k8_tf32(tmp, as, db + at, s != 0);
-        wgmma_m64n64k8_tf32(tmp, ab, ds + at, 1);
-        wgmma_m64n64k8_tf32(tmp, ab, db + at, 1);
+        Tf32Wgmma<kTfF>::mma(tmp, as, db + at, s != 0);
+        Tf32Wgmma<kTfF>::mma(tmp, ab, ds + at, 1);
+        Tf32Wgmma<kTfF>::mma(tmp, ab, db + at, 1);
         wgmma_commit();
         CLOCK_MARK(6)
         wgmma_wait<0>();

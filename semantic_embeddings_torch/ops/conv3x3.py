@@ -30,12 +30,11 @@ to XLA too) and dw with the second op.
 For CUDA tensors each op launches its kernel (``csrc/conv3x3_bn_stats.cu``,
 ``csrc/conv3x3_filter_grad.cu``, built by :mod:`.._build` at first use), or
 the wrapper raises.  Each has two instances, chosen by the dtype, and all
-four run on the tensor cores: bf16 products in bf16 on Hopper's warpgroup
-``wgmma``, f32 ones as 3xTF32 (three TF32 products for each f32-exact one),
-the filter gradient's on TF32 ``wgmma``, the conv's on ``mma.sync``.
+four run on Hopper's warpgroup ``wgmma``: bf16 products in bf16, f32 ones as
+3xTF32 (three TF32 products for each f32-exact one) on TF32 ``wgmma``.
 :func:`instance` names what a dtype runs; :func:`wgmma_selftest`,
-:func:`conv_wgmma_selftest` and :func:`tf32_selftest` run each ``wgmma``
-kernel's product on its own.  For CPU tensors the plain
+:func:`conv_wgmma_selftest`, :func:`tf32_selftest` and
+:func:`conv_tf32_selftest` run each kernel's ``wgmma`` product on its own.  For CPU tensors the plain
 versions run.  The dispatcher picks by the tensor's device, nothing else:
 there is no fallback from a kernel to its plain version.
 ``launches_conv_bn_stats`` / ``launches_filter_grad`` count kernel
@@ -87,6 +86,8 @@ def declare(fwd, wgrad):
     fwd.conv3x3_bn_stats.restype = i32
     fwd.conv3x3_bn_stats_wgmma_selftest.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
     fwd.conv3x3_bn_stats_wgmma_selftest.restype = i32
+    fwd.conv3x3_bn_stats_tf32_selftest.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    fwd.conv3x3_bn_stats_tf32_selftest.restype = i32
     wgrad.conv3x3_filter_grad_splits.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     wgrad.conv3x3_filter_grad_splits.restype = i32
     wgrad.conv3x3_filter_grad.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
@@ -211,8 +212,8 @@ def _launch_conv_bn_stats(x, w, top=None, bottom=None):
     part_s, part_ss = torch.empty((2, rows, f), dtype=torch.float32, device=x.device)
     s = torch.empty(f, dtype=torch.float32, device=x.device)
     ss = torch.empty(f, dtype=torch.float32, device=x.device)
-    # the weight permuted into the kernel's K order, and x repacked into
-    # padded planes where no cp.async width fits
+    # the weight permuted into the kernel's slices, and x repacked into
+    # padded planes where its planes do not suit the tensor copies
     nbytes = lib.conv3x3_bn_stats_scratch(x.data_ptr(), b, c, h, wd, f, bf16)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -273,9 +274,9 @@ def filter_grad_copy_width(x, dy):
 def conv_bn_stats_copy_width(x):
     """The copy width, in elements, that the conv + statistics kernel of x's
     dtype takes for the CUDA tensor x (H*W and the pointer must be multiples
-    of it): bf16 8 (its tensor copies need planes of whole 16 bytes), f32 4
-    or 2 (16- or 8-byte ``cp.async``), or 1 where none fits and the kernel
-    first repacks x into planes padded to a multiple of 8 elements."""
+    of it): 16 bytes, bf16 8 and f32 4 (its tensor copies need planes of
+    whole 16 bytes), or 1 where that does not fit and the kernel first
+    repacks x into planes padded to a multiple of 8 elements."""
     return _kernels()[0].conv3x3_bn_stats_copy_width(
         x.data_ptr(), x.shape[2], x.shape[3], int(x.dtype == torch.bfloat16))
 
@@ -388,8 +389,8 @@ def tf32_accumulation(generator, pixels=4096, depths=(1, 2, 4, 8, 0)):
             for depth in depths}
 
 
-#: the wgmma widths N (output channels a warpgroup) of the bf16 conv +
-#: statistics kernel: 64 where F <= 64, else 128
+#: the wgmma widths N (output channels a warpgroup) of both instances of the
+#: conv + statistics kernel: 64 where F <= 64, else 128
 CONV_WGMMA_N = (64, 128)
 
 
@@ -417,6 +418,88 @@ def conv_wgmma_selftest(a, b, tap):
     _raise_on(code, "conv wgmma self-test")
     torch.cuda.synchronize(a.device)
     return d
+
+
+#: K values of one chunk of the f32 conv + statistics kernel: 8 channels x 9
+#: taps, one k8 slice a tap; its products are summed in the tensor cores
+#: from zero, then added to the running sums in f32 (:data:`CONV_TF32_FLUSH`
+#: chunks at a time)
+CONV_TF32_CHUNK = 72
+CONV_TF32_FLUSH = 1
+
+
+def conv_tf32_selftest(a, b, flush):
+    """The f32 conv + statistics instance's TF32 ``wgmma`` chain on its own:
+    the f32 (64, N) product ``a @ b.T`` of contiguous f32 CUDA tensors ``a``
+    (64, K) and ``b`` (N, K), N in :data:`CONV_WGMMA_N` and K a multiple of
+    :data:`CONV_TF32_CHUNK`, in the kernel's K order (chunk, tap, channel):
+    ``a`` split into big and small TF32 parts in registers as the kernel
+    loads x, ``b`` written into the weight slice's layout and split in
+    shared memory, three ``wgmma`` a tap through the descriptors started at
+    the tap's offset (3xTF32); the products of ``flush`` consecutive chunks
+    summed in the tensor cores from zero, then added to the running sums in
+    f32 (0: all of K in the tensor cores).  Synchronizes."""
+    if (a.ndim != 2 or b.ndim != 2 or a.shape[0] != 64 or b.shape[0] not in CONV_WGMMA_N
+            or a.shape[1] != b.shape[1] or a.shape[1] % CONV_TF32_CHUNK or a.shape[1] < 1
+            or flush < 0):
+        raise ValueError(f"conv tf32 self-test takes a (64, K) and b (N, K), N in "
+                         f"{CONV_WGMMA_N}, K a multiple of {CONV_TF32_CHUNK}, and a flush "
+                         f">= 0; got {tuple(a.shape)}, {tuple(b.shape)}, {flush}")
+    _check(a[None, None], b[None, None], "conv tf32 self-test")
+    if a.dtype != torch.float32:
+        raise TypeError(f"conv tf32 self-test takes f32 operands, not {a.dtype}")
+    n = b.shape[0]
+    d = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    code = _kernels()[0].conv3x3_bn_stats_tf32_selftest(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), n, a.shape[1] // CONV_TF32_CHUNK, flush,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(code, "conv tf32 self-test")
+    torch.cuda.synchronize(a.device)
+    return d
+
+
+def check_conv_tf32_selftest(generator):
+    """Runs :func:`conv_tf32_selftest` at each N of :data:`CONV_WGMMA_N` over
+    1, 3 and 8 chunks with the kernel's :data:`CONV_TF32_FLUSH`, on N(0, 1)
+    f32 values drawn from the CUDA ``generator``, and asserts that every
+    entry of d equals ``torch.matmul`` of the same values in f64 within 1e-5
+    of its sum of |terms|: 3xTF32 products are f32-exact to about 2**-20
+    relative, one TF32 product only to 2**-11.  Returns the largest error
+    in those units."""
+    device = generator.device
+    worst = 0.0
+    for n in CONV_WGMMA_N:
+        for chunks in (1, 3, 8):
+            k = chunks * CONV_TF32_CHUNK
+            a = torch.randn((64, k), generator=generator, device=device)
+            b = torch.randn((n, k), generator=generator, device=device)
+            d = conv_tf32_selftest(a, b, CONV_TF32_FLUSH)
+            ref = torch.matmul(a.double(), b.double().T)
+            scale = torch.matmul(a.double().abs(), b.double().abs().T).clamp_min(1e-30)
+            err = ((d.double() - ref).abs() / scale).max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"conv tf32 self-test at N {n}, {chunks} chunks: d differs "
+                                     f"from torch.matmul by {err:.3g} of the sum of |terms|")
+            worst = max(worst, err)
+    return worst
+
+
+def conv_tf32_accumulation(generator, n, chunks=64, flushes=(1, 2, 4, 0)):
+    """How far the f32 conv's accumulation lands from f64 at wgmma width
+    ``n``: for each flush in chunks of :data:`CONV_TF32_CHUNK` terms (0: all
+    of them in the tensor cores), :func:`conv_tf32_selftest` of N(0, 1) f32
+    values a (64, K) and b (n, K), K = ``chunks`` x 72 (64 chunks: a y of
+    the 512-channel stage), from the CUDA ``generator``; its max |d - f64|
+    over the max |f64|.  Returns ``{terms summed in the tensor cores (0:
+    all): that error}``."""
+    device = generator.device
+    k = chunks * CONV_TF32_CHUNK
+    a = torch.randn((64, k), generator=generator, device=device)
+    b = torch.randn((n, k), generator=generator, device=device)
+    ref = torch.matmul(a.double(), b.double().T)
+    scale = ref.abs().max().item()
+    return {CONV_TF32_CHUNK * flush: (conv_tf32_selftest(a, b, flush).double() - ref).abs().max()
+            .item() / scale for flush in flushes}
 
 
 # ---------------------------------------------------------------------------
@@ -605,12 +688,13 @@ CHECK_CASES = STAGE_SHAPES + [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24),
 #: Tolerances of each kernel's result against its plain version on the same
 #: inputs (check_inputs: x and dy of N(0, 1), He-scaled w, so y is O(1)).
 #: f32 y: each y sums 9C <= 4608 products.  The kernel takes each as 3xTF32
-#: (f32-exact to about 2**-20 relative), sums the 24 products of one kh (8
-#: channels x 3 kw) in the tensor cores from zero and adds the 3C / 8 such
-#: sums with rounded f32 adds, whose errors, adding as a random walk, stay
-#: near 1e-7 of max |y|; it is held to an f64 conv of the same inputs
-#: within Y_OF_MAX of max |y| (one TF32 product, 2**-11 relative, would
-#: miss that).  cuDNN may take a Winograd or FFT algorithm, whose f32 error
+#: (f32-exact to about 2**-20 relative), sums the 72 products of one chunk
+#: (8 channels x 9 taps) in the tensor cores from zero and adds the C / 8
+#: such sums with rounded f32 adds, whose errors, adding as a random walk,
+#: stay near 1e-7 of max |y| (summed over all 9C in the tensor cores they
+#: would land 3.2-3.5e-5 away, :func:`conv_tf32_accumulation`); it is held
+#: to an f64 conv of the same inputs within Y_OF_MAX of max |y| (one TF32
+#: product, 2**-11 relative, would miss that).  cuDNN may take a Winograd or FFT algorithm, whose f32 error
 #: is about 1e-5 of the output's scale (on an H100 an in-order f32 sum and
 #: cuDNN's differed by 1.3-1.7e-5 at the ResNet-50 stage shapes): its
 #: distance from f64 is reported beside the kernel's, and y is held to it
@@ -654,14 +738,13 @@ def check_inputs(case, dtype, generator):
             normal(b, f, h, wd))
 
 
-def _sum_depth(rows, bf16):
-    """The most additions any y term passes through in the kernel's sums.
-    f32 (``mma.sync``): 8 terms in order within a thread (7 additions), the
-    4 lanes of a row (2 levels), the block's two pixel halves (1).  bf16
-    (``wgmma``): a thread's two rows of a column (1), the 8 lanes of a
-    column (3 levels), the warpgroup's 4 warps in order (3).  Both then
-    ceil(rows / 32) per phase and 32 phases in the second pass."""
-    return (1 + 3 + 3 if bf16 else 7 + 2 + 1) + -(-rows // 32) + 32
+def _sum_depth(rows):
+    """The most additions any y term passes through in the kernel's sums,
+    the same tree in both instances (``wgmma``, pixels as M): a thread's two
+    rows of a column (1 addition), the 8 lanes of a column (3 levels), the
+    warpgroup's 4 warps in order (3); then ceil(rows / 32) per phase and 32
+    phases in the second pass."""
+    return 1 + 3 + 3 + -(-rows // 32) + 32
 
 
 def check_against_plain(x, w, dy):
@@ -696,7 +779,7 @@ def check_against_plain(x, w, dy):
     y64, yp64 = y.double(), y_p.double()
     n = y.numel() // y.shape[1]
     rows = _kernels()[0].conv3x3_bn_stats_partial_rows(x.shape[0], x.shape[2], x.shape[3])
-    u = _sum_depth(rows, x.dtype == torch.bfloat16) * 2.0**-24
+    u = _sum_depth(rows) * 2.0**-24
     dims = (0, 2, 3)
     for got, terms, terms_p in ((s, y64, yp64), (ss, y64 * y64, yp64 * yp64)):
         err = (got.double() - terms.sum(dims)).abs()

@@ -266,95 +266,88 @@ def _add(a, b):
     return (np.float32(a[0] + b[0]), np.maximum(a[1], b[1]) + 1)
 
 
-def _wgmma_conv_model(x, w, top=None, bottom=None):
-    """y, s and ss as the bf16 ``wgmma`` instance of the conv + statistics
-    kernel computes them, in numpy, and the most additions any y term passes
-    through in the sums.  Pipeline steps of 64 pixels of one image (pixels
-    as M); chunks of 16 channels, one f32 product (64 pixels x 16 channels
-    x N f, N = 64 where F <= 64, else 128) a tap; for each kh a window of 80
-    plane pixels from p0 + (kh - 1) W - 1 rounded down to 8 (zeros outside
-    the plane; the kh = 0 window takes row -1 from ``top``, the kh = 2
-    window row H from ``bottom``), transposed to [pixel][c], each pixel's
-    row at tap kw its window row + kw, or the zero row where the tap wraps
-    across the image's left or right edge; y rounded to bf16.  The sums of
-    the rounded y of a step: a thread's two rows of a column (16w + g and
-    16w + g + 8), the 8 lanes of a column (pairs g ^ 4, g ^ 2, g ^ 1), the 4
-    warps in order; then the second pass, 32 phases of rows in order."""
+def _conv_planes(x, top, bottom, cp):
+    """x's planes with C padded to ``cp`` channels, and the halo rows given,
+    as {kh: (rows, first pixel)} for the windows that read them (kh = 0 row
+    -1 from ``top``, kh = 2 row H from ``bottom``)."""
     n_img, c_in, h, wd = x.shape
-    f_out = w.shape[0]
-    hw, step, box = h * wd, 64, 80
-    chunks = -(-c_in // 16)
-    nt = 64 if f_out <= 64 else 128
-    fp = -(-f_out // nt) * nt
-    per_image = -(-hw // step)
-    rows_total = n_img * per_image
-    wk = np.zeros((fp, chunks * 16, 9), np.float32)
-    wk[:f_out, :c_in] = w.reshape(f_out, c_in, 9)
-    planes = np.zeros((n_img, chunks * 16, hw), np.float32)
-    planes[:, :c_in] = x.reshape(n_img, c_in, hw)
+    planes = np.zeros((n_img, cp, h * wd), np.float32)
+    planes[:, :c_in] = x.reshape(n_img, c_in, h * wd)
 
     def halo(t):
-        out = np.zeros((n_img, chunks * 16, wd), np.float32)
-        if t is not None:
-            out[:, :c_in] = t[:, :, 0]
+        out = np.zeros((n_img, cp, wd), np.float32)
+        out[:, :c_in] = t[:, :, 0]
         return out
 
     halos = {0: (halo(top), -wd) if top is not None else None,
-             2: (halo(bottom), hw) if bottom is not None else None}
-    y = np.zeros((n_img, f_out, hw), np.float32)
-    part = np.zeros((2, rows_total, f_out), np.float32)
-    for t in range(rows_total):
-        n, p0 = t // per_image, t % per_image * step
-        pix = p0 + np.arange(step)
-        valid, col = pix < hw, pix % wd
-        acc = np.zeros((step, fp), np.float32)
-        windows = []
-        for kh in range(3):
-            first = (p0 + (kh - 1) * wd - 1) // 8 * 8
-            idx = first + np.arange(box)
-            win = np.zeros((chunks * 16, box), np.float32)
-            inside = (idx >= 0) & (idx < hw)
-            win[:, inside] = planes[n][:, idx[inside]]
-            if halos.get(kh) is not None:
-                rows, lo = halos[kh]
-                on = (idx >= lo) & (idx < lo + wd)
-                win[:, on] = rows[n][:, idx[on] - lo]
-            windows.append((win.T, p0 + (kh - 1) * wd - 1 - first))  # [pixel][c], shift
-        for ch in range(chunks):
-            for kh in range(3):
-                xt, shift = windows[kh]
-                for kw in range(3):
-                    a = xt[np.arange(step) + shift + kw, ch * 16:ch * 16 + 16]
-                    wrap = (col == 0) if kw == 0 else (col == wd - 1) if kw == 2 else None
-                    if wrap is not None:
-                        a = np.where(wrap[:, None], np.float32(0), a)
-                    acc += np.matmul(a, wk[:, ch * 16:ch * 16 + 16, kh * 3 + kw].T,
-                                     dtype=np.float32)
-        yb = _bf16_round(acc)
-        y[n][:, pix[valid]] = yb[valid, :f_out].T
-        v = np.where(valid[:, None], yb, np.float32(0))[:, :f_out]
-        for q in range(2):  # Σy, Σy²
-            warps = []
-            for wq in range(4):
-                lanes = []
-                for g in range(8):
-                    v0, v1 = v[16 * wq + g], v[16 * wq + g + 8]
-                    if q == 0:
-                        lanes.append((np.float32(v0 + v1), 1))
-                    else:  # fma(v1, v1, v0 * v0): one rounding of the exact sum
-                        sq0 = (v0 * v0).astype(np.float32)
-                        lanes.append((np.float32(v1.astype(np.float64) ** 2 + sq0), 1))
-                for mask in (4, 2, 1):
-                    lanes = [_add(lanes[g], lanes[g ^ mask]) if not g & mask else None
-                             for g in range(8)]
-                    lanes = [lanes[g & ~mask] for g in range(8)]
-                warps.append(lanes[0])
-            total = warps[0]
-            for wq in range(1, 4):
-                total = _add(total, warps[wq])
-            part[q, t], depth_step = total
-    # the second pass: 32 phases of rows in order from 0, then the phases in order
+             2: (halo(bottom), h * wd) if bottom is not None else None}
+    return planes, halos
+
+
+def _conv_windows(planes, halos, n, p0, wd, vec, box):
+    """For each kh the window of ``box`` plane pixels from p0 + (kh - 1) W - 1
+    rounded down to ``vec`` as [pixel][c] (zeros outside the plane, the halo
+    rows where given), and that start's rounding."""
+    hw = planes.shape[2]
+    windows = []
+    for kh in range(3):
+        first = (p0 + (kh - 1) * wd - 1) // vec * vec
+        idx = first + np.arange(box)
+        win = np.zeros((planes.shape[1], box), np.float32)
+        inside = (idx >= 0) & (idx < hw)
+        win[:, inside] = planes[n][:, idx[inside]]
+        if halos.get(kh) is not None:
+            rows, lo = halos[kh]
+            on = (idx >= lo) & (idx < lo + wd)
+            win[:, on] = rows[n][:, idx[on] - lo]
+        windows.append((win.T, p0 + (kh - 1) * wd - 1 - first))
+    return windows
+
+
+def _tap_rows(windows, kh, kw, col, wd, c0, cc):
+    """A at tap (kh, kw): each pixel's row of the window at its shift + kw,
+    channels c0 .. c0 + cc - 1, zero where the tap wraps across the image's
+    left (kw = 0) or right (kw = 2) edge."""
+    xt, shift = windows[kh]
+    a = xt[np.arange(len(col)) + shift + kw, c0:c0 + cc]
+    wrap = (col == 0) if kw == 0 else (col == wd - 1) if kw == 2 else None
+    return a if wrap is None else np.where(wrap[:, None], np.float32(0), a)
+
+
+def _step_sums(v):
+    """A step's row of the partial sums of its y (64 pixels x F, zero where
+    no pixel), Σy and Σy², in the kernels' tree: a thread's two rows of a
+    column (16w + g and 16w + g + 8), the 8 lanes of a column (pairs g ^ 4,
+    g ^ 2, g ^ 1), the 4 warps in order; with the additions its terms pass."""
+    out = []
+    for q in range(2):  # Σy, Σy²
+        warps = []
+        for wq in range(4):
+            lanes = []
+            for g in range(8):
+                v0, v1 = v[16 * wq + g], v[16 * wq + g + 8]
+                if q == 0:
+                    lanes.append((np.float32(v0 + v1), 1))
+                else:  # fma(v1, v1, v0 * v0): one rounding of the exact sum
+                    sq0 = (v0 * v0).astype(np.float32)
+                    lanes.append((np.float32(v1.astype(np.float64) ** 2 + sq0), 1))
+            for mask in (4, 2, 1):
+                lanes = [_add(lanes[g], lanes[g ^ mask]) if not g & mask else None
+                         for g in range(8)]
+                lanes = [lanes[g & ~mask] for g in range(8)]
+            warps.append(lanes[0])
+        total = warps[0]
+        for wq in range(1, 4):
+            total = _add(total, warps[wq])
+        out.append(total)
+    return out
+
+
+def _second_pass(part, depth_step):
+    """s and ss from the steps' partial rows, 32 phases of rows in order from
+    0, then the phases in order; and the most additions any y term passed."""
     stats, depth = [], 0
+    rows_total, f_out = part.shape[1:]
     for q in range(2):
         phases = []
         for phase in range(32):
@@ -367,51 +360,145 @@ def _wgmma_conv_model(x, w, top=None, bottom=None):
             total = _add(total, acc_p)
         stats.append(total[0])
         depth = max(depth, int(np.max(total[1])))
-    return y.reshape(n_img, f_out, h, wd), stats[0], stats[1], depth, rows_total
+    return stats[0], stats[1], depth
 
 
+def _conv_model(x, w, top, bottom, cc, vec, box, chunk_products, to_y):
+    """y, s, ss, the additions' depth and the partial rows of a conv +
+    statistics instance on ``wgmma``: pipeline steps of 64 pixels of one
+    image (pixels as M); chunks of ``cc`` channels; for each kh a window of
+    ``box`` plane pixels from p0 + (kh - 1) W - 1 rounded down to ``vec``;
+    ``chunk_products(taps, wk)`` sums one chunk's products, given each tap's
+    A (64 x cc) and the chunk's weight (F x cc x 9), into the running sums;
+    ``to_y`` rounds them to y's dtype; the statistics' tree."""
+    n_img, c_in, h, wd = x.shape
+    f_out = w.shape[0]
+    hw, step = h * wd, 64
+    chunks = -(-c_in // cc)
+    per_image = -(-hw // step)
+    rows_total = n_img * per_image
+    wk = np.zeros((f_out, chunks * cc, 9), np.float32)
+    wk[:, :c_in] = w.reshape(f_out, c_in, 9)
+    planes, halos = _conv_planes(x, top, bottom, chunks * cc)
+    y = np.zeros((n_img, f_out, hw), np.float32)
+    part = np.zeros((2, rows_total, f_out), np.float32)
+    for t in range(rows_total):
+        n, p0 = t // per_image, t % per_image * step
+        pix = p0 + np.arange(step)
+        valid, col = pix < hw, pix % wd
+        windows = _conv_windows(planes, halos, n, p0, wd, vec, box)
+        acc = np.zeros((step, f_out), np.float32)
+        for ch in range(chunks):
+            taps = [_tap_rows(windows, kh, kw, col, wd, ch * cc, cc)
+                    for kh in range(3) for kw in range(3)]
+            acc = chunk_products(acc, taps, wk[:, ch * cc:ch * cc + cc])
+        yv = to_y(acc)
+        y[n][:, pix[valid]] = yv[valid].T
+        sums = _step_sums(np.where(valid[:, None], yv, np.float32(0)))
+        part[0, t], depth_step = sums[0]
+        part[1, t] = sums[1][0]
+    s, ss, depth = _second_pass(part, depth_step)
+    return y.reshape(n_img, f_out, h, wd), s, ss, depth, rows_total
+
+
+def _wgmma_conv_model(x, w, top=None, bottom=None):
+    """y, s and ss as the bf16 ``wgmma`` instance of the conv + statistics
+    kernel computes them, in numpy, and the most additions any y term passes
+    through in the sums (:func:`_conv_model`): chunks of 16 channels, one f32
+    product (64 pixels x 16 channels x F) a tap added to the running sums;
+    windows of 80 pixels from starts rounded down to 8, transposed to
+    [pixel][c], each pixel's row at tap kw its window row + kw, or the zero
+    row where the tap wraps; y rounded to bf16."""
+    def products(acc, taps, wk):
+        for tap, a in enumerate(taps):
+            acc = acc + np.matmul(a, wk[:, :, tap].T, dtype=np.float32)
+        return acc
+
+    return _conv_model(x, w, top, bottom, 16, 8, 80, products, _bf16_round)
+
+
+def _tf32_conv_model(x, w, top=None, bottom=None):
+    """y, s and ss as the f32 instance (3xTF32 on TF32 ``wgmma``) computes
+    them, in numpy, and the additions' depth (:func:`_conv_model`): chunks of
+    8 channels; windows of 72 pixels from starts rounded down to 4, read at
+    any shift (A in registers), zero where a tap wraps; each tap's A and the
+    weight split into big and small TF32 parts, the three products a_small
+    w_big + a_big w_small + a_big w_big; a chunk's 72 products of each y
+    summed in the tensor cores (exactly here, then rounded to f32) and added
+    to the running sums with one f32 add; y stays f32."""
+    def products(acc, taps, wk):
+        w_big, w_small = _split_tf32_np(wk)
+        tmp = np.zeros(acc.shape, np.float64)
+        for tap, a in enumerate(taps):
+            a_big, a_small = _split_tf32_np(a)
+            b_big, b_small = (w_big[:, :, tap].T.astype(np.float64),
+                              w_small[:, :, tap].T.astype(np.float64))
+            tmp += (a_small.astype(np.float64) @ b_big + a_big.astype(np.float64) @ b_small
+                    + a_big.astype(np.float64) @ b_big)
+        return acc + tmp.astype(np.float32)
+
+    return _conv_model(x, w, top, bottom, 8, 4, 72, products, lambda acc: acc)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), tc.ALIGN_CASES[0],
                                   (3, 5, 14, 12, 16, "halo")])
-def test_wgmma_conv_bn_stats_decomposition(case):
-    """The bf16 conv + statistics instance's decomposition (the numpy model
-    above: pixels as M, 16-channel chunks by tap, wrapped taps from the zero
-    row, y rounded to bf16, the statistics' tree) against the Pallas
-    prototype in interpret mode and the plain version: y within one bf16
-    ulp, and Σy and Σy² within the model tree's rounding bound
-    (``_sum_depth``, which the model's own count of additions must equal)
-    of f64 sums of each reference's y, plus the two y's difference.  Ragged
-    cases have C and F past whole tiles; ALIGN_CASES[0] has F = 80, one
-    tile of 128; the halo case gives x's rows -1 and H (the prototype sees
-    a taller image and its middle rows)."""
+def test_wgmma_conv_bn_stats_decomposition(case, dtype):
+    """Each conv + statistics instance's decomposition against the Pallas
+    prototype in interpret mode and the plain version: bf16
+    (``_wgmma_conv_model``: pixels as M, 16-channel chunks by tap, wrapped
+    taps from the zero row, y rounded to bf16) with y within one bf16 ulp;
+    f32 (``_tf32_conv_model``: 8-channel chunks, x masked per kw at any
+    shift, 3xTF32 splits of both operands, a chunk's products summed before
+    each f32 add) with y within ``Y_OF_MAX`` of max |y| of the f64 plain
+    version and of the prototype.  Both: Σy and Σy² within the model tree's
+    rounding bound (``_sum_depth``, which the model's own count of additions
+    must equal) of f64 sums of each reference's y, plus the two y's
+    difference.  Ragged cases have C and F past whole tiles; ALIGN_CASES[0]
+    has F = 80, one tile of 128; the halo case gives x's rows -1 and H (the
+    prototype sees a taller image and its middle rows)."""
     b, h, w, c, f = case[:5]
     rng = np.random.default_rng(sum(case[:5]) + 7)
-    x = _bf16_values(rng, (b, c, h, w))
-    k = _bf16_round(rng.normal(0, 0.1, (f, c, 3, 3)))
+    if dtype == "bf16":
+        def values(shape):
+            return _bf16_values(rng, shape)
+        k = _bf16_round(rng.normal(0, 0.1, (f, c, 3, 3)))
+    else:
+        def values(shape):
+            return rng.normal(size=shape).astype(np.float32)
+        k = rng.normal(0, 0.1, (f, c, 3, 3)).astype(np.float32)
+    x = values((b, c, h, w))
     top = bottom = None
     if len(case) > 5:
-        top, bottom = _bf16_values(rng, (b, c, 1, w)), _bf16_values(rng, (b, c, 1, w))
-    y, s, ss, depth, rows = _wgmma_conv_model(x, k, top, bottom)
-    assert depth == tc._sum_depth(rows, True)
+        top, bottom = values((b, c, 1, w)), values((b, c, 1, w))
+    model = _wgmma_conv_model if dtype == "bf16" else _tf32_conv_model
+    y, s, ss, depth, rows = model(x, k, top, bottom)
+    assert depth == tc._sum_depth(rows)
     u = depth * 2.0**-24
 
-    def t16(a):
-        return None if a is None else torch.from_numpy(a).bfloat16()
+    tdt, jdt = ((torch.bfloat16, jnp.bfloat16) if dtype == "bf16"
+                else (torch.float64, jnp.float32))
 
-    y_p, _, _ = tc._plain_conv_bn_stats(t16(x), t16(k), t16(top), t16(bottom))
+    def tt(a):
+        return None if a is None else torch.from_numpy(a).to(tdt)
+
+    y_p, _, _ = tc._plain_conv_bn_stats(tt(x), tt(k), tt(top), tt(bottom))
     xj = x.transpose(0, 2, 3, 1)
     if top is not None:  # the taller image: the halo rows on; y's rows 1 .. H
         xj = np.concatenate([top.transpose(0, 2, 3, 1), xj, bottom.transpose(0, 2, 3, 1)], 1)
-    y_j, _, _ = j_conv_bn_stats(jnp.asarray(xj, jnp.bfloat16),
-                                jnp.asarray(k.transpose(2, 3, 1, 0), jnp.bfloat16), interpret=True)
+    y_j, _, _ = j_conv_bn_stats(jnp.asarray(xj, jdt), jnp.asarray(k.transpose(2, 3, 1, 0), jdt),
+                                interpret=True)
     y_j = np.asarray(y_j, np.float32).transpose(0, 3, 1, 2)
     if top is not None:
         y_j = y_j[:, :, 1:h + 1]
     y64 = y.astype(np.float64)
-    for ref in (y_p.float().numpy(), y_j):
+    for ref in (y_p.double().numpy(), y_j.astype(np.float64)):
         assert ref.shape == y.shape == (b, f, h, w)
-        np.testing.assert_allclose(y, ref, rtol=2**-7, atol=1e-6)
-        r64 = ref.astype(np.float64)
-        for got, terms, terms_r in ((s, y64, r64), (ss, y64 * y64, r64 * r64)):
+        if dtype == "bf16":
+            np.testing.assert_allclose(y, ref, rtol=2**-7, atol=1e-6)
+        else:
+            assert np.abs(y64 - ref).max() <= tc.Y_OF_MAX * np.abs(ref).max()
+        for got, terms, terms_r in ((s, y64, ref), (ss, y64 * y64, ref * ref)):
             bound = u * np.abs(terms).sum((0, 2, 3)) + np.abs(terms - terms_r).sum((0, 2, 3))
             assert (np.abs(got - terms_r.sum((0, 2, 3))) <= bound).all()
             # and the tree's own rounding against f64 sums of the model's y

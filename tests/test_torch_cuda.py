@@ -164,8 +164,8 @@ def test_filter_grad_f32_misaligned_pointers(device):
 
 
 def test_conv_kernels_run_on_the_tensor_cores(device):
-    """Both kernels run bf16 on Hopper's warpgroup wgmma and f32 as 3xTF32:
-    the filter gradient on TF32 wgmma, the conv + statistics on mma.sync."""
+    """Both kernels run on Hopper's warpgroup wgmma, bf16 as bf16 and f32 as
+    3xTF32 on TF32 wgmma."""
     assert cc.instance("conv3x3_filter_grad", torch.float32) == (
         "tensor cores: wgmma m64n64k8 3xTF32, 64 c x 64 f x 3 taps a warpgroup, "
         "3 warpgroups a block")
@@ -176,7 +176,8 @@ def test_conv_kernels_run_on_the_tensor_cores(device):
         "tensor cores: wgmma m64nNk16 bf16, 64 pixels x N f a warpgroup, N = 64 where F <= 64, "
         "else 128, 2 warpgroups a block")
     assert cc.instance("conv3x3_bn_stats", torch.float32) == (
-        "tensor cores: mma.sync m16n8k8 3xTF32")
+        "tensor cores: wgmma m64nNk8 3xTF32, 64 pixels x N f a warpgroup, N = 64 where F <= 64, "
+        "else 128, 2 warpgroups a block")
 
 
 def test_wgmma_selftest_matches_matmul(device):
@@ -212,6 +213,37 @@ def test_tf32_selftest_matches_matmul(device):
         cc.tf32_selftest(a.bfloat16(), torch.zeros((64, 8), device=device).bfloat16(), 8)
 
 
+def test_conv_tf32_selftest_matches_matmul(device):
+    """The f32 conv + statistics kernel's TF32 wgmma chain on its own (A
+    split in registers, the weight slice split in shared memory and read
+    through the K-major descriptor started at each tap's offset, three wgmma
+    a tap, each chunk's products summed before an f32 add) against
+    torch.matmul in f64, at each N the kernel uses over 1 to 8 chunks; an N
+    it does not use, a K that is not whole chunks and a bf16 operand are
+    refused."""
+    assert cc.check_conv_tf32_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    a = torch.zeros((64, cc.CONV_TF32_CHUNK), device=device)
+    with pytest.raises(ValueError, match="N in"):
+        cc.conv_tf32_selftest(a, torch.zeros((32, cc.CONV_TF32_CHUNK), device=device), 1)
+    with pytest.raises(ValueError, match="multiple"):
+        cc.conv_tf32_selftest(a[:, :64], torch.zeros((64, 64), device=device), 1)
+    with pytest.raises(TypeError):
+        cc.conv_tf32_selftest(a.bfloat16(), torch.zeros_like(a).bfloat16(), 1)
+
+
+@pytest.mark.parametrize("n", cc.CONV_WGMMA_N)
+def test_conv_tf32_accumulation_depth(device, n):
+    """Why the f32 conv adds each chunk's products to its running sums in
+    f32: over 4,608 terms (a y of the 512-channel stage), products summed in
+    the tensor cores one chunk (72 terms) at a time land within Y_OF_MAX / 4
+    of max |d| from f64; all of them summed there land farther (3.2-3.5e-5
+    on an H100, past Y_OF_MAX)."""
+    errs = cc.conv_tf32_accumulation(torch.Generator(device=device).manual_seed(2), n)
+    kernel = cc.CONV_TF32_CHUNK * cc.CONV_TF32_FLUSH
+    assert errs[kernel] <= cc.Y_OF_MAX / 4, errs
+    assert errs[0] > cc.Y_OF_MAX, errs
+
+
 def test_tf32_accumulation_depth(device):
     """Why the f32 filter gradient adds each step's products to its running
     sums in f32: over 4,096 pixels (a block's share of a split), products
@@ -234,13 +266,13 @@ def test_wgmma_selftest_rejects_rows_past_the_window(device):
         cc.wgmma_selftest(a.float(), b.float(), 0)
 
 
-@pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((3, 5, 10, 16, 40), 2),
+@pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((3, 5, 10, 16, 40), 1),
                                          ((4, 7, 7, 40, 72), 1), ((2, 13, 9, 16, 24), 1)])
 def test_conv_bn_stats_f32_copy_paths(device, case, width):
-    """f32 x takes 16-byte copies where H*W % 4 == 0, 8-byte ones where
-    H*W % 4 == 2, else a repack into planes padded to 8 floats (H*W = 49,
-    an odd ragged plane); y holds against cuDNN and f64 on every path, and
-    the statistics against their rounding bound."""
+    """f32 x takes tensor copies of its planes where H*W % 4 == 0 (their
+    strides must be whole 16 bytes), else a repack into planes padded to 8
+    floats (H*W = 50, 49, an odd ragged plane); y holds against cuDNN and
+    f64 on every path, and the statistics against their rounding bound."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, dy = cc.check_inputs(case, torch.float32,
                                torch.Generator(device=device).manual_seed(10))
@@ -248,11 +280,12 @@ def test_conv_bn_stats_f32_copy_paths(device, case, width):
     cc.check_against_plain(x, w, dy)
 
 
-@pytest.mark.parametrize("offset, width", [(2, 2), (1, 1)])
+@pytest.mark.parametrize("offset, width", [(2, 1), (1, 1)])
 def test_conv_bn_stats_f32_misaligned_pointers(device, offset, width):
-    """f32 x that starts 8 bytes past a 16-byte boundary takes 8-byte
-    copies, 4 bytes past it the repack, where H*W % 4 == 0; y, s and ss are
-    the same bits as from aligned x, and hold against the plain version."""
+    """f32 x that starts 8 or 4 bytes past a 16-byte boundary is repacked
+    even where H*W % 4 == 0 (a tensor copy needs 16-byte planes); y, s and
+    ss are the same bits as from aligned x, and hold against the plain
+    version."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.float32,
                                torch.Generator(device=device).manual_seed(11))
@@ -265,8 +298,8 @@ def test_conv_bn_stats_f32_misaligned_pointers(device, offset, width):
 
 @pytest.mark.parametrize("case", [(4, 7, 7, 40, 72), (3, 5, 10, 16, 40), (2, 28, 28, 128, 136)])
 def test_conv_bn_stats_f32_is_deterministic(device, case):
-    """Two launches give the same bits of y, s and ss on the repack, the
-    8-byte path and F past one block."""
+    """Two launches give the same bits of y, s and ss on the repack (H*W =
+    49 and 50) and with F past one block."""
     x, w, _ = cc.check_inputs(case, torch.float32,
                               torch.Generator(device=device).manual_seed(12))
     first, again = cc._launch_conv_bn_stats(x, w), cc._launch_conv_bn_stats(x, w)
