@@ -19,7 +19,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from .. import parallel
+from .. import parallel, spans
 from . import losses as L
 from .state import TrainState
 from .trainer import finish_step, trainable_indices, valid_mask
@@ -43,6 +43,7 @@ def make_labelembed_train_step(
     averaged over the batch, plus the L2 penalty."""
     trained = trainable_indices(model, trainable_fn)
 
+    @spans.first_step
     def step(state: TrainState, raw_batch, lr, rng):
         images, labels = prepare(raw_batch, rng, True)
         model.train()
@@ -107,6 +108,7 @@ def make_center_loss_train_step(
     plus the L2 penalty."""
     trained = trainable_indices(model, trainable_fn)
 
+    @spans.first_step
     def step(state: TrainState, raw_batch, lr, rng):
         images, labels = prepare(raw_batch, rng, True)
         onehot = F.one_hot(labels, num_classes).float()

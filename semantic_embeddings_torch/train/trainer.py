@@ -11,6 +11,11 @@ fetched once per epoch, so no step waits for the host.
 Under a spatial grid (``--spatial``, :mod:`..parallel.spatial`) every step
 cuts its prepared images to this rank's rows right after ``prepare``
 (:func:`..parallel.constrain_spatial`), as the JAX steps constrain them.
+
+Inside a ``torch.profiler`` session the steps and ``fit`` record spans
+(:mod:`..spans`): ``step`` over ``step.prepare``, ``step.forward``,
+``step.backward``, ``step.exchange`` (in a process group) and
+``step.update``; ``fit.batch``, ``fit.validate`` and ``fit.snapshot``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import parallel
+from .. import parallel, spans
 from ..data.cifar import to_device
 from . import losses as L
 from .optimizer import adagrad_update, effective_lr, sgd_update
@@ -37,6 +42,9 @@ EMB_LOSSES = {
     "unnorm_corr": L.inv_correlation,
     "softmax_corr": L.inv_correlation,
 }
+
+#: the exchange's span outside a process group, where there is no exchange
+_NO_SPAN = contextlib.nullcontext()
 
 #: output transform the EmbeddingModel applies for each loss
 LOSS_OUTPUT = {
@@ -98,6 +106,7 @@ def finish_step(state, total, trained, lr, *, optimizer="sgd", momentum=0.9,
     differentiates 1 / S of it: summed over every rank and divided by the
     data shards, the gradients are the global batch's (the rule of
     :mod:`..parallel.spatial`)."""
+    step = state.step
     state.step += 1
     if not trained:  # nothing to train (a warm-up of a model with no top)
         return
@@ -107,14 +116,17 @@ def finish_step(state, total, trained, lr, *, optimizer="sgd", momentum=0.9,
     columns = parallel.spatial_size()
     if columns > 1:
         total = total / columns
-    grads = list(torch.autograd.grad(total, params))
+    with spans.span("step.backward", step):
+        grads = list(torch.autograd.grad(total, params))
     # in a process group: the global batch's gradient, before the clip
-    parallel.reduce_gradients(grads)
-    if optimizer == "adagrad":
-        adagrad_update(params, slots, grads, lr)
-    else:
-        sgd_update(params, slots, grads, lr, momentum=momentum, nesterov=nesterov,
-                   clipnorm=clipnorm)
+    with spans.span("step.exchange", step) if parallel.in_group() else _NO_SPAN:
+        parallel.reduce_gradients(grads)
+    with spans.span("step.update", step):
+        if optimizer == "adagrad":
+            adagrad_update(params, slots, grads, lr)
+        else:
+            sgd_update(params, slots, grads, lr, momentum=momentum, nesterov=nesterov,
+                       clipnorm=clipnorm)
 
 
 def make_train_step(
@@ -160,35 +172,38 @@ def make_train_step(
         num_classes = table.shape[0]
     trained = trainable_indices(model, trainable_fn)
 
+    @spans.first_step
     def step(state: TrainState, raw_batch, lr, rng):
-        images, labels = prepare(raw_batch, rng, True)
-        images = parallel.constrain_spatial(images)
-        targets = table[labels]
-        model.train()
-        with maybe_autocast(device, autocast_dtype):
-            out = model(images)
-        metrics = {}
-        if cls_weight > 0:
-            emb_out, prob = out
-            onehot = F.one_hot(labels, num_classes).float()
-            cls_l = L.categorical_crossentropy(onehot, prob).mean()
-            metrics["cls_loss"] = cls_l.detach()
-            metrics["cls_acc"] = (
-                torch.argmax(prob, -1) == labels).float().mean()
-        else:
-            emb_out, cls_l = out, 0.0
-        e_l = emb_loss(targets, emb_out).mean()
-        total = e_l + cls_weight * cls_l
-        if l2_penalty_fn is not None:
-            total = total + l2_penalty_fn(model)
-        metrics["emb_loss"] = e_l.detach()
-        metrics["loss"] = total.detach()
-        with torch.no_grad():
-            metrics.update(_apply_metric_fns(
-                metric_fn, targets, emb_out.detach(), lambda v: v.mean()))
-
-        finish_step(state, total, trained, lr, optimizer=optimizer, momentum=momentum,
-                    nesterov=nesterov, clipnorm=clipnorm)
+        with spans.span("step", state.step, device):
+            with spans.span("step.prepare"):
+                images, labels = prepare(raw_batch, rng, True)
+                images = parallel.constrain_spatial(images)
+                targets = table[labels]
+            with spans.span("step.forward"):
+                model.train()
+                with maybe_autocast(device, autocast_dtype):
+                    out = model(images)
+                metrics = {}
+                if cls_weight > 0:
+                    emb_out, prob = out
+                    onehot = F.one_hot(labels, num_classes).float()
+                    cls_l = L.categorical_crossentropy(onehot, prob).mean()
+                    metrics["cls_loss"] = cls_l.detach()
+                    metrics["cls_acc"] = (
+                        torch.argmax(prob, -1) == labels).float().mean()
+                else:
+                    emb_out, cls_l = out, 0.0
+                e_l = emb_loss(targets, emb_out).mean()
+                total = e_l + cls_weight * cls_l
+                if l2_penalty_fn is not None:
+                    total = total + l2_penalty_fn(model)
+                metrics["emb_loss"] = e_l.detach()
+                metrics["loss"] = total.detach()
+                with torch.no_grad():
+                    metrics.update(_apply_metric_fns(
+                        metric_fn, targets, emb_out.detach(), lambda v: v.mean()))
+            finish_step(state, total, trained, lr, optimizer=optimizer, momentum=momentum,
+                        nesterov=nesterov, clipnorm=clipnorm)
         return state, metrics
 
     return step
@@ -282,21 +297,26 @@ def make_classifier_train_step(
     trained = trainable_indices(model, trainable_fn)
     device = _device_of(model)
 
+    @spans.first_step
     def step(state: TrainState, raw_batch, lr, rng):
-        images, labels = prepare(raw_batch, rng, True)
-        images = parallel.constrain_spatial(images)
-        onehot = L.label_smoothing(F.one_hot(labels, num_classes).float(), label_smoothing)
-        model.train()
-        with maybe_autocast(device, autocast_dtype):
-            prob = model(images)
-        ce = L.categorical_crossentropy(onehot, prob).mean()
-        total = ce
-        if l2_penalty_fn is not None:
-            total = total + l2_penalty_fn(model)
-        metrics = {"loss": total.detach(), "ce": ce.detach(),
-                   "acc": (torch.argmax(prob, -1) == labels).float().mean()}
-        finish_step(state, total, trained, lr, momentum=momentum, nesterov=nesterov,
-                    clipnorm=clipnorm)
+        with spans.span("step", state.step, device):
+            with spans.span("step.prepare"):
+                images, labels = prepare(raw_batch, rng, True)
+                images = parallel.constrain_spatial(images)
+                onehot = L.label_smoothing(F.one_hot(labels, num_classes).float(),
+                                           label_smoothing)
+            with spans.span("step.forward"):
+                model.train()
+                with maybe_autocast(device, autocast_dtype):
+                    prob = model(images)
+                ce = L.categorical_crossentropy(onehot, prob).mean()
+                total = ce
+                if l2_penalty_fn is not None:
+                    total = total + l2_penalty_fn(model)
+                metrics = {"loss": total.detach(), "ce": ce.detach(),
+                           "acc": (torch.argmax(prob, -1) == labels).float().mean()}
+            finish_step(state, total, trained, lr, momentum=momentum, nesterov=nesterov,
+                        clipnorm=clipnorm)
         return state, metrics
 
     return step
@@ -410,10 +430,10 @@ def fit(
     ``profile_dir``: a ``torch.profiler`` trace of CPU and CUDA activity
     over the steps ``profile_steps`` = [start, stop) counted from this
     run's first step (so a run resumed past the window still profiles),
-    one Chrome trace file a rank (``trace_rank{r}.json``), with the JAX
-    package's messages: "Wrote device trace to ..." when the window closes
-    or the run ends inside it, a ``RuntimeWarning`` when the run ends
-    before it opens.
+    one Chrome trace file a rank (``trace_rank{r}.json``; the spans of
+    :mod:`..spans` are ranges in it), with the JAX package's messages:
+    "Wrote device trace to ..." when the window closes or the run ends
+    inside it, a ``RuntimeWarning`` when the run ends before it opens.
     """
     val_batch_size = val_batch_size or batch_size
     device = _device_of(state.model)
@@ -438,7 +458,12 @@ def fit(
         epoch_lr = schedule.lr(epoch, global_step)
         n_batches = 0
         metric_sums = None
-        for raw in dataset.train_batches(batch_size, epoch, seed, **sharded):
+        batches = iter(dataset.train_batches(batch_size, epoch, seed, **sharded))
+        while True:
+            with spans.span("fit.batch", global_step):  # the step's wait for its data
+                raw = next(batches, None)
+            if raw is None:
+                break
             lr = schedule.lr(epoch, global_step) if schedule.per_batch else epoch_lr
             lr = effective_lr(lr, decay, global_step)
             if profile_dir is not None:
@@ -465,26 +490,28 @@ def fit(
                 torch.stack([metric_sums[k] for k in keys])).cpu().tolist()
             train_metrics = {k: v / (n_batches * world) for k, v in zip(keys, values)}
 
-        val_metrics = run_validation(
-            eval_step, state, dataset.test_batches(val_batch_size, **sharded), rng)
+        with spans.span("fit.validate", global_step):
+            val_metrics = run_validation(
+                eval_step, state, dataset.test_batches(val_batch_size, **sharded), rng)
         val_metrics.pop("predictions", None)
         schedule.observe(val_metrics)
         state.epoch = epoch + 1
 
         if snapshot and main:
             meta = {"epoch": epoch + 1, **(snapshot_meta or {})}
-            if snapshot_best:
-                monitored = val_metrics.get(snapshot_best)
-                if monitored is None:
-                    warnings.warn(
-                        f"Can save best model only with {snapshot_best} "
-                        f"available, skipping.", RuntimeWarning)
-                elif (monitored > best_metric if maximize
-                      else monitored < best_metric):
-                    best_metric = monitored
+            with spans.span("fit.snapshot", global_step):
+                if snapshot_best:
+                    monitored = val_metrics.get(snapshot_best)
+                    if monitored is None:
+                        warnings.warn(
+                            f"Can save best model only with {snapshot_best} "
+                            f"available, skipping.", RuntimeWarning)
+                    elif (monitored > best_metric if maximize
+                          else monitored < best_metric):
+                        best_metric = monitored
+                        save_checkpoint(snapshot, state, meta)
+                else:
                     save_checkpoint(snapshot, state, meta)
-            else:
-                save_checkpoint(snapshot, state, meta)
 
         if verbose and main:
             msg = " ".join(
