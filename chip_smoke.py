@@ -36,6 +36,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    each wrapper's host time a call, and the SHA-256 of each output on
    inputs from a fixed seed (``conv_records``, which takes any tree's
    ``ops.conv3x3``, so two trees' outputs can be compared bit for bit).
+4b. Hold the 1x1 convs' f32 weight-gradient kernel (3xTF32 on TF32
+   ``wgmma``) against f64, and bitwise over two launches, at its ragged
+   cases, a misaligned operand and ResNet-50's 15 1x1 shapes at batch 128;
+   time it there beside ``conv2d_weight`` and its bound, summed over a
+   step's 36 convs; the host time the op adds to a ResNet-50 step (a
+   host-paced step, batch 2 at 64 px); count its launches: 36 in an f32 ResNet-50 step (also
+   with ``remat``), 4 in rn18's, none in a bf16 step, an inference
+   forward, an exported program's call or the other families' steps, and
+   the op not taken under a spatial grid.
 5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
    taxonomy (20 superclasses x 5 leaves) with ``python -m
    semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
@@ -284,6 +293,7 @@ N_TRAIN, N_TEST = 2000, 500
 RN50_BATCH = 128
 RN50_TRAIN, RN50_TEST = 512, 128
 RN50_CONVS = 16  # bottleneck blocks, each with one 3x3 conv_b feeding bn_b
+RN50_1X1 = 36  # 1x1 convs: 16 conv_a, 16 conv_c, 4 projection shortcuts
 STAGE_BLOCKS = (3, 4, 6, 3)  # of them in each of ResNet-50's four stages
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 FMA
 # outside the tensor cores (TF32 stays off), f32-exact products on the
@@ -882,8 +892,8 @@ def serve_resnet50(ckpt, device, card, CC, reset_counts, read_counts, artifact=N
                   f"{seconds[-1]:.3f} s (bound {SERVE_REQUEST_BOUND_S} s)")
             calls = len(served)
             check(stats["batches"] == calls and stats["images"] == SERVE_IMAGES, stats)
-            check(counts["conv3x3_bn_stats"] == RN50_CONVS * calls and plain_calls[0] == 0,
-                  (counts, calls, plain_calls[0]))
+            check(counts["conv3x3_bn_stats"] == RN50_CONVS * calls and plain_calls[0] == 0
+                  and counts["conv1x1_filter_grad"] == 0, (counts, calls, plain_calls[0]))
             # every served batch against a direct eval forward of the same
             # batch (same composition, so cuDNN's same algorithms)
             worst = 0.0
@@ -1266,7 +1276,8 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
         lk, lp = m_k["loss"].item(), m_p["loss"].item()
         rel = abs(lk - lp) / abs(lp)
         check(rel <= 1e-6, (arch, lk, lp))
-        check(counts["cosine_loss_fwd"] == 1 and counts["cosine_loss_bwd"] == 1, counts)
+        check(counts["cosine_loss_fwd"] == 1 and counts["cosine_loss_bwd"] == 1
+              and counts["conv1x1_filter_grad"] == 0, counts)
         del state_p  # its blocks stay in the allocator's cache: the timed steps run warm
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1310,7 +1321,8 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", tee.buf.getvalue())
     check(state.step == 3 and counts["cosine_loss_fwd"] == 3
-          and counts["cosine_loss_bwd"] == 3, (state.step, counts))
+          and counts["cosine_loss_bwd"] == 3 and counts["conv1x1_filter_grad"] == 0,
+          (state.step, counts))
     check(len(losses) >= 4 and all(math.isfinite(float(v)) for _, v in losses), losses)
     rate = NASNET_BATCH * 2 / sum(times[1:])
     torch.cuda.reset_peak_memory_stats()
@@ -1320,8 +1332,8 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
         state, raw, 0.01, torch.Generator(device=device).manual_seed(0))
     peak16 = torch.cuda.max_memory_allocated() / 2**30
     bf16_counts = read_counts()
-    check(math.isfinite(m16["loss"].item()) and bf16_counts["cosine_loss_fwd"] == 4,
-          (m16["loss"], bf16_counts))
+    check(math.isfinite(m16["loss"].item()) and bf16_counts["cosine_loss_fwd"] == 4
+          and bf16_counts["conv1x1_filter_grad"] == 0, (m16["loss"], bf16_counts))
     out["nasnet"] = {"batch": NASNET_BATCH, "params": sum(p.numel() for p in state.params),
                      "step_s": times, "img_per_s": rate, "peak_gib": peak,
                      "bf16_step_s": bf16_times[0], "bf16_loss": m16["loss"].item(),
@@ -1388,7 +1400,8 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
           f"{len(before) - len(param_names)} bitwise equal; parameters {equal} of "
           f"{len(param_names)} bitwise equal, worst {worst:.3g} of its update; "
           f"conv3x3_bn_stats launches {lr['conv3x3_bn_stats']} / {lp['conv3x3_bn_stats']}, "
-          f"conv3x3_filter_grad {lr['conv3x3_filter_grad']} / {lp['conv3x3_filter_grad']}; "
+          f"conv3x3_filter_grad {lr['conv3x3_filter_grad']} / {lp['conv3x3_filter_grad']}, "
+          f"conv1x1_filter_grad {lr['conv1x1_filter_grad']} / {lp['conv1x1_filter_grad']}; "
           f"second step: peak memory {runs[True]['peak_gib']:.3f} / "
           f"{runs[False]['peak_gib']:.3f} GiB, {runs[True]['step_s'] * 1e3:.1f} / "
           f"{runs[False]['step_s'] * 1e3:.1f} ms (f32, batch {RN50_BATCH}) [{card}]")
@@ -1397,7 +1410,8 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     check(loss_rel <= 1e-6, runs)
     check(lr["conv3x3_bn_stats"] == 2 * RN50_CONVS and lp["conv3x3_bn_stats"] == RN50_CONVS
           and lr["conv3x3_filter_grad"] == RN50_CONVS
-          and lp["conv3x3_filter_grad"] == RN50_CONVS, (lr, lp))
+          and lp["conv3x3_filter_grad"] == RN50_CONVS
+          and lr["conv1x1_filter_grad"] == lp["conv1x1_filter_grad"] == RN50_1X1, (lr, lp))
     check(runs[True]["peak_gib"] < runs[False]["peak_gib"], runs)
     out["remat"] = {"remat": runs[True], "plain": runs[False], "worst_of_update": worst}
     del states, before, plain_sd, remat_sd
@@ -1609,7 +1623,9 @@ def phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, slice1_dump, CC,
             with torch.inference_mode():
                 got = fn(x)
             torch.cuda.synchronize()
-            result["launches_per_call"][b] = read_counts()["conv3x3_bn_stats"]
+            counts = read_counts()
+            check(counts["conv1x1_filter_grad"] == 0, counts)
+            result["launches_per_call"][b] = counts["conv3x3_bn_stats"]
             with torch.inference_mode(), common.maybe_autocast(device, bf16):
                 want = common.forward_tap(direct, x, "l2norm").float()
             err = (got - want).abs().max().item()
@@ -1664,7 +1680,7 @@ def phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, slice1_dump, CC,
     # fit's validation and the final one each run the CLS_VAL test batches
     want = {"cosine_loss_fwd": 0, "cosine_loss_bwd": 0,
             "conv3x3_bn_stats": RN50_CONVS * (CLS_STEPS + 2 * CLS_VAL),
-            "conv3x3_filter_grad": RN50_CONVS * CLS_STEPS}
+            "conv3x3_filter_grad": RN50_CONVS * CLS_STEPS, "conv1x1_filter_grad": 0}
     check(state.step == CLS_STEPS and counts == want, (state.step, counts))
     data = get_data_generator(name)
     batches = list(data.train_batches(CLS_BATCH, 0, 0))
@@ -1725,11 +1741,11 @@ def phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, slice1_dump, CC,
     check(phase1["launches"] == {
         "cosine_loss_fwd": CLS_STEPS, "cosine_loss_bwd": CLS_STEPS,
         "conv3x3_bn_stats": RN50_CONVS * (CLS_STEPS + CLS_VAL),
-        "conv3x3_filter_grad": 0}, phase1["launches"])
+        "conv3x3_filter_grad": 0, "conv1x1_filter_grad": 0}, phase1["launches"])
     check(phase2 == {
         "cosine_loss_fwd": CLS_STEPS, "cosine_loss_bwd": CLS_STEPS,
         "conv3x3_bn_stats": RN50_CONVS * (CLS_STEPS + 2 * CLS_VAL),
-        "conv3x3_filter_grad": RN50_CONVS * CLS_STEPS}, phase2)
+        "conv3x3_filter_grad": RN50_CONVS * CLS_STEPS, "conv1x1_filter_grad": 0}, phase2)
     print(f"--finetune phase 1: {phase1['backbone_params_checked']} backbone parameters "
           f"bitwise as loaded (the BN running statistics move, as in Keras 2.2), tops "
           f"moved {phase1['tops_moved']}, launches {phase1['launches']}; phase 2 launches "
@@ -2085,14 +2101,16 @@ def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
     runner = (
         "import json, sys, torch\n"
         "from semantic_embeddings_torch.cli import learn_image_embeddings as m\n"
-        "from semantic_embeddings_torch.ops import conv3x3 as CC, cosine_loss as C\n"
+        "from semantic_embeddings_torch.ops import conv1x1 as c1, conv3x3 as CC, "
+        "cosine_loss as C\n"
         "state = m.main(sys.argv[1:])\n"
         "if torch.cuda.is_available():\n"
         "    torch.cuda.synchronize()\n"
         "print('LAUNCHES ' + json.dumps({'steps': state.step,"
         " 'cosine_loss_fwd': C.launches_fwd, 'cosine_loss_bwd': C.launches_bwd,"
         " 'conv3x3_bn_stats': CC.launches_conv_bn_stats,"
-        " 'conv3x3_filter_grad': CC.launches_filter_grad}))\n")
+        " 'conv3x3_filter_grad': CC.launches_filter_grad,"
+        " 'conv1x1_filter_grad': c1.launches_filter_grad}))\n")
     sys.stdout.flush()
     t_recipe = time.perf_counter()
     recipe = subprocess.Popen([sys.executable, "-c", runner, *argv], cwd=ROOT,
@@ -2151,7 +2169,8 @@ def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
           f"plain {rel:.3g} relative; launches of the kernel step {step_counts}")
     check(rel <= 1e-5, rel)
     check(step_counts == {"cosine_loss_fwd": 1, "cosine_loss_bwd": 1,
-                          "conv3x3_bn_stats": 16, "conv3x3_filter_grad": 16}, step_counts)
+                          "conv3x3_bn_stats": 16, "conv3x3_filter_grad": 16,
+                          "conv1x1_filter_grad": RN50_1X1}, step_counts)
     f32_dist = check_against_f64(before, state_64.model, state_k.model, state_p.model,
                                  "f32 ")
     del state_p
@@ -2190,7 +2209,7 @@ def phase14(device, card, tmp, CC, C, reset_counts, read_counts):
     # features' pass each run the test batches once more
     want = {"steps": steps, "cosine_loss_fwd": steps, "cosine_loss_bwd": steps,
             "conv3x3_bn_stats": RN50_CONVS * (steps + (CUB_EPOCHS + 2) * val),
-            "conv3x3_filter_grad": RN50_CONVS * steps}
+            "conv3x3_filter_grad": RN50_CONVS * steps, "conv1x1_filter_grad": 0}
     check(launches == want, (launches, want))
     pipeline = f"file pipeline: {READ_WORKERS} read workers, a queue of 6 batches, " + (
         "native" if plan == "A" else "Pillow") + " decoder"
@@ -2416,7 +2435,8 @@ def phase15(device, card, tmp, hierarchy, feat_path, slice1_dump, rn50_ckpt,
     images = torch.randn(64, SERVE_SIZE, SERVE_SIZE, 3,
                          generator=torch.Generator().manual_seed(15)).to(device)
     equal, counts = same_forward(source, rebuilt, images, reset_counts, read_counts)
-    check(equal and counts["conv3x3_bn_stats"] == RN50_CONVS, (equal, counts))
+    check(equal and counts["conv3x3_bn_stats"] == RN50_CONVS
+          and counts["conv1x1_filter_grad"] == 0, (equal, counts))
     print(f"eval forward of the rebuilt JAX dump at batch 64: bitwise equal to the source "
           f"checkpoint's; launches {counts}")
     del tree, state, rebuilt
@@ -2498,10 +2518,12 @@ def phase15(device, card, tmp, hierarchy, feat_path, slice1_dump, rn50_ckpt,
     check({"backbone/top/kernel", "backbone/top/bias", "cls_top/kernel"}
           <= set(record["skipped"]), record["skipped"][:8])
     want1 = {"cosine_loss_fwd": FT_STEPS, "cosine_loss_bwd": FT_STEPS,
-             "conv3x3_bn_stats": RN50_CONVS * (FT_STEPS + FT_VAL), "conv3x3_filter_grad": 0}
+             "conv3x3_bn_stats": RN50_CONVS * (FT_STEPS + FT_VAL), "conv3x3_filter_grad": 0,
+             "conv1x1_filter_grad": 0}
     want2 = {"cosine_loss_fwd": FT_STEPS, "cosine_loss_bwd": FT_STEPS,
              "conv3x3_bn_stats": RN50_CONVS * (FT_STEPS + 2 * FT_VAL),
-             "conv3x3_filter_grad": RN50_CONVS * FT_STEPS}
+             "conv3x3_filter_grad": RN50_CONVS * FT_STEPS,
+             "conv1x1_filter_grad": RN50_1X1 * FT_STEPS}
     check(record["phase1"] == want1 and phase2 == want2, (record["phase1"], phase2))
     print(f"--finetune from the JAX weight dump: loaded {len(backbone)} backbone parameters "
           f"of {len(sd)} entries, BN running statistics kept their initial values, skipped "
@@ -2561,7 +2583,8 @@ def phase15(device, card, tmp, hierarchy, feat_path, slice1_dump, rn50_ckpt,
         images = torch.randn(32, size, size, 3,
                              generator=torch.Generator().manual_seed(16)).to(device)
         equal, counts = same_forward(model, imported, images, reset_counts, read_counts)
-        check(not differ and equal, (arch, differ[:5], equal))
+        check(not differ and equal and counts["conv1x1_filter_grad"] == 0,
+              (arch, differ[:5], equal, counts))
         if arch == "resnet-50":
             check(counts["conv3x3_bn_stats"] == RN50_CONVS, counts)
         print(f"{arch}: exported in {export_s:.2f} s, imported in {import_s:.2f} s; every "
@@ -2669,20 +2692,24 @@ def rn50_train_step(state, spec, prepare, embedding, plain=False, autocast_dtype
 
 
 def reset_launches():
+    from semantic_embeddings_torch.ops import conv1x1 as c1
     from semantic_embeddings_torch.ops import conv3x3 as CC
     from semantic_embeddings_torch.ops import cosine_loss as C
 
     C.launches_fwd = C.launches_bwd = 0
     CC.launches_conv_bn_stats = CC.launches_filter_grad = 0
+    c1.launches_filter_grad = 0
 
 
 def read_launches():
+    from semantic_embeddings_torch.ops import conv1x1 as c1
     from semantic_embeddings_torch.ops import conv3x3 as CC
     from semantic_embeddings_torch.ops import cosine_loss as C
 
     return {"cosine_loss_fwd": C.launches_fwd, "cosine_loss_bwd": C.launches_bwd,
             "conv3x3_bn_stats": CC.launches_conv_bn_stats,
-            "conv3x3_filter_grad": CC.launches_filter_grad}
+            "conv3x3_filter_grad": CC.launches_filter_grad,
+            "conv1x1_filter_grad": c1.launches_filter_grad}
 
 
 # phase 16: data parallelism on the one card.  16a: phase 8's recipe for 3
@@ -2867,13 +2894,15 @@ def p16_cli(tmp, emb_path, card):
     runner = (
         "import json, sys, torch\n"
         "from semantic_embeddings_torch.cli import learn_image_embeddings as m\n"
-        "from semantic_embeddings_torch.ops import conv3x3 as CC, cosine_loss as C\n"
+        "from semantic_embeddings_torch.ops import conv1x1 as c1, conv3x3 as CC, "
+        "cosine_loss as C\n"
         "state = m.main(sys.argv[1:])\n"
         "torch.cuda.synchronize()\n"
         "print('LAUNCHES ' + json.dumps({'steps': state.step,"
         " 'cosine_loss_fwd': C.launches_fwd, 'cosine_loss_bwd': C.launches_bwd,"
         " 'conv3x3_bn_stats': CC.launches_conv_bn_stats,"
-        " 'conv3x3_filter_grad': CC.launches_filter_grad}))\n")
+        " 'conv3x3_filter_grad': CC.launches_filter_grad,"
+        " 'conv1x1_filter_grad': c1.launches_filter_grad}))\n")
     env_launch = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
                       MASTER_ADDR="localhost", MASTER_PORT=str(parallel.mesh.free_port()))
     sys.stdout.flush()
@@ -2896,6 +2925,7 @@ def p16_cli(tmp, emb_path, card):
         check(launches["steps"] == steps and launches["cosine_loss_fwd"] == steps
               and launches["cosine_loss_bwd"] == steps
               and launches["conv3x3_filter_grad"] == RN50_CONVS * steps
+              and launches["conv1x1_filter_grad"] == RN50_1X1 * steps
               and launches["conv3x3_bn_stats"] > RN50_CONVS * steps, launches)
         out[name] = {"launches": launches, "nccl": "(nccl)" in stdout}
     check(out["launcher_world_1"]["nccl"] and not out["no_launcher"]["nccl"], out)
@@ -3061,7 +3091,8 @@ def phase16(device, card, tmp, p9_path, embedding, labels, emb_path, rn50_ckpt,
     check(not a["unequal"], a["unequal"][:10])
     want = {"cosine_loss_fwd": P16_STEPS, "cosine_loss_bwd": P16_STEPS,
             "conv3x3_bn_stats": RN50_CONVS * (P16_STEPS + 1),
-            "conv3x3_filter_grad": RN50_CONVS * P16_STEPS}
+            "conv3x3_filter_grad": RN50_CONVS * P16_STEPS,
+            "conv1x1_filter_grad": RN50_1X1 * P16_STEPS}
     check(a["launches"]["alone"] == want and a["launches"]["group"] == want, a["launches"])
     out["16a"] = a
     with open(os.path.join(tmp, "p16bc.json")) as f:
@@ -3069,7 +3100,7 @@ def phase16(device, card, tmp, p9_path, embedding, labels, emb_path, rn50_ckpt,
     check(bc["world"] == 2 and bc["backend"] == "gloo", bc)
     print(f"16b-c: each rank's first step, not kept, {bc['warm-up']['seconds']:.2f} s")
     one_step = {"cosine_loss_fwd": 1, "cosine_loss_bwd": 1, "conv3x3_bn_stats": RN50_CONVS,
-                "conv3x3_filter_grad": RN50_CONVS}
+                "conv3x3_filter_grad": RN50_CONVS, "conv1x1_filter_grad": RN50_1X1}
     refs = {"sync": (p9["f64"], p9["kernel"]), "per_replica": (grouped["f64"], grouped["kernel"])}
     for mode, label in (("sync", "16b sync BN"), ("per_replica", "16c per-replica BN")):
         r = bc[mode]
@@ -3392,8 +3423,8 @@ def p17_spatial_recipe(device, card, tmp, embedding):
                          "seconds": [s["seconds"] for s in grid["steps"][dtype]],
                          "one_process_seconds": one[dtype]["seconds"]}
     want = {"cosine_loss_fwd": 1, "cosine_loss_bwd": 1, "conv3x3_bn_stats": RN50_CONVS,
-            "conv3x3_filter_grad": RN50_CONVS, "conv3x3_bn_stats_halo": RN50_CONVS,
-            "conv3x3_filter_grad_halo": RN50_CONVS}
+            "conv3x3_filter_grad": RN50_CONVS, "conv1x1_filter_grad": 0,
+            "conv3x3_bn_stats_halo": RN50_CONVS, "conv3x3_filter_grad_halo": RN50_CONVS}
     for dtype in ("f32", "bf16"):
         for i, s in enumerate(grid["steps"][dtype]):
             print(f"17b {dtype} step {i + 1}: {s['seconds']:.3f} s on the grid (rank 0), "
@@ -3500,6 +3531,148 @@ def phase17(device, card, tmp, embedding, emb_path, CC):
     out["17d"] = p17_pairwise(device, card)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
+def conv1x1_phase(device, card):
+    """Phase 4b: the 1x1 convs' f32 weight-gradient kernel against f64 (and
+    bitwise over two launches) at its ragged cases, a misaligned operand
+    and ResNet-50's 15 shapes at 224 px, batch 128, TF32 off; each timed
+    beside ``conv2d_weight`` (cuDNN, the call it replaces) and its bound; a
+    step's sum over the 36 convs; and the kernel's launches by path: 36 in
+    an f32 ResNet-50 train step (and with ``remat``), none in a bf16 step,
+    an inference forward, an exported program's call or a train step of
+    the other families, and the op not taken under a spatial grid; and the
+    host time the op adds to a host-paced ResNet-50 step.  The
+    main path's runs (phases 8, 12, 13, 14e, 15, 16, 17) count the kernel's
+    launches beside the other kernels' (``read_launches``)."""
+    import torch
+    from semantic_embeddings_torch.models import build_network
+    from semantic_embeddings_torch.models import resnet as rn
+    from semantic_embeddings_torch.ops import conv1x1 as c1
+    from semantic_embeddings_torch.parallel import spatial
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {"checks": {}, "by_shape": {}, "launches": {}}
+    buf = torch.randn(1 + 2 * 64 * 8 * 8, generator=gen, device=device)
+    cases = [(xy, 1, f"misaligned {tuple(xy[0].shape)}")
+             for xy in [(buf[1:].view(2, 64, 8, 8),
+                         torch.randn(2, 128, 8, 8, generator=gen, device=device))]]
+    cases += [(c1.check_inputs(*case, gen), case[-1], f"ragged {case}") for case in c1.RAGGED_CASES]
+    for (x, dy), stride, label in cases:
+        r = c1.check_against_f64(x, dy, stride)
+        out["checks"][label] = {**r, "instance": c1.instance(x, dy, stride)}
+        print(f"{label}: {out['checks'][label]}")
+    sums = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (c, f, ho, stride), count in c1.RESNET50_SHAPES:
+        x, dy = c1.check_inputs(RN50_BATCH, c, f, ho * stride, ho * stride, stride, gen)
+        r = c1.check_against_f64(x, dy, stride)
+        ms = time_ms(lambda: c1._launch_filter_grad(x, dy, stride), 20, 3)
+        dev, dev_record = device_ms(lambda: c1._launch_filter_grad(x, dy, stride), 5)
+        lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(x, (f, c, 1, 1), dy, stride=stride),
+                         20, 3)
+        pixels = RN50_BATCH * ho * ho
+        bound_ms, bound_by = bound(2 * pixels * c * f, 4 * pixels * (c + f) + 4 * c * f, "3xtf32")
+        key = f"({c}, {f}, {ho * ho}, {stride})"
+        out["by_shape"][key] = {
+            "calls_a_step": count, "ms": ms, "device_ms": dev, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "instance": c1.instance(x, dy, stride), "splits": c1.splits(x, dy, stride)[0],
+            "device_ms_by_kernel": dev_record["by_kernel_ms"], **r}
+        for k, v in (("ms", ms), ("device_ms", dev), ("library_ms", lib_ms),
+                     ("bound_ms", bound_ms)):
+            sums[k] += count * v
+        print(f"time 1x1 (C, F, Ho*Wo, stride) {key} x{count}: kernel {ms:.4f} ms (device "
+              f"{dev:.4f} ms), conv2d_weight {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), kernel at {bound_ms / ms:.3f} of it; dw from f64 "
+              f"{r['dw_vs_f64_of_max']:.2e} of max |dw| (cuDNN {r['plain_dw_vs_f64_of_max']:.2e});"
+              f" {out['by_shape'][key]['instance']}  [{card}]")
+        del x, dy
+    torch.cuda.empty_cache()
+    out["step_sums"] = sums
+    print(f"step sum 1x1 (36 convs): kernel {sums['ms']:.4f} ms (device {sums['device_ms']:.4f}"
+          f" ms), conv2d_weight {sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms, "
+          f"kernel at {sums['bound_ms'] / sums['ms']:.3f} of it  [{card}]")
+
+    # host time a step: ResNet-50 f32 train steps at batch 2, 64 px, where
+    # the host sets the pace (the issue time is the step's time), with the
+    # blocks' 1x1 convs through the op and through their own calls
+    model = build_network(10, "resnet-50", generator=torch.Generator().manual_seed(0)).module
+    model = model.to(device)
+    x = torch.randn(2, 64, 64, 3, generator=gen, device=device)
+    blocks = [m for m in model.modules() if isinstance(m, rn._Block)]
+    routes = {"own": lambda conv, x_: conv(x_), "op": c1.conv1x1}
+
+    def step_ms(route, n=20):
+        for b in blocks:
+            b.conv_1x1 = routes[route]
+        for _ in range(3):
+            model(x).sum().backward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            model(x).sum().backward()
+        issued = time.perf_counter()
+        torch.cuda.synchronize()
+        return (issued - t0) / n * 1e3, (time.perf_counter() - t0) / n * 1e3
+
+    # the host's time swings by several ms between readings: eight of them,
+    # alternating, and the difference of each adjacent pair
+    host = {"own": [], "op": []}
+    for route in ("own", "op", "op", "own") * 2:
+        host[route].append(step_ms(route))
+    pairs = [op[1] - own[1] for own, op in zip(host["own"], host["op"])]
+    out["host_ms_a_step"] = {"own_issue_wall_ms": host["own"], "op_issue_wall_ms": host["op"],
+                             "op_minus_own_ms": pairs}
+    print(f"resnet-50 f32 step at batch 2, 64 px (host-paced), ms (issue, wall): 1x1 convs "
+          f"through the op {host['op']}, through their own calls {host['own']}; the op adds "
+          f"{statistics.median(pairs):.3f} ms of host time a step ({RN50_1X1} calls; pairs "
+          f"{', '.join(f'{d:.3f}' for d in pairs)})  [{card}]")
+    del model, x, blocks
+
+    def launches(arch, size=64, train=True, remat=False, autocast=False, export=False):
+        model = build_network(10, arch, generator=torch.Generator().manual_seed(0),
+                              remat=remat).module.to(device)
+        x = torch.randn(2, size, size, 3, generator=gen, device=device)
+        before = c1.launches_filter_grad
+        if export:
+            model.eval()
+            with torch.no_grad():
+                torch.export.export(model, (x,)).module()(x)
+        elif not train:
+            with torch.no_grad():
+                model(x)
+        else:
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+                loss = model(x).float().sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        return c1.launches_filter_grad - before
+
+    runs = {"resnet-50 f32 step": (("resnet-50",), {}, 36),
+            "resnet-50 f32 step, remat": (("resnet-50",), {"remat": True}, 36),
+            "rn18 f32 step (4 projection shortcuts)": (("rn18",), {}, 4),
+            "resnet-50 bf16 step": (("resnet-50",), {"autocast": True}, 0),
+            "resnet-50 inference forward": (("resnet-50",), {"train": False}, 0),
+            "resnet-50 exported program's call": (("resnet-50",), {"export": True}, 0),
+            "densenet-100-12 f32 step": (("densenet-100-12", 32), {}, 0),
+            "nasnet-a f32 step": (("nasnet-a", 32), {}, 0),
+            "resnet-110-wfc f32 step": (("resnet-110-wfc", 32), {}, 0),
+            "wrn-28-10 f32 step": (("wrn-28-10", 32), {}, 0)}
+    for label, (args, kwargs, want) in runs.items():
+        out["launches"][label] = launches(*args, **kwargs)
+        print(f"1x1 filter-gradient launches, {label}: {out['launches'][label]} (want {want})")
+        check(out["launches"][label] == want, (label, out["launches"][label], want))
+    conv = rn.BottleneckBlock(256, 128, stride=2, project=True).to(device).conv_sc
+    x = torch.randn(2, 256, 8, 8, device=device)
+    before = spatial.set_grid(spatial.Grid(2, 2, 0, groups=False))
+    try:
+        out["launches"]["spatial grid: op taken"] = c1.engages(conv, x)
+    finally:
+        spatial.set_grid(before)
+    check(c1.engages(conv, x) and not out["launches"]["spatial grid: op taken"],
+          "the 1x1 op's choice under a spatial grid")
+    print("1x1 op under a (1, 2) spatial grid: not taken (the conv's own call)")
     return out
 
 
@@ -3765,6 +3938,10 @@ def main(argv=None):
                       + (f"{lib:.4f} ms" if lib is not None else "none")
                       + f", bound {step_sums[key]['bound_ms']:.4f} ms  [{card}]")
 
+    phase("4b 1x1 filter-gradient kernel vs f64, timed beside conv2d_weight (TF32 off); "
+          "its launches by path")
+    p4b = conv1x1_phase(device, card)
+
     # -- 5. slice 1 ----------------------------------------------------
     phase("5 slice 1: compute_class_embedding + learn_image_embeddings")
     from semantic_embeddings_torch.cli import learn_image_embeddings
@@ -3986,9 +4163,12 @@ def main(argv=None):
     check(fit_counts == {
         "cosine_loss_fwd": steps, "cosine_loss_bwd": steps,
         "conv3x3_bn_stats": RN50_CONVS * (steps + val_batches),
-        "conv3x3_filter_grad": RN50_CONVS * steps}, fit_counts)
+        "conv3x3_filter_grad": RN50_CONVS * steps,
+        "conv1x1_filter_grad": RN50_1X1 * steps}, fit_counts)
     check(rn50_launches["conv3x3_bn_stats"]
-          == fit_counts["conv3x3_bn_stats"] + RN50_CONVS * val_batches, rn50_launches)
+          == fit_counts["conv3x3_bn_stats"] + RN50_CONVS * val_batches
+          and rn50_launches["conv1x1_filter_grad"] == fit_counts["conv1x1_filter_grad"],
+          rn50_launches)
     # the f32 steps' filter gradients ran on its TF32 wgmma instance
     fit_instance = CC.instance("conv3x3_filter_grad", torch.float32)
     print(f"the f32 filter gradient's {fit_counts['conv3x3_filter_grad']} launches in fit ran "
@@ -4283,7 +4463,24 @@ def main(argv=None):
                       "train_img_per_s_f32": rates, "resnet50_steps": summary,
                       "retrieval": retrieval_rates, "serving": serving,
                       "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13,
-                      "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17}))
+                      "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17,
+                      "conv1x1_filter_grad": p4b,
+                      # the 1x1 filter gradient's launches on the main path's runs
+                      "conv1x1_filter_grad_launches": {
+                          "fit": fit_counts["conv1x1_filter_grad"],
+                          "remat": {run: zoo["remat"][run]["launches"]["conv1x1_filter_grad"]
+                                    for run in ("remat", "plain")},
+                          "classifier": p13["classifier"]["launches"]["conv1x1_filter_grad"],
+                          "finetune": {ph: c["conv1x1_filter_grad"]
+                                       for ph, c in finetune_launches.items()},
+                          "cub_f32_step": p14["step_vs_f64"]["launches_per_step"][
+                              "conv1x1_filter_grad"],
+                          "cub_recipe": cub_launches["conv1x1_filter_grad"],
+                          "finetune_jax": {ph: p15["finetune_jax"][ph]["conv1x1_filter_grad"]
+                                           for ph in ("phase1", "phase2")},
+                          "data_parallel": {k: v["conv1x1_filter_grad"]
+                                            for k, v in data_parallel.items()},
+                          "spatial": p17["17b"]["launches"]["conv1x1_filter_grad"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

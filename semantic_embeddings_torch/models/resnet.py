@@ -19,6 +19,12 @@ is the second kernel.  A block's ``conv_bn_stats`` names the op it calls;
 :func:`use_plain_conv_bn_stats` points it at the plain versions, for the
 reference a run through the kernels is held against.
 
+The 1x1 convs (a bottleneck's ``conv_a`` and ``conv_c``, every projection
+shortcut ``conv_sc``) run through :func:`..ops.conv1x1.conv1x1`, named by a
+block's ``conv_1x1``: in f32 training on the card their weight gradient is
+that op's kernel, anywhere else the conv's own call;
+:func:`use_plain_conv_bn_stats` points it at its plain version too.
+
 Not ported: the JAX module's ``SpaceToDepthStem`` and ``Conv1x1AsDot``
 (TPU matrix-unit levers that ``build_network`` never selects).
 """
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv1x1 import conv1x1, plain_conv1x1
 from ..ops.conv3x3 import conv3x3_bn_stats, plain_conv3x3_bn_stats
 from ..parallel import spatial
 from .layers import (
@@ -59,12 +66,14 @@ def _conv(in_features, features, kernel, stride, generator, **kwargs):
 
 class _Block(nn.Module):
     """What the two block kinds share: ``conv_b`` + ``bn_b`` through the
-    fused op, and the optional 1x1 projection shortcut."""
+    fused op, and the optional 1x1 projection shortcut; the 1x1 convs run
+    through ``conv_1x1``."""
 
     def __init__(self, in_features, out_features, stride, project, bn_epsilon,
                  generator):
         super().__init__()
         self.conv_bn_stats = conv3x3_bn_stats
+        self.conv_1x1 = conv1x1
         if project:
             self.conv_sc = _conv(in_features, out_features, 1, stride, generator)
             self.bn_sc = KerasBatchNorm(out_features, epsilon=bn_epsilon)
@@ -94,7 +103,7 @@ class _Block(nn.Module):
         return self.conv_bn_stats(mid, self.conv_b.weight, top, bottom)
 
     def shortcut(self, x):
-        return self.bn_sc(self.conv_sc(x)) if self.project else x
+        return self.bn_sc(self.conv_1x1(self.conv_sc, x)) if self.project else x
 
 
 class BottleneckBlock(_Block):
@@ -112,9 +121,9 @@ class BottleneckBlock(_Block):
         self.bn_c = KerasBatchNorm(features * 4, epsilon=bn_epsilon)
 
     def forward(self, x):
-        y = torch.relu(self.bn_a(self.conv_a(x)))
+        y = torch.relu(self.bn_a(self.conv_1x1(self.conv_a, x)))
         y = torch.relu(self.conv_bn_b(y))
-        y = self.bn_c(self.conv_c(y))
+        y = self.bn_c(self.conv_1x1(self.conv_c, y))
         return torch.relu(y + self.shortcut(x))
 
 
@@ -191,8 +200,10 @@ class ResNet(nn.Module):
 
 def use_plain_conv_bn_stats(model):
     """Points every block of ``model`` at the plain versions of the fused
-    conv + statistics op and its filter gradient; returns ``model``."""
+    conv + statistics op and its filter gradient, and of the 1x1 convs'
+    weight gradient; returns ``model``."""
     for module in model.modules():
         if isinstance(module, _Block):
             module.conv_bn_stats = plain_conv3x3_bn_stats
+            module.conv_1x1 = plain_conv1x1
     return model

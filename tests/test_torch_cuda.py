@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from semantic_embeddings_torch.embeddings import load_features, save_embeddings
+from semantic_embeddings_torch.ops import conv1x1 as c1
 from semantic_embeddings_torch.ops import conv3x3 as cc
 from semantic_embeddings_torch.ops import cosine_loss as tc
 from semantic_embeddings_torch.ops import topk
@@ -916,3 +917,64 @@ def test_spatial_grid_over_nccl_matches_one_card(device, tmp_path, gpus):
         update = (one[k] - before[k]).abs().max().item()
         gap = (grid[k] - one[k]).abs().max().item()
         assert gap <= 0.25 * update + 1e-7, (k, gap, update)
+
+
+# -- the 1x1 convs' f32 weight gradient ---------------------------------------
+
+
+@pytest.fixture
+def gen(device):
+    return torch.Generator(device=device).manual_seed(0)
+
+
+@pytest.mark.parametrize("shape", [shape for shape, _ in c1.RESNET50_SHAPES])
+def test_conv1x1_filter_grad_at_resnet50_shapes(device, gen, shape):
+    """dw within ``DW_OF_MAX`` of max |dw| of an f64 matrix product, and
+    bitwise the same over two launches, at batch 128."""
+    c, f, ho, stride = shape
+    x, dy = c1.check_inputs(128, c, f, ho * stride, ho * stride, stride, gen)
+    c1.check_against_f64(x, dy, stride)
+
+
+@pytest.mark.parametrize("case", c1.RAGGED_CASES)
+def test_conv1x1_filter_grad_ragged(device, gen, case):
+    c1.check_against_f64(*c1.check_inputs(*case, gen), case[-1])
+
+
+def test_conv1x1_filter_grad_misaligned_operand(device, gen):
+    """x one float into its storage: the threads' loads take it."""
+    x = torch.randn(1 + 2 * 64 * 8 * 8, generator=gen, device=device)[1:].view(2, 64, 8, 8)
+    dy = torch.randn(2, 128, 8, 8, generator=gen, device=device)
+    assert "threads' loads" in c1.instance(x, dy, 1)
+    c1.check_against_f64(x, dy, 1)
+
+
+def test_conv1x1_filter_grad_launches_36_a_resnet50_step(device, gen):
+    """36 launches in an f32 train step (16 conv_a, 16 conv_c, 4 shortcuts),
+    none in a bf16 step or an inference forward."""
+    from semantic_embeddings_torch.models import build_network
+
+    model = build_network(10, "resnet-50", generator=torch.Generator().manual_seed(0))
+    model = model.module.to(device)
+    x = torch.randn(2, 64, 64, 3, generator=gen, device=device)
+    before = c1.launches_filter_grad
+    model(x).sum().backward()
+    torch.cuda.synchronize()
+    assert c1.launches_filter_grad - before == 36
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        loss = model(x).float().sum()
+    loss.backward()
+    with torch.no_grad():
+        model(x)
+    assert c1.launches_filter_grad - before == 36
+
+
+def test_conv1x1_op_and_its_wrapper_on_the_card(device, gen):
+    x, dy = c1.check_inputs(2, 64, 128, 8, 8, 2, gen)
+    torch.library.opcheck(c1.conv1x1_filter_grad, (x, dy, 2))
+    with pytest.raises(TypeError):
+        c1._launch_filter_grad(x.double(), dy.double(), 2)
+    with pytest.raises(ValueError, match="output"):
+        c1._launch_filter_grad(x, dy, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        c1._launch_filter_grad(x.transpose(2, 3), dy.transpose(2, 3), 2)
