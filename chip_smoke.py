@@ -119,7 +119,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    plain loss from the same weights (losses within 1e-6 relative, the
    kernel pair launched 1 + 1 times), then 8 warm steps timed (img/s of
    the median step, peak memory); (c) NASNet-A at 224 px, batch 32, 3 steps through ``fit`` in
-   f32, then one bf16 autocast step; (d) one ResNet-50 step with
+   f32, then one bf16 autocast step, the model's depthwise counter at 220 a
+   forward; (d) one ResNet-50 step with
    ``--remat`` and one without from the same weights: running statistics
    bitwise equal, loss and parameters within 1e-6 of each update,
    ``conv3x3_bn_stats`` launched 32 against 16 times, the filter gradient
@@ -1180,6 +1181,7 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     from semantic_embeddings_torch.cli import common
     from semantic_embeddings_torch.data import SyntheticDataset, get_data_generator
     from semantic_embeddings_torch.models import ARCHITECTURES, EmbeddingModel, build_network
+    from semantic_embeddings_torch.models import nasnet as nasnet_module
     from semantic_embeddings_torch.train import (
         fit, get_lr_schedule, make_eval_step, make_train_step, new_train_state)
 
@@ -1313,11 +1315,15 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     times = []
     tee = _Tee(sys.stdout)
     reset_counts()
+    nasnet_module.depthwise_convs = 0
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(tee):
         state = fit(state, timed(step_for(state, spec, prepare, kernel_loss), times),
                     eval_step, data, schedule, epochs=1, batch_size=NASNET_BATCH)
     counts = read_counts()
+    fit_depthwise = nasnet_module.depthwise_convs
+    # 220 depthwise convs a forward: the 3 steps' and the validation's
+    check(fit_depthwise % 220 == 0 and fit_depthwise >= 3 * 220, fit_depthwise)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", tee.buf.getvalue())
     check(state.step == 3 and counts["cosine_loss_fwd"] == 3
@@ -1328,22 +1334,28 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     torch.cuda.reset_peak_memory_stats()
     raw = next(iter(data.train_batches(NASNET_BATCH, 0, 0)))
     bf16_times = []
+    nasnet_module.depthwise_convs = 0
     _, m16 = timed(step_for(state, spec, prepare, kernel_loss, torch.bfloat16), bf16_times)(
         state, raw, 0.01, torch.Generator(device=device).manual_seed(0))
     peak16 = torch.cuda.max_memory_allocated() / 2**30
     bf16_counts = read_counts()
+    depthwise = nasnet_module.depthwise_convs
+    check(depthwise == 220, depthwise)
     check(math.isfinite(m16["loss"].item()) and bf16_counts["cosine_loss_fwd"] == 4
           and bf16_counts["conv1x1_filter_grad"] == 0, (m16["loss"], bf16_counts))
     out["nasnet"] = {"batch": NASNET_BATCH, "params": sum(p.numel() for p in state.params),
                      "step_s": times, "img_per_s": rate, "peak_gib": peak,
                      "bf16_step_s": bf16_times[0], "bf16_loss": m16["loss"].item(),
-                     "bf16_peak_gib": peak16, "cosine_launches": bf16_counts["cosine_loss_fwd"]}
+                     "bf16_peak_gib": peak16, "cosine_launches": bf16_counts["cosine_loss_fwd"],
+                     "depthwise_convs_per_forward": depthwise,
+                     "depthwise_convs_fit": fit_depthwise}
     print(f"nasnet-a: {out['nasnet']['params']:,} parameters; {len(losses)} printed losses, "
           f"all finite; steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; steps 2-3 "
           f"{rate:.1f} img/s (f32, batch {NASNET_BATCH}), peak {peak:.3f} GiB; bf16 step "
           f"{bf16_times[0] * 1e3:.1f} ms, loss {m16['loss'].item():.6f}, peak {peak16:.3f} GiB; "
           f"cosine launches {bf16_counts['cosine_loss_fwd']} + "
-          f"{bf16_counts['cosine_loss_bwd']} [{card}]")
+          f"{bf16_counts['cosine_loss_bwd']}; depthwise convs {depthwise} a forward "
+          f"({fit_depthwise} through fit) [{card}]")
     del state, eval_step, data, prepare
     torch.cuda.empty_cache()
 

@@ -23,6 +23,11 @@ rule runs on the channel counts and on the reductions so far, and the
 forward checks that the input's sizes agree with it (inputs of 32 px or
 more: every reduction halves the map).  Module names are the Flax names
 (``stem_conv``, ``cell_{id}``, ``adjust/factorize``, ``left1/dw0``, ...).
+
+The forward opens the spans ``nasnet.stem``, ``nasnet.normal_cell`` and
+``nasnet.reduction_cell`` (:mod:`..spans`: recorded only inside a profiler
+session) around the stem and each cell, and ``depthwise_convs`` counts the
+depthwise convs it runs (220 a forward of the large model).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import spans
 from .layers import (
     KerasBatchNorm,
     avg_pool,
@@ -41,6 +47,11 @@ from .layers import (
     top_output,
     zero_pad_same,
 )
+
+
+#: depthwise convs the forwards ran since the process started (or since a
+#: caller reset it)
+depthwise_convs = 0
 
 
 def _bn(features):
@@ -67,6 +78,8 @@ class SepConvBlock(nn.Module):
         self.bn1 = _bn(features)
 
     def forward(self, x):
+        global depthwise_convs
+        depthwise_convs += 2
         x = self.bn0(self.pw0(self.dw0(torch.relu(x))))
         return self.bn1(self.pw1(self.dw1(torch.relu(x))))
 
@@ -251,10 +264,14 @@ class NASNetA(nn.Module):
         """``taps``: a dict that, when given, also receives the pooled
         features as ``avg_pool`` and the top's output as ``embedding`` (or
         ``prob`` under a softmax top)."""
-        x = self.stem_conv(x.permute(0, 3, 1, 2).contiguous())  # NHWC -> NCHW
-        p, cur = None, self.stem_bn(x)
+        with spans.span("nasnet.stem"):
+            x = self.stem_conv(x.permute(0, 3, 1, 2).contiguous())  # NHWC -> NCHW
+            p, cur = None, self.stem_bn(x)
         for name, advance in self.cells:
-            out = getattr(self, name)(p, cur)
+            cell = getattr(self, name)
+            kind = "reduction" if isinstance(cell, ReductionCell) else "normal"
+            with spans.span(f"nasnet.{kind}_cell"):
+                out = cell(p, cur)
             p, cur = (cur, out) if advance else (p, out)
         x = global_avg_pool(torch.relu(cur))
         if taps is not None:
