@@ -45,6 +45,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    with ``remat``), 4 in rn18's, none in a bf16 step, an inference
    forward, an exported program's call or the other families' steps, and
    the op not taken under a spatial grid.
+4c. Hold the three f32 depthwise kernels (forward, input gradient, weight
+   gradient) against f64 and dw bitwise over two launches, at the op's
+   ragged cases and NASNet-A Large's 23 depthwise shapes at batch 128; time
+   each pass there (device and event time) beside its bound, the op's
+   plain version and ATen's call, summed over a step's 220 layers; check
+   that each wrapper launches its one kernel, and that a NASNet-A step
+   launches each kernel 220 times and none of ATen's depthwise kernels,
+   and none under bf16 autocast or a spatial grid.
 5. Slice 1: compute a unitsphere class embedding for a generated 100-leaf
    taxonomy (20 superclasses x 5 leaves) with ``python -m
    semantic_embeddings_torch.cli.compute_class_embedding`` (E E^T must
@@ -120,7 +128,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel pair launched 1 + 1 times), then 8 warm steps timed (img/s of
    the median step, peak memory); (c) NASNet-A at 224 px, batch 32, 3 steps through ``fit`` in
    f32, then one bf16 autocast step, the model's depthwise counter at 220 a
-   forward; (d) one ResNet-50 step with
+   forward and the depthwise kernels' launch counters at 220 each a forward
+   and backward (none in the bf16 step); (d) one ResNet-50 step with
    ``--remat`` and one without from the same weights: running statistics
    bitwise equal, loss and parameters within 1e-6 of each update,
    ``conv3x3_bn_stats`` launched 32 against 16 times, the filter gradient
@@ -1182,6 +1191,7 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     from semantic_embeddings_torch.data import SyntheticDataset, get_data_generator
     from semantic_embeddings_torch.models import ARCHITECTURES, EmbeddingModel, build_network
     from semantic_embeddings_torch.models import nasnet as nasnet_module
+    from semantic_embeddings_torch.ops import depthwise as dwc
     from semantic_embeddings_torch.train import (
         fit, get_lr_schedule, make_eval_step, make_train_step, new_train_state)
 
@@ -1316,14 +1326,18 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     tee = _Tee(sys.stdout)
     reset_counts()
     nasnet_module.depthwise_convs = 0
+    dwc.launches_forward = dwc.launches_input_grad = dwc.launches_grad_weight = 0
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(tee):
         state = fit(state, timed(step_for(state, spec, prepare, kernel_loss), times),
                     eval_step, data, schedule, epochs=1, batch_size=NASNET_BATCH)
     counts = read_counts()
     fit_depthwise = nasnet_module.depthwise_convs
-    # 220 depthwise convs a forward: the 3 steps' and the validation's
+    dw_launches = (dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight)
+    # 220 depthwise convs a forward: the 3 steps' and the validation's, each
+    # through the depthwise kernels (220 of each a forward and backward)
     check(fit_depthwise % 220 == 0 and fit_depthwise >= 3 * 220, fit_depthwise)
+    check(dw_launches == (fit_depthwise, 3 * 220, 3 * 220), (dw_launches, fit_depthwise))
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = re.findall(r"(\w*loss)['\"]?[=:] ?([^\s,}]+)", tee.buf.getvalue())
     check(state.step == 3 and counts["cosine_loss_fwd"] == 3
@@ -1335,12 +1349,16 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
     raw = next(iter(data.train_batches(NASNET_BATCH, 0, 0)))
     bf16_times = []
     nasnet_module.depthwise_convs = 0
+    before16 = (dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight)
     _, m16 = timed(step_for(state, spec, prepare, kernel_loss, torch.bfloat16), bf16_times)(
         state, raw, 0.01, torch.Generator(device=device).manual_seed(0))
     peak16 = torch.cuda.max_memory_allocated() / 2**30
     bf16_counts = read_counts()
     depthwise = nasnet_module.depthwise_convs
     check(depthwise == 220, depthwise)
+    # bf16 under autocast keeps ATen's depthwise kernels
+    check((dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight) == before16,
+          before16)
     check(math.isfinite(m16["loss"].item()) and bf16_counts["cosine_loss_fwd"] == 4
           and bf16_counts["conv1x1_filter_grad"] == 0, (m16["loss"], bf16_counts))
     out["nasnet"] = {"batch": NASNET_BATCH, "params": sum(p.numel() for p in state.params),
@@ -1348,14 +1366,16 @@ def model_zoo(device, card, tmp, emb_path, embedding, labels, kernel_loss,
                      "bf16_step_s": bf16_times[0], "bf16_loss": m16["loss"].item(),
                      "bf16_peak_gib": peak16, "cosine_launches": bf16_counts["cosine_loss_fwd"],
                      "depthwise_convs_per_forward": depthwise,
-                     "depthwise_convs_fit": fit_depthwise}
+                     "depthwise_convs_fit": fit_depthwise,
+                     "depthwise_kernel_launches_fit": dw_launches}
     print(f"nasnet-a: {out['nasnet']['params']:,} parameters; {len(losses)} printed losses, "
           f"all finite; steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; steps 2-3 "
           f"{rate:.1f} img/s (f32, batch {NASNET_BATCH}), peak {peak:.3f} GiB; bf16 step "
           f"{bf16_times[0] * 1e3:.1f} ms, loss {m16['loss'].item():.6f}, peak {peak16:.3f} GiB; "
           f"cosine launches {bf16_counts['cosine_loss_fwd']} + "
           f"{bf16_counts['cosine_loss_bwd']}; depthwise convs {depthwise} a forward "
-          f"({fit_depthwise} through fit) [{card}]")
+          f"({fit_depthwise} through fit; kernel launches forward / input grad / weight grad "
+          f"{dw_launches}) [{card}]")
     del state, eval_step, data, prepare
     torch.cuda.empty_cache()
 
@@ -3688,6 +3708,152 @@ def conv1x1_phase(device, card):
     return out
 
 
+def depthwise_phase(device, card):
+    """Phase 4c: the three depthwise kernels (forward, input gradient,
+    weight gradient) against f64, and dw bitwise over two launches, at the
+    op's ragged cases and NASNet-A Large's 23 depthwise shapes at 224 px,
+    batch 128, TF32 off; at those shapes each pass's device time (profiler)
+    and event time a call beside its bound, the op's plain version on the
+    card (``F.pad`` + ATen) and ATen's call as the port made it before
+    (``library_ms``: ``F.conv2d`` with its symmetric padding, or ``F.pad``
+    first), and a step's sums over the 220 layers; each wrapper launching
+    its one kernel, named as the benchmark's readers expect; and the
+    launches of a NASNet-A step at 64 px: 220 of each kernel, no ATen
+    depthwise kernel, none under autocast or a spatial grid."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_embeddings_torch.models import build_network, nasnet
+    from semantic_embeddings_torch.ops import depthwise as dwc
+    from semantic_embeddings_torch.parallel import spatial
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {"checks": {}, "by_shape": {}, "launches": {}}
+    for case in dwc.RAGGED_CASES:
+        r = dwc.check_against_f64(*dwc.check_inputs(*case, gen), case[-1])
+        out["checks"][f"ragged {case}"] = r
+        print(f"depthwise ragged {case}: {r}")
+    passes = ("forward", "input_grad", "grad_weight")
+    sums = {p: {"device_ms": 0.0, "ms": 0.0, "plain_device_ms": 0.0, "library_device_ms": 0.0,
+                "bound_ms": 0.0} for p in passes}
+    for (c, k, s, h), count in dwc.NASNET_SHAPES:
+        x, wt, dy = dwc.check_inputs(RN50_BATCH, c, h, h, k, s, gen)
+        r = dwc.check_against_f64(x, wt, dy, s)
+        ho = dwc.out_size(h, s)
+        pb, pa = dwc.same_pads(h, k, s)  # square maps: the same in both axes
+        sym = pb == pa
+
+        def lib_input(xs=x.shape):
+            if sym:
+                return torch.nn.grad.conv2d_input(xs, wt, dy, s, pb, groups=c)
+            padded = (xs[0], c, h + pb + pa, h + pb + pa)
+            return torch.nn.grad.conv2d_input(padded, wt, dy, s, groups=c)[:, :, pb:pb + h,
+                                                                             pb:pb + h]
+
+        calls = {
+            "forward": (lambda: dwc._launch_forward(x, wt, s),
+                        lambda: dwc._plain_forward(x, wt, s),
+                        (lambda: F.conv2d(x, wt, None, s, pb, groups=c)) if sym else
+                        (lambda: F.conv2d(F.pad(x, (pb, pa, pb, pa)), wt, None, s, groups=c))),
+            "input_grad": (lambda: dwc._launch_input_grad(dy, wt, h, h, s),
+                           lambda: dwc._plain_input_grad(dy, wt, h, h, s), lib_input),
+            "grad_weight": (lambda: dwc._launch_grad_weight(x, dy, k, s),
+                            lambda: dwc._plain_grad_weight(x, dy, k, s),
+                            (lambda: torch.nn.grad.conv2d_weight(x, wt.shape, dy, s, pb,
+                                                                 groups=c)) if sym else
+                            (lambda: torch.nn.grad.conv2d_weight(
+                                F.pad(x, (pb, pa, pb, pa)), wt.shape, dy, s, groups=c)))}
+        xs, ys, ws = x.numel(), dy.numel(), wt.numel()
+        nbytes = {"forward": 4 * (xs + ws + ys), "input_grad": 4 * (ys + ws + xs),
+                  "grad_weight": 4 * (xs + ys + ws)}
+        key = f"({c}, {k}, {s}, {h})"
+        row = {"layers_a_step": count, **r}
+        for p in passes:
+            kernel, plain, lib = calls[p]
+            dev, record = device_ms(kernel, 20)
+            names = list(record["by_kernel_ms"])
+            check(len(names) == 1 and dwc.KERNEL_NAMES[p] in names[0], (p, names))
+            ms = time_ms(kernel, 20, 3)
+            plain_dev = device_ms(plain, 20)[0]
+            lib_dev = device_ms(lib, 20)[0]
+            bound_ms, bound_by = bound(2 * k * k * ys, nbytes[p], "float32")
+            row[p] = {"device_ms": dev, "ms": ms, "plain_device_ms": plain_dev,
+                      "library_device_ms": lib_dev, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / dev, "kernel": names[0]}
+            for field in sums[p]:
+                sums[p][field] += count * row[p][field]
+        out["by_shape"][key] = row
+        print(f"depthwise (C, k, stride, H) {key} x{count}, batch {RN50_BATCH}: "
+              + "; ".join(f"{p} {row[p]['device_ms']:.4f} ms device ({row[p]['ms']:.4f} event), "
+                          f"bound {row[p]['bound_ms']:.4f} ({row[p]['share_of_bound']:.3f}), "
+                          f"plain {row[p]['plain_device_ms']:.4f}, ATen "
+                          f"{row[p]['library_device_ms']:.4f}" for p in passes)
+              + f"; from f64 y {r['y_vs_f64_of_max']:.2e} dx {r['dx_vs_f64_of_max']:.2e} dw "
+              f"{r['dw_vs_f64_of_max']:.2e} (ATen {r['aten_y_vs_f64_of_max']:.2e} / "
+              f"{r['aten_dx_vs_f64_of_max']:.2e} / {r['aten_dw_vs_f64_of_max']:.2e})  [{card}]")
+        del x, wt, dy
+    torch.cuda.empty_cache()
+    out["step_sums"] = sums
+    for p in passes:
+        t = sums[p]
+        print(f"depthwise step sum {p} (220 layers): kernels {t['device_ms']:.3f} ms device "
+              f"({t['ms']:.3f} event), bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_ms'] / t['device_ms']:.3f} of it), plain {t['plain_device_ms']:.3f}, "
+              f"ATen {t['library_device_ms']:.3f}  [{card}]")
+    total = {f: sum(sums[p][f] for p in passes) for f in sums["forward"]}
+    out["step_total"] = total
+    print(f"depthwise step total: kernels {total['device_ms']:.3f} ms device, bound "
+          f"{total['bound_ms']:.3f} ms ({total['bound_ms'] / total['device_ms']:.3f} of it), "
+          f"ATen {total['library_device_ms']:.3f}  [{card}]")
+
+    # a NASNet-A forward and backward at 64 px, batch 2: every depthwise
+    # conv through the op, under the profiler; then bf16 autocast and a
+    # spatial grid keep ATen's call
+    model = build_network(10, "nasnet-a", generator=torch.Generator().manual_seed(0)).module
+    model = model.to(device)
+    img = torch.randn(2, 64, 64, 3, generator=gen, device=device)
+
+    def counters():
+        return (dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight)
+
+    model(img).float().sum().backward()
+    torch.cuda.synchronize()
+    before = counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model(img).float().sum().backward()
+        torch.cuda.synchronize()
+    step = [a - b for a, b in zip(counters(), before)]
+    kernels = {e.key: e.count for e in prof.key_averages() if "depthwise" in e.key}
+    ours = {p: sum(n for key, n in kernels.items() if dwc.KERNEL_NAMES[p] in key)
+            for p in passes}
+    aten = {key: n for key, n in kernels.items() if "conv_depthwise2d" in key
+            and not any(name in key for name in dwc.KERNEL_NAMES.values())}
+    out["launches"]["f32 step"] = {"counters": step, "profiled": ours, "aten": aten}
+    print(f"nasnet-a f32 step at 64 px: launch counters {step}, profiled {ours}, ATen's "
+          f"depthwise kernels {aten or 'none'}")
+    check(step == [220, 220, 220] and list(ours.values()) == [220, 220, 220] and not aten,
+          (step, ours, aten))
+    before = counters()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        loss = model(img).float().sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    out["launches"]["bf16 step"] = [a - b for a, b in zip(counters(), before)]
+    conv = next(m for m in model.modules() if isinstance(m, nasnet.SepConvBlock)).dw0
+    x = torch.randn(2, conv.in_channels, 8, 8, device=device)
+    previous = spatial.set_grid(spatial.Grid(2, 2, 0, groups=False))
+    try:
+        out["launches"]["spatial grid: op taken"] = dwc.engages(conv, x)
+    finally:
+        spatial.set_grid(previous)
+    print(f"nasnet-a bf16 step: launches {out['launches']['bf16 step']} (want none); under a "
+          f"(1, 2) spatial grid the op taken: {out['launches']['spatial grid: op taken']}")
+    check(out["launches"]["bf16 step"] == [0, 0, 0] and dwc.engages(conv, x)
+          and not out["launches"]["spatial grid: op taken"], out["launches"])
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3953,6 +4119,9 @@ def main(argv=None):
     phase("4b 1x1 filter-gradient kernel vs f64, timed beside conv2d_weight (TF32 off); "
           "its launches by path")
     p4b = conv1x1_phase(device, card)
+    phase("4c depthwise kernels vs f64 at NASNet-A's 23 shapes, timed beside their bound and "
+          "ATen's calls (TF32 off); their launches in a NASNet-A step")
+    p4c = depthwise_phase(device, card)
 
     # -- 5. slice 1 ----------------------------------------------------
     phase("5 slice 1: compute_class_embedding + learn_image_embeddings")
@@ -4476,7 +4645,7 @@ def main(argv=None):
                       "retrieval": retrieval_rates, "serving": serving,
                       "slice1_feature_spread": collapse, "zoo": zoo, "phase13": p13,
                       "phase14": p14, "phase15": p15, "phase16": p16, "phase17": p17,
-                      "conv1x1_filter_grad": p4b,
+                      "conv1x1_filter_grad": p4b, "depthwise_conv": p4c,
                       # the 1x1 filter gradient's launches on the main path's runs
                       "conv1x1_filter_grad_launches": {
                           "fit": fit_counts["conv1x1_filter_grad"],

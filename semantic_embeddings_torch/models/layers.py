@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import parallel
+from ..ops import depthwise
 from ..parallel import spatial
 
 
@@ -121,7 +122,10 @@ class Conv2dSame(nn.Conv2d):
     conv on an even input pads (0, 1), where ``padding=1`` would pad (1, 1)
     and shift every downsampling stage by one pixel.  ``groups`` as in
     ``nn.Conv2d`` (Flax's ``feature_group_count``; depthwise when it equals
-    the input features).
+    the input features).  A depthwise conv that :func:`..ops.depthwise.engages`
+    (f32 on the card, no autocast or spatial grid) runs through the port's
+    depthwise kernels, which pad in shared memory; anything else through
+    ``F.conv2d``.
     """
 
     def __init__(self, in_features, features, kernel, stride=1, use_bias=True,
@@ -137,6 +141,8 @@ class Conv2dSame(nn.Conv2d):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if depthwise.engages(self, x):
+            return depthwise.depthwise_conv(self, x)
         k, s, g = self.kernel_size[0], self.stride[0], self.groups
         if spatial.active():
             return self._rows_forward(x)

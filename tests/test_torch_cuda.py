@@ -15,6 +15,7 @@ from semantic_embeddings_torch.embeddings import load_features, save_embeddings
 from semantic_embeddings_torch.ops import conv1x1 as c1
 from semantic_embeddings_torch.ops import conv3x3 as cc
 from semantic_embeddings_torch.ops import cosine_loss as tc
+from semantic_embeddings_torch.ops import depthwise as dwc
 from semantic_embeddings_torch.ops import topk
 
 pytestmark = pytest.mark.cuda
@@ -978,3 +979,72 @@ def test_conv1x1_op_and_its_wrapper_on_the_card(device, gen):
         c1._launch_filter_grad(x, dy, 1)
     with pytest.raises(ValueError, match="contiguous"):
         c1._launch_filter_grad(x.transpose(2, 3), dy.transpose(2, 3), 2)
+
+
+# -- NASNet-A's f32 depthwise convs --------------------------------------------
+
+
+@pytest.mark.parametrize("case", dwc.RAGGED_CASES)
+def test_depthwise_kernels_ragged(device, gen, case):
+    """y, dx and dw within ``OF_MAX`` of max |output| of f64, dw bitwise the
+    same over two launches."""
+    dwc.check_against_f64(*dwc.check_inputs(*case, gen), case[-1])
+
+
+@pytest.mark.parametrize("shape", [shape for shape, _ in dwc.NASNET_SHAPES])
+def test_depthwise_kernels_at_nasnet_shapes(device, gen, shape):
+    """NASNet-A Large's 23 depthwise shapes at 224 px, batch 32."""
+    c, k, stride, h = shape
+    dwc.check_against_f64(*dwc.check_inputs(32, c, h, h, k, stride, gen), stride)
+
+
+def test_depthwise_misaligned_operands(device, gen):
+    """x, dy and the outputs one float into their storage."""
+    n, c, h, k, s = 2, 5, 9, 5, 2
+    ho = dwc.out_size(h, s)
+    x = torch.randn(1 + n * c * h * h, generator=gen, device=device)[1:].view(n, c, h, h)
+    dy = torch.randn(1 + n * c * ho * ho, generator=gen, device=device)[1:].view(n, c, ho, ho)
+    dwc.check_against_f64(x, torch.randn(c, 1, k, k, generator=gen, device=device), dy, s)
+
+
+def test_depthwise_launches_220_of_each_a_nasnet_step(device, gen):
+    """Each pass's kernel 220 times in an f32 step of NASNet-A, none of
+    ATen's depthwise kernels; none under bf16 autocast."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_embeddings_torch.models import build_network
+
+    model = build_network(10, "nasnet-a", generator=torch.Generator().manual_seed(0))
+    model = model.module.to(device)
+    x = torch.randn(2, 64, 64, 3, generator=gen, device=device)
+    model(x).sum().backward()
+    before = (dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model(x).sum().backward()
+        torch.cuda.synchronize()
+    after = (dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight)
+    assert [a - b for a, b in zip(after, before)] == [220, 220, 220]
+    names = {e.key: e.count for e in prof.key_averages() if "conv_depthwise2d" in e.key}
+    for kind, name in dwc.KERNEL_NAMES.items():
+        assert sum(n for key, n in names.items() if name in key) == 220, (kind, names)
+    assert sum(names.values()) == 660, names
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        loss = model(x).float().sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (dwc.launches_forward, dwc.launches_input_grad, dwc.launches_grad_weight) == after
+
+
+def test_depthwise_ops_and_wrappers_on_the_card(device, gen):
+    x, wt, dy = dwc.check_inputs(2, 3, 7, 6, 5, 2, gen)
+    torch.library.opcheck(dwc.depthwise_conv_forward, (x, wt, 2))
+    torch.library.opcheck(dwc.depthwise_conv_input_grad, (dy, wt, 7, 6, 2))
+    torch.library.opcheck(dwc.depthwise_conv_grad_weight, (x, dy, 5, 2))
+    with pytest.raises(TypeError):
+        dwc._launch_forward(x.double(), wt.double(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        dwc._launch_forward(x.transpose(2, 3), wt, 2)
+    with pytest.raises(ValueError, match="output"):
+        dwc._launch_grad_weight(x, dy, 5, 1)
+    with pytest.raises(ValueError, match="built for"):
+        dwc._launch_forward(x, torch.randn(3, 1, 4, 4, device=device), 2)
