@@ -452,19 +452,22 @@ def conv_records(CC, device, seed=4):
     statistics launch) and of dw (one filter-gradient launch), and each
     wrapper's host microseconds a call (``host_us``).  ``CC`` is a tree's
     ``semantic_embeddings_torch.ops.conv3x3``, so that the kernels of two
-    trees can be held together bit for bit on the same inputs."""
+    trees can be held together bit for bit on the same inputs (this tree's
+    :mod:`~semantic_embeddings_torch.ops.checks` draws them)."""
     import hashlib
 
     import torch
+
+    from semantic_embeddings_torch.ops import checks
 
     def sha(t):
         return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
 
     gen = torch.Generator(device=device).manual_seed(seed)
     records = {}
-    for case in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448:
+    for case in checks.STAGE_SHAPES + checks.STAGE_SHAPES_448:
         for dtype in (torch.float32, torch.bfloat16):
-            x, wt, dy = CC.check_inputs(case, dtype, gen)
+            x, wt, dy = checks.conv3x3_check_inputs(case, dtype, gen)
             y, s, ss = CC._launch_conv_bn_stats(x, wt)
             dw = CC._launch_filter_grad(x, dy)
             records[case, dtype] = {
@@ -1583,11 +1586,12 @@ def phase13(device, card, tmp, rn50_ckpt, emb_path, embedding, slice1_dump, CC,
 
     # -- 13e (first: it is short). dispatch through the ops, host time -----
     phase("13e host time a call: each custom op against its kernel's wrapper called directly")
+    from semantic_embeddings_torch.ops import checks
     from semantic_embeddings_torch.ops import cosine_loss as C
 
     gen = torch.Generator(device=device).manual_seed(0)
     z, t, g = C.check_inputs((BATCH, 100), torch.float32, gen)
-    x, w, dy = CC.check_inputs((2, 7, 7, 32, 32), torch.float32, gen)
+    x, w, dy = checks.conv3x3_check_inputs((2, 7, 7, 32, 32), torch.float32, gen)
     ops = torch.ops.semantic_embeddings_torch
     pairs = {
         "cosine_loss_fwd": (lambda: ops.cosine_loss_fwd(z, t), lambda: C._launch_forward(z, t)),
@@ -3205,25 +3209,26 @@ P17_LEAVES = 1000
 
 def p17_halo_kernels(device, card, CC):
     """17a: both kernels, both dtypes, with halo rows at the 448-px
-    recipe's shard shapes (``CC.HALO_CASES``): each held to its plain halo
+    recipe's shard shapes (``checks.HALO_CASES``): each held to its plain halo
     version and to the rows of the whole-image launch
-    (``CC.check_halo_shards``), and timed per call on its largest shard
+    (``checks.check_halo_shards``), and timed per call on its largest shard
     beside the whole-image launch scaled to the same rows and the shard's
     bound."""
     import torch
 
     from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.ops import checks
 
     common.set_float32_precision()  # TF32 off for every check against the plain versions
     gen = torch.Generator(device=device).manual_seed(17)
     out = {}
-    for case in CC.HALO_CASES:
+    for case in checks.HALO_CASES:
         b, h, w, c, f, spatial = case
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
-            x, wt, dy = CC.check_inputs(case[:5], dtype, gen)
-            err = CC.check_halo_shards(x, wt, dy, spatial)
-            a, b_, top, bottom = CC.row_shards(x, spatial)[0]
+            x, wt, dy = checks.conv3x3_check_inputs(case[:5], dtype, gen)
+            err = checks.check_halo_shards(x, wt, dy, spatial)
+            a, b_, top, bottom = checks.row_shards(x, spatial)[0]
             xs, dys = x[:, :, a:b_].contiguous(), dy[:, :, a:b_].contiguous()
             rows = b_ - a
             conv_ms = time_ms(lambda: CC._launch_conv_bn_stats(xs, wt, top, bottom), 20, 3)
@@ -3581,6 +3586,7 @@ def conv1x1_phase(device, card):
     import torch
     from semantic_embeddings_torch.models import build_network
     from semantic_embeddings_torch.models import resnet as rn
+    from semantic_embeddings_torch.ops import checks
     from semantic_embeddings_torch.ops import conv1x1 as c1
     from semantic_embeddings_torch.parallel import spatial
 
@@ -3590,15 +3596,16 @@ def conv1x1_phase(device, card):
     cases = [(xy, 1, f"misaligned {tuple(xy[0].shape)}")
              for xy in [(buf[1:].view(2, 64, 8, 8),
                          torch.randn(2, 128, 8, 8, generator=gen, device=device))]]
-    cases += [(c1.check_inputs(*case, gen), case[-1], f"ragged {case}") for case in c1.RAGGED_CASES]
+    cases += [(checks.conv1x1_check_inputs(*case, gen), case[-1], f"ragged {case}")
+              for case in checks.CONV1X1_RAGGED_CASES]
     for (x, dy), stride, label in cases:
-        r = c1.check_against_f64(x, dy, stride)
+        r = checks.conv1x1_check_against_f64(x, dy, stride)
         out["checks"][label] = {**r, "instance": c1.instance(x, dy, stride)}
         print(f"{label}: {out['checks'][label]}")
     sums = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for (c, f, ho, stride), count in c1.RESNET50_SHAPES:
-        x, dy = c1.check_inputs(RN50_BATCH, c, f, ho * stride, ho * stride, stride, gen)
-        r = c1.check_against_f64(x, dy, stride)
+    for (c, f, ho, stride), count in checks.RESNET50_1X1_SHAPES:
+        x, dy = checks.conv1x1_check_inputs(RN50_BATCH, c, f, ho * stride, ho * stride, stride, gen)
+        r = checks.conv1x1_check_against_f64(x, dy, stride)
         ms = time_ms(lambda: c1._launch_filter_grad(x, dy, stride), 20, 3)
         dev, dev_record = device_ms(lambda: c1._launch_filter_grad(x, dy, stride), 5)
         lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(x, (f, c, 1, 1), dy, stride=stride),
@@ -3725,21 +3732,22 @@ def depthwise_phase(device, card):
     from torch.profiler import ProfilerActivity, profile
 
     from semantic_embeddings_torch.models import build_network, nasnet
+    from semantic_embeddings_torch.ops import checks
     from semantic_embeddings_torch.ops import depthwise as dwc
     from semantic_embeddings_torch.parallel import spatial
 
     gen = torch.Generator(device=device).manual_seed(0)
     out = {"checks": {}, "by_shape": {}, "launches": {}}
-    for case in dwc.RAGGED_CASES:
-        r = dwc.check_against_f64(*dwc.check_inputs(*case, gen), case[-1])
+    for case in checks.DEPTHWISE_RAGGED_CASES:
+        r = checks.depthwise_check_against_f64(*checks.depthwise_check_inputs(*case, gen), case[-1])
         out["checks"][f"ragged {case}"] = r
         print(f"depthwise ragged {case}: {r}")
     passes = ("forward", "input_grad", "grad_weight")
     sums = {p: {"device_ms": 0.0, "ms": 0.0, "plain_device_ms": 0.0, "library_device_ms": 0.0,
                 "bound_ms": 0.0} for p in passes}
-    for (c, k, s, h), count in dwc.NASNET_SHAPES:
-        x, wt, dy = dwc.check_inputs(RN50_BATCH, c, h, h, k, s, gen)
-        r = dwc.check_against_f64(x, wt, dy, s)
+    for (c, k, s, h), count in checks.NASNET_SHAPES:
+        x, wt, dy = checks.depthwise_check_inputs(RN50_BATCH, c, h, h, k, s, gen)
+        r = checks.depthwise_check_against_f64(x, wt, dy, s)
         ho = dwc.out_size(h, s)
         pb, pa = dwc.same_pads(h, k, s)  # square maps: the same in both axes
         sym = pb == pa
@@ -3881,6 +3889,7 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     from semantic_embeddings_torch import _build
     from semantic_embeddings_torch.cli import common
+    from semantic_embeddings_torch.ops import checks
     from semantic_embeddings_torch.ops import conv3x3 as CC
     from semantic_embeddings_torch.ops import cosine_loss as C
 
@@ -3991,50 +4000,52 @@ def main(argv=None):
     # split in registers, B by swizzled tensor copies split in shared
     # memory), the f32 conv's (3xTF32: register A split in registers, the
     # weight slice split in shared memory and read at each tap's offset)
-    wgmma_err = CC.check_wgmma_selftest(torch.Generator(device=device).manual_seed(14))
-    print(f"wgmma self-test at (rows, start row) {CC.WGMMA_SELFTEST_CASES}: max |err| "
+    wgmma_err = checks.check_wgmma_selftest(torch.Generator(device=device).manual_seed(14))
+    print(f"wgmma self-test at (rows, start row) {checks.WGMMA_SELFTEST_CASES}: max |err| "
           f"{wgmma_err:.3g} of the sum of |terms|")
-    conv_wgmma_err = CC.check_conv_wgmma_selftest(torch.Generator(device=device).manual_seed(15))
-    print(f"conv wgmma self-test at N {CC.CONV_WGMMA_N}, taps 0, 4, 8: max |err| "
+    conv_wgmma_err = checks.check_conv_wgmma_selftest(
+        torch.Generator(device=device).manual_seed(15))
+    print(f"conv wgmma self-test at N {checks.CONV_WGMMA_N}, taps 0, 4, 8: max |err| "
           f"{conv_wgmma_err:.3g} of the sum of |terms|")
-    tf32_err = CC.check_tf32_selftest(torch.Generator(device=device).manual_seed(16))
+    tf32_err = checks.check_tf32_selftest(torch.Generator(device=device).manual_seed(16))
     print(f"tf32 wgmma self-test at 1-13 slices: max |err| "
           f"{tf32_err:.3g} of the sum of |terms|")
     # the f32 filter gradient's accumulation: products summed in the tensor
     # cores over 8 .. 64 pixels (the kernel's depth: 64) or all 4,096, then
     # f32 adds; its distance from f64 in units of max |d|
-    tf32_acc = CC.tf32_accumulation(torch.Generator(device=device).manual_seed(17))
+    tf32_acc = checks.tf32_accumulation(torch.Generator(device=device).manual_seed(17))
     print("tf32 accumulation over 4,096 pixels, max |err| / max |d| by pixels summed in "
           "the tensor cores: " + ", ".join(f"{k or 'all'} {v:.3g}" for k, v in tf32_acc.items())
           + f"  [{card}]")
-    check(tf32_acc[8 * CC.TF32_FLUSH_SLICES] <= CC.DW_OF_MAX / 4, tf32_acc)
-    conv_tf32_err = CC.check_conv_tf32_selftest(torch.Generator(device=device).manual_seed(18))
-    print(f"conv tf32 wgmma self-test at N {CC.CONV_WGMMA_N}, 1-8 chunks: max |err| "
+    check(tf32_acc[8 * checks.TF32_FLUSH_SLICES] <= checks.DW_OF_MAX / 4, tf32_acc)
+    conv_tf32_err = checks.check_conv_tf32_selftest(torch.Generator(device=device).manual_seed(18))
+    print(f"conv tf32 wgmma self-test at N {checks.CONV_WGMMA_N}, 1-8 chunks: max |err| "
           f"{conv_tf32_err:.3g} of the sum of |terms|")
     # the f32 conv's accumulation over 4,608 terms: products summed in the
     # tensor cores a chunk at a time (the kernel's 72) or more, or all, then
     # f32 adds; its distance from f64 in units of max |d|, at each N
-    conv_tf32_acc = {n: CC.conv_tf32_accumulation(torch.Generator(device=device).manual_seed(19), n)
-                     for n in CC.CONV_WGMMA_N}
+    conv_tf32_acc = {n: checks.conv_tf32_accumulation(
+                         torch.Generator(device=device).manual_seed(19), n)
+                     for n in checks.CONV_WGMMA_N}
     for n, errs in conv_tf32_acc.items():
         print(f"conv tf32 accumulation over 4,608 terms at N {n}, max |err| / max |d| by terms "
               "summed in the tensor cores: " + ", ".join(f"{k or 'all'} {v:.3g}"
                                                          for k, v in errs.items()) + f"  [{card}]")
-        check(errs[CC.CONV_TF32_CHUNK * CC.CONV_TF32_FLUSH] <= CC.Y_OF_MAX / 4, errs)
+        check(errs[checks.CONV_TF32_CHUNK * checks.CONV_TF32_FLUSH] <= checks.Y_OF_MAX / 4, errs)
     f32 = torch.float32
-    for case in CC.CHECK_CASES:
+    for case in checks.CHECK_CASES:
         b, h, w, c, f = case
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
-            x, wt, dy = CC.check_inputs(case, dtype, gen)
+            x, wt, dy = checks.conv3x3_check_inputs(case, dtype, gen)
             # raises unless both kernels match the plain versions within
-            # CC.CHECK_TOL and the statistics' bounds (stated there)
-            errs = CC.check_against_plain(x, wt, dy)
+            # checks.CHECK_TOL and the statistics' bounds (stated there)
+            errs = checks.check_against_plain(x, wt, dy)
             for key, value in errs.items():
                 conv_err[dtype][key] = max(conv_err[dtype].get(key, 0.0), value)
             print(f"{case} {name}: max |err| " + ", ".join(
                 f"{k} {v:.3g}" for k, v in errs.items()))
-            if case not in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448:
+            if case not in checks.STAGE_SHAPES + checks.STAGE_SHAPES_448:
                 continue
             flop = 2 * b * h * w * 9 * c * f
             item = x.element_size()
@@ -4102,7 +4113,7 @@ def main(argv=None):
     step_sums = {}
     for kernel_name in ("conv3x3_bn_stats", "conv3x3_filter_grad"):
         for dtype in (f32, torch.bfloat16):
-            for size, shapes in (("224", CC.STAGE_SHAPES), ("448", CC.STAGE_SHAPES_448)):
+            for size, shapes in (("224", checks.STAGE_SHAPES), ("448", checks.STAGE_SHAPES_448)):
                 rows = [conv_times[kernel_name, case, dtype] for case in shapes]
                 key = f"{kernel_name} {str(dtype)[6:]} {size}"
                 step_sums[key] = {
@@ -4559,7 +4570,7 @@ def main(argv=None):
             "ms_bf16": times[part, bf16][0], "plain_ms_bf16": times[part, bf16][1],
             "bound_ms_bf16": cos_bound[part, bf16][0],
         })
-    stage1 = CC.STAGE_SHAPES[0]
+    stage1 = checks.STAGE_SHAPES[0]
     for name, source, replaces, err_key in (
             ("conv3x3_bn_stats", "conv3x3_bn_stats.cu",
              "tools/fused_conv_bn_prototype.py:32", "y"),
@@ -4623,7 +4634,7 @@ def main(argv=None):
             "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound_ms"],
             "library_ms_bf16": t16["library_ms"],
             "by_shape": {f"{case} {str(dtype)[6:]}": conv_times[name, case, dtype]
-                         for case in CC.STAGE_SHAPES + CC.STAGE_SHAPES_448
+                         for case in checks.STAGE_SHAPES + checks.STAGE_SHAPES_448
                          for dtype in (f32, bf16)},
             # phase 4: launches x ms a call over a step's stages, per dtype
             # and shape set ("224": batch 128, "448": batch 24)

@@ -60,6 +60,7 @@ def main():
         print("conv_clocks: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from semantic_embeddings_torch.ops import checks
     from semantic_embeddings_torch.ops import conv3x3 as CC
 
     card = subprocess.run(
@@ -72,10 +73,10 @@ def main():
             ("conv3x3_bn_stats", torch.float32, fwd, CONV_BUCKETS),
             ("conv3x3_filter_grad", torch.bfloat16, wgrad, GRAD_BUCKETS),
             ("conv3x3_filter_grad", torch.float32, wgrad, GRAD_BUCKETS)]
-    for case in (CC.STAGE_SHAPES[0], CC.STAGE_SHAPES[2]):
+    for case in (checks.STAGE_SHAPES[0], checks.STAGE_SHAPES[2]):
         for kernel, dtype, lib, buckets in runs:
-            x, wt, dy = CC.check_inputs(case, dtype,
-                                        torch.Generator(device="cuda").manual_seed(0))
+            x, wt, dy = checks.conv3x3_check_inputs(case, dtype,
+                                                    torch.Generator(device="cuda").manual_seed(0))
             if kernel == "conv3x3_bn_stats":
                 def call():
                     return CC._launch_conv_bn_stats(x, wt)

@@ -248,67 +248,3 @@ def conv1x1(conv, x, filter_grad=None):
 
 #: :func:`conv1x1` with dw from the plain version (a reference)
 plain_conv1x1 = functools.partial(conv1x1, filter_grad=_plain_filter_grad)
-
-
-# ---------------------------------------------------------------------------
-# Holding the kernel against f64 (on the card)
-# ---------------------------------------------------------------------------
-
-#: (C, F, Ho, stride) of ResNet-50's 1x1 convs at 224 px (square maps; x is
-#: Ho * stride wide), with how many of each a step runs: conv_a, conv_c and
-#: the projection shortcuts of stages 1-4
-RESNET50_SHAPES = [((64, 64, 56, 1), 1), ((64, 256, 56, 1), 4), ((256, 64, 56, 1), 2),
-                   ((256, 128, 28, 2), 1), ((256, 512, 28, 2), 1), ((128, 512, 28, 1), 4),
-                   ((512, 128, 28, 1), 3), ((512, 256, 14, 2), 1), ((512, 1024, 14, 2), 1),
-                   ((256, 1024, 14, 1), 6), ((1024, 256, 14, 1), 5), ((1024, 512, 7, 2), 1),
-                   ((1024, 2048, 7, 2), 1), ((512, 2048, 7, 1), 3), ((2048, 512, 7, 1), 2)]
-#: ragged cases (N, C, F, H, W, stride): channels past a tile; planes of a
-#: multiple of 4 pixels (tensor copies) and not, with steps that span images;
-#: an odd input at stride 2; planes of 1 pixel
-RAGGED_CASES = [(3, 40, 72, 9, 7, 1), (3, 40, 72, 6, 6, 1), (2, 130, 200, 4, 5, 1),
-                (2, 130, 70, 5, 5, 2), (5, 64, 200, 1, 1, 1), (2, 96, 64, 7, 6, 2)]
-#: dw within this share of max |dw| of an f64 reference: the sums run over
-#: N*Ho*Wo <= 401,408 products as 3xTF32 (f32-exact to about 2**-20), 32 of
-#: them summed in the tensor cores, then f32 adds; the 3x3 filter
-#: gradient's bound (ops/conv3x3.py DW_OF_MAX)
-DW_OF_MAX = 1e-5
-
-
-def check_inputs(n, c, f, h, w, stride, generator):
-    """``(x, dy)`` of N(0, 1) f32 on ``generator``'s device."""
-    device = generator.device
-    x = torch.randn((n, c, h, w), generator=generator, device=device)
-    dy = torch.randn((n, f, out_size(h, stride), out_size(w, stride)), generator=generator,
-                     device=device)
-    return x, dy
-
-
-def reference(x, dy, stride):
-    """dw in f64 as one matrix product: dy (F, K) @ x's strided pixels (K, C)."""
-    xs = x[:, :, ::stride, ::stride].double()
-    a = dy.double().transpose(0, 1).reshape(dy.shape[1], -1)
-    b = xs.transpose(0, 1).reshape(x.shape[1], -1)
-    return (a @ b.T)[:, :, None, None]
-
-
-def check_against_f64(x, dy, stride):
-    """Launches the kernel on CUDA tensors twice, synchronizing, and asserts
-    that dw is within :data:`DW_OF_MAX` of max |dw| of :func:`reference` and
-    that the two launches agree bitwise; returns its distance from f64 and
-    cuDNN's (``conv2d_weight`` in f32, TF32 as the caller set it), in units
-    of max |dw|."""
-    dw = _launch_filter_grad(x, dy, stride)
-    torch.cuda.synchronize()
-    again = _launch_filter_grad(x, dy, stride)
-    torch.cuda.synchronize()
-    if not torch.equal(dw, again):
-        raise AssertionError("conv1x1_filter_grad differs between two launches")
-    ref = reference(x, dy, stride)
-    scale = ref.abs().max().item()
-    of_max = (dw.double() - ref).abs().max().item() / scale
-    if not of_max <= DW_OF_MAX:
-        raise AssertionError(f"conv1x1_filter_grad differs from f64 by {of_max:.3g} of max "
-                             f"|dw| (bound {DW_OF_MAX:.3g})")
-    plain = _plain_filter_grad(x, dy, stride)
-    return {"dw_vs_f64_of_max": of_max,
-            "plain_dw_vs_f64_of_max": (plain.double() - ref).abs().max().item() / scale}

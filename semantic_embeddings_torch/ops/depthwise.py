@@ -427,81 +427,3 @@ def depthwise_conv(conv, x):
     """``conv(x)`` for a depthwise ``Conv2dSame`` where :func:`engages`:
     through :class:`DepthwiseConv`."""
     return DepthwiseConv.apply(x, conv.weight, conv.stride[0])
-
-
-# ---------------------------------------------------------------------------
-# Holding the kernels against f64 (on the card)
-# ---------------------------------------------------------------------------
-
-#: (C, k, stride, H) of NASNet-A Large's depthwise convs at 224 px (square
-#: maps), with how many of each a step runs: its 23 shapes, 220 layers
-NASNET_SHAPES = [
-    ((42, 5, 2, 111), 1), ((96, 5, 2, 111), 1), ((96, 7, 2, 111), 2),
-    ((42, 3, 1, 56), 2), ((42, 5, 1, 56), 2), ((42, 7, 1, 56), 2),
-    ((84, 5, 2, 56), 2), ((84, 7, 2, 56), 2),
-    ((84, 3, 1, 28), 2), ((84, 5, 1, 28), 2), ((84, 7, 1, 28), 2),
-    ((168, 3, 1, 28), 36), ((168, 5, 1, 28), 24),
-    ((336, 5, 2, 28), 2), ((336, 7, 2, 28), 2),
-    ((336, 3, 1, 14), 38), ((336, 5, 1, 14), 26), ((336, 7, 1, 14), 2),
-    ((672, 5, 2, 14), 2), ((672, 7, 2, 14), 2),
-    ((672, 3, 1, 7), 38), ((672, 5, 1, 7), 26), ((672, 7, 1, 7), 2)]
-#: ragged cases (N, C, H, W, k, stride): odd and even maps at both strides
-#: (the asymmetric pads of stride 2 on even maps), planes that are not whole
-#: 16-byte quads, maps smaller than the filter, a plane cut into bands
-RAGGED_CASES = [(3, 5, 9, 7, 3, 1), (2, 6, 8, 10, 5, 2), (3, 4, 11, 11, 7, 2),
-                (2, 7, 6, 6, 7, 1), (5, 3, 1, 1, 3, 2), (3, 9, 13, 13, 5, 1),
-                (2, 2, 2, 5, 7, 2), (2, 3, 141, 139, 5, 2), (4, 2, 120, 120, 3, 1)]
-#: each output within this share of max |output| of an f64 reference:
-#: f32 FMAs, y and dx of at most 49 terms (k^2 roundings, 49 * 2**-24 of
-#: their sum of magnitudes at worst), dw of up to N * Ho * Wo = 401,408
-#: terms summed in fixed-order chains of a few hundred terms a thread, then
-#: across the block's threads and the cluster's blocks
-OF_MAX = 1e-5
-
-
-def check_inputs(n, c, h, w, k, stride, generator):
-    """``(x, w, dy)`` of N(0, 1) f32 on ``generator``'s device."""
-    device = generator.device
-    x = torch.randn((n, c, h, w), generator=generator, device=device)
-    wt = torch.randn((c, 1, k, k), generator=generator, device=device)
-    dy = torch.randn((n, c, out_size(h, stride), out_size(w, stride)), generator=generator,
-                     device=device)
-    return x, wt, dy
-
-
-def reference(x, w, dy, stride):
-    """(y, dx, dw) of the three passes in f64."""
-    k, (h, wd) = w.shape[-1], x.shape[2:]
-    x, w, dy = x.double(), w.double(), dy.double()
-    return (_plain_forward(x, w, stride), _plain_input_grad(dy, w, h, wd, stride),
-            _plain_grad_weight(x, dy, k, stride))
-
-
-def check_against_f64(x, w, dy, stride):
-    """Launches the three kernels on CUDA tensors (the weight gradient
-    twice), synchronizing, and asserts that each output is within
-    :data:`OF_MAX` of max |output| of :func:`reference` and that the two dw
-    agree bitwise; returns each output's distance from f64 and ATen's
-    (``F.conv2d`` and its gradients, TF32 as the caller set it), in units of
-    max |output|."""
-    k, (h, wd) = w.shape[-1], x.shape[2:]
-    outs = [_launch_forward(x, w, stride), _launch_input_grad(dy, w, h, wd, stride),
-            _launch_grad_weight(x, dy, k, stride)]
-    torch.cuda.synchronize()
-    again = _launch_grad_weight(x, dy, k, stride)
-    torch.cuda.synchronize()
-    if not torch.equal(outs[2], again):
-        raise AssertionError("depthwise grad_weight differs between two launches")
-    refs = reference(x, w, dy, stride)
-    plain = [_plain_forward(x, w, stride), _plain_input_grad(dy, w, h, wd, stride),
-             _plain_grad_weight(x, dy, k, stride)]
-    out = {}
-    for name, got, ref, lib in zip(("y", "dx", "dw"), outs, refs, plain):
-        scale = ref.abs().max().item() or 1.0
-        of_max = (got.double() - ref).abs().max().item() / scale
-        if not of_max <= OF_MAX:
-            raise AssertionError(f"depthwise {name} differs from f64 by {of_max:.3g} of max "
-                                 f"|{name}| (bound {OF_MAX:.3g})")
-        out[f"{name}_vs_f64_of_max"] = of_max
-        out[f"aten_{name}_vs_f64_of_max"] = (lib.double() - ref).abs().max().item() / scale
-    return out

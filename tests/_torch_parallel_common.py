@@ -9,7 +9,9 @@ comparison runs in the test's own process.
 
 from __future__ import annotations
 
+import os
 import pickle
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -230,9 +232,13 @@ def cuda_two_ranks_step(case_path, out_path):
     parallel.finalize_distributed()
 
 
+def report_threads(out):
+    """Rank side: writes the rank's torch thread count to ``out/rank{r}``."""
+    (Path(out) / f"rank{os.environ['RANK']}").write_text(str(torch.get_num_threads()))
+
+
 def run(case_path, out_path):
     """Rank side: join the group, run every case, rank 0 writes results."""
-    torch.set_num_threads(2)
     parallel.initialize_distributed("cpu")
     with open(case_path, "rb") as f:
         cases = pickle.load(f)

@@ -275,7 +275,6 @@ RUNNERS = {"step": _step, "eval": _eval, "fit": _fit, "features": _features, "fc
 def run(case_path, out_path):
     """Rank side: join the group, run every case on its grid, rank 0 writes
     the results."""
-    torch.set_num_threads(1)
     parallel.initialize_distributed("cpu")
     with open(case_path, "rb") as f:
         cases = pickle.load(f)

@@ -4,6 +4,8 @@ of full mode), RGB <-> HSV, the crops and the whole ``make_prepare``, each
 fed the JAX function's own draws (its key split as it splits it); and the
 port's own draws against the JAX draws' distributions."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

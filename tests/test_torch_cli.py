@@ -1,6 +1,8 @@
 """The port's trainer CLI end to end on the CPU, its refusals, and its
 independence from JAX."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import os
 import subprocess
 import sys

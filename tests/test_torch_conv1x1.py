@@ -8,12 +8,15 @@ as it runs on the card, and counting the op's calls.  The CUDA kernel is
 held against f64 on the card in ``test_torch_cuda.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
 from semantic_embeddings_torch.models import build_network, resnet
+from semantic_embeddings_torch.ops import checks
 from semantic_embeddings_torch.ops import conv1x1 as c1
 from semantic_embeddings_torch.parallel import spatial
 
@@ -64,7 +67,8 @@ def test_op_and_autograd_match_conv2d_autograd_in_f64(case):
 
 def test_op_reference_is_the_strided_matrix_product():
     x, _, g = _inputs(3, 5, 7, 7, 5, 2)
-    torch.testing.assert_close(c1._plain_filter_grad(x, g, 2), c1.reference(x, g, 2),
+    torch.testing.assert_close(c1._plain_filter_grad(x, g, 2),
+                               checks.conv1x1_reference(x, g, 2),
                                rtol=1e-12, atol=1e-12)
 
 

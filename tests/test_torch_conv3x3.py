@@ -10,6 +10,8 @@ of the JAX conv + ``KerasBatchNorm``.  The CUDA kernels are held against
 the plain versions on the card in ``test_torch_cuda.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from semantic_embeddings_tpu.models.layers import KerasBatchNorm as JKerasBatchNorm
 from semantic_embeddings_torch.models.layers import KerasBatchNorm
+from semantic_embeddings_torch.ops import checks
 from semantic_embeddings_torch.ops import conv3x3 as tc
 from tools.conv_filter_grad_prototype import conv3x3_filter_grad as j_filter_grad
 from tools.fused_conv_bn_prototype import conv3x3_bn_stats as j_conv_bn_stats
@@ -212,7 +215,7 @@ def _bf16_values(rng, shape):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), tc.ALIGN_CASES[0],
+@pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), checks.ALIGN_CASES[0],
                                   (3, 5, 14, 12, 16, "halo")])
 def test_wgmma_filter_grad_decomposition(case, dtype):
     """Each instance's decomposition against the Pallas prototype in
@@ -250,7 +253,7 @@ def test_wgmma_filter_grad_decomposition(case, dtype):
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     proto = np.asarray(j_filter_grad(jnp.asarray(xj, jdt), jnp.asarray(dyj, jdt),
                                      batch_tile=1, interpret=True)).transpose(3, 2, 0, 1)
-    bound = tc.DW_OF_MAX * np.abs(ref).max()
+    bound = checks.DW_OF_MAX * np.abs(ref).max()
     assert got.shape == ref.shape == proto.shape == (f, c, 3, 3)
     assert np.abs(got - ref).max() <= bound
     assert np.abs(got - proto).max() <= bound
@@ -441,7 +444,7 @@ def _tf32_conv_model(x, w, top=None, bottom=None):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), tc.ALIGN_CASES[0],
+@pytest.mark.parametrize("case", [(3, 7, 7, 5, 10), (2, 13, 9, 16, 24), checks.ALIGN_CASES[0],
                                   (3, 5, 14, 12, 16, "halo")])
 def test_wgmma_conv_bn_stats_decomposition(case, dtype):
     """Each conv + statistics instance's decomposition against the Pallas
@@ -473,7 +476,7 @@ def test_wgmma_conv_bn_stats_decomposition(case, dtype):
         top, bottom = values((b, c, 1, w)), values((b, c, 1, w))
     model = _wgmma_conv_model if dtype == "bf16" else _tf32_conv_model
     y, s, ss, depth, rows = model(x, k, top, bottom)
-    assert depth == tc._sum_depth(rows)
+    assert depth == checks._sum_depth(rows)
     u = depth * 2.0**-24
 
     tdt, jdt = ((torch.bfloat16, jnp.bfloat16) if dtype == "bf16"
@@ -497,7 +500,7 @@ def test_wgmma_conv_bn_stats_decomposition(case, dtype):
         if dtype == "bf16":
             np.testing.assert_allclose(y, ref, rtol=2**-7, atol=1e-6)
         else:
-            assert np.abs(y64 - ref).max() <= tc.Y_OF_MAX * np.abs(ref).max()
+            assert np.abs(y64 - ref).max() <= checks.Y_OF_MAX * np.abs(ref).max()
         for got, terms, terms_r in ((s, y64, ref), (ss, y64 * y64, ref * ref)):
             bound = u * np.abs(terms).sum((0, 2, 3)) + np.abs(terms - terms_r).sum((0, 2, 3))
             assert (np.abs(got - terms_r.sum((0, 2, 3))) <= bound).all()
@@ -547,9 +550,9 @@ def test_3xtf32_filter_grad_within_dw_of_max(case, products):
     err = (_filter_grad_in_tf32(x, dy, products) - ref).abs().max().item()
     of_max = err / ref.abs().max().item()
     if products == 3:
-        assert of_max <= tc.DW_OF_MAX
+        assert of_max <= checks.DW_OF_MAX
     else:
-        assert of_max > tc.DW_OF_MAX
+        assert of_max > checks.DW_OF_MAX
 
 
 def _conv_in_tf32(x, w, products):
@@ -578,9 +581,9 @@ def test_3xtf32_conv_within_y_of_max(case, products):
     err = (_conv_in_tf32(x, wt, products) - ref).abs().max().item()
     of_max = err / ref.abs().max().item()
     if products == 3:
-        assert of_max <= tc.Y_OF_MAX
+        assert of_max <= checks.Y_OF_MAX
     else:
-        assert of_max > tc.Y_OF_MAX
+        assert of_max > checks.Y_OF_MAX
 
 
 def _bn_params(f, seed=4):
@@ -740,12 +743,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
         tc._launch_filter_grad(x, torch.zeros(1, 4, 3, 3))
 
 
-@pytest.mark.parametrize("case", [c for c in tc.CHECK_CASES
-                                  if c not in tc.STAGE_SHAPES + tc.STAGE_SHAPES_448])
+@pytest.mark.parametrize("case", [c for c in checks.CHECK_CASES
+                                  if c not in checks.STAGE_SHAPES + checks.STAGE_SHAPES_448])
 def test_check_inputs_are_he_scaled(case):
     """The kernels' check inputs (ragged cases here; the stage shapes are
     the same draw at batch 128 and 24): shapes and the weights' He scale."""
     b, h, w, c, f = case
-    x, wt, dy = tc.check_inputs(case, torch.float32, torch.Generator().manual_seed(0))
+    x, wt, dy = checks.conv3x3_check_inputs(case, torch.float32, torch.Generator().manual_seed(0))
     assert (x.shape, wt.shape, dy.shape) == ((b, c, h, w), (f, c, 3, 3), (b, f, h, w))
     np.testing.assert_allclose(wt.std().item(), np.sqrt(2 / (9 * c)), rtol=0.2)

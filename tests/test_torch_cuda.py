@@ -7,11 +7,14 @@ This file imports no JAX, so that a GPU machine without JAX runs it with
 (``tests/conftest.py`` configures JAX, hence ``--noconftest``).
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch
 
 from semantic_embeddings_torch.embeddings import load_features, save_embeddings
+from semantic_embeddings_torch.ops import checks
 from semantic_embeddings_torch.ops import conv1x1 as c1
 from semantic_embeddings_torch.ops import conv3x3 as cc
 from semantic_embeddings_torch.ops import cosine_loss as tc
@@ -89,18 +92,18 @@ def test_cli_trains_through_the_kernels(device, tmp_path):
     np.testing.assert_allclose(np.linalg.norm(feats, axis=1), 1.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("case", cc.CHECK_CASES)
+@pytest.mark.parametrize("case", checks.CHECK_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_kernels_match_plain(device, case, dtype):
     torch.backends.cudnn.allow_tf32 = False
-    cc.check_against_plain(*cc.check_inputs(
+    checks.check_against_plain(*checks.conv3x3_check_inputs(
         case, dtype, torch.Generator(device=device).manual_seed(0)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_kernels_are_deterministic(device, dtype):
-    x, w, dy = cc.check_inputs((8, 14, 14, 64, 64), dtype,
-                               torch.Generator(device=device).manual_seed(1))
+    x, w, dy = checks.conv3x3_check_inputs((8, 14, 14, 64, 64), dtype,
+                                           torch.Generator(device=device).manual_seed(1))
     first = (*cc._launch_conv_bn_stats(x, w), cc._launch_filter_grad(x, dy))
     again = (*cc._launch_conv_bn_stats(x, w), cc._launch_filter_grad(x, dy))
     for a, b in zip(first, again):
@@ -112,9 +115,9 @@ def test_filter_grad_copy_widths(device):
     copies (8 elements) where H*W % 8 == 0, else the repack (1): H*W = 196
     (% 8 == 4) and 49."""
     widths = []
-    for case in cc.ALIGN_CASES:
-        x, _, dy = cc.check_inputs(case, torch.bfloat16,
-                                   torch.Generator(device=device).manual_seed(0))
+    for case in checks.ALIGN_CASES:
+        x, _, dy = checks.conv3x3_check_inputs(case, torch.bfloat16,
+                                               torch.Generator(device=device).manual_seed(0))
         widths.append(cc.filter_grad_copy_width(x, dy))
     assert widths == [8, 1, 1]
 
@@ -125,13 +128,13 @@ def test_filter_grad_bf16_misaligned_pointers(device):
     same bits as from aligned operands."""
     torch.backends.cudnn.allow_tf32 = False
     case = (4, 8, 8, 24, 80)
-    x, w, dy = cc.check_inputs(case, torch.bfloat16,
-                               torch.Generator(device=device).manual_seed(3))
+    x, w, dy = checks.conv3x3_check_inputs(case, torch.bfloat16,
+                                           torch.Generator(device=device).manual_seed(3))
 
     xs, dys = _shifted(x, 1), _shifted(dy, 1)
     assert cc.filter_grad_copy_width(xs, dys) == 1
     assert torch.equal(cc._launch_filter_grad(xs, dys), cc._launch_filter_grad(x, dy))
-    cc.check_against_plain(xs, w, dys)
+    checks.check_against_plain(xs, w, dys)
 
 
 def _shifted(t, elements):
@@ -149,17 +152,17 @@ def test_filter_grad_f32_copy_paths(device, case, width):
     be whole 16 bytes), else a repack into planes padded to 8 floats (H*W =
     49, an odd ragged plane); dw holds against f64 on either path."""
     torch.backends.cudnn.allow_tf32 = False
-    x, w, dy = cc.check_inputs(case, torch.float32,
-                               torch.Generator(device=device).manual_seed(6))
+    x, w, dy = checks.conv3x3_check_inputs(case, torch.float32,
+                                           torch.Generator(device=device).manual_seed(6))
     assert cc.filter_grad_copy_width(x, dy) == width
-    cc.check_against_plain(x, w, dy)
+    checks.check_against_plain(x, w, dy)
 
 
 def test_filter_grad_f32_misaligned_pointers(device):
     """f32 operands 4 bytes past a 16-byte boundary are repacked even where
     H*W % 4 == 0, and give the same bits as aligned ones."""
-    x, _, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.float32,
-                               torch.Generator(device=device).manual_seed(7))
+    x, _, dy = checks.conv3x3_check_inputs((4, 8, 8, 24, 80), torch.float32,
+                                           torch.Generator(device=device).manual_seed(7))
     xs, dys = _shifted(x, 1), _shifted(dy, 1)
     assert cc.filter_grad_copy_width(xs, dys) == 1
     assert torch.equal(cc._launch_filter_grad(xs, dys), cc._launch_filter_grad(x, dy))
@@ -186,7 +189,7 @@ def test_wgmma_selftest_matches_matmul(device):
     """One wgmma of the bf16 filter gradient (A from registers, B through
     the MN-major no-swizzle descriptor started at whole 16-byte rows)
     against torch.matmul, at every start row of ``WGMMA_SELFTEST_CASES``."""
-    assert cc.check_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    assert checks.check_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
 
 
 def test_conv_wgmma_selftest_matches_matmul(device):
@@ -194,10 +197,11 @@ def test_conv_wgmma_selftest_matches_matmul(device):
     the weight slice behind the K-major descriptor started at a tap's
     offset) against torch.matmul, at each N the kernel uses and taps 0, 4
     and 8; an N it does not use is refused."""
-    assert cc.check_conv_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    assert checks.check_conv_wgmma_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
     a = torch.zeros((64, 16), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError, match="tap"):
-        cc.conv_wgmma_selftest(a, torch.zeros((9, 32, 16), dtype=torch.bfloat16, device=device), 0)
+        checks.conv_wgmma_selftest(
+            a, torch.zeros((9, 32, 16), dtype=torch.bfloat16, device=device), 0)
 
 
 def test_tf32_selftest_matches_matmul(device):
@@ -207,12 +211,12 @@ def test_tf32_selftest_matches_matmul(device):
     summed before an f32 add) against torch.matmul in f64, at chains of 1
     to 13 slices; an N other than the kernel's 64 and a bf16 operand are
     refused."""
-    assert cc.check_tf32_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    assert checks.check_tf32_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
     a = torch.zeros((64, 8), device=device)
     with pytest.raises(ValueError, match="64, K"):
-        cc.tf32_selftest(a, torch.zeros((32, 8), device=device), cc.TF32_FLUSH_SLICES)
+        checks.tf32_selftest(a, torch.zeros((32, 8), device=device), checks.TF32_FLUSH_SLICES)
     with pytest.raises(TypeError):
-        cc.tf32_selftest(a.bfloat16(), torch.zeros((64, 8), device=device).bfloat16(), 8)
+        checks.tf32_selftest(a.bfloat16(), torch.zeros((64, 8), device=device).bfloat16(), 8)
 
 
 def test_conv_tf32_selftest_matches_matmul(device):
@@ -223,27 +227,27 @@ def test_conv_tf32_selftest_matches_matmul(device):
     torch.matmul in f64, at each N the kernel uses over 1 to 8 chunks; an N
     it does not use, a K that is not whole chunks and a bf16 operand are
     refused."""
-    assert cc.check_conv_tf32_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
-    a = torch.zeros((64, cc.CONV_TF32_CHUNK), device=device)
+    assert checks.check_conv_tf32_selftest(torch.Generator(device=device).manual_seed(0)) <= 1e-5
+    a = torch.zeros((64, checks.CONV_TF32_CHUNK), device=device)
     with pytest.raises(ValueError, match="N in"):
-        cc.conv_tf32_selftest(a, torch.zeros((32, cc.CONV_TF32_CHUNK), device=device), 1)
+        checks.conv_tf32_selftest(a, torch.zeros((32, checks.CONV_TF32_CHUNK), device=device), 1)
     with pytest.raises(ValueError, match="multiple"):
-        cc.conv_tf32_selftest(a[:, :64], torch.zeros((64, 64), device=device), 1)
+        checks.conv_tf32_selftest(a[:, :64], torch.zeros((64, 64), device=device), 1)
     with pytest.raises(TypeError):
-        cc.conv_tf32_selftest(a.bfloat16(), torch.zeros_like(a).bfloat16(), 1)
+        checks.conv_tf32_selftest(a.bfloat16(), torch.zeros_like(a).bfloat16(), 1)
 
 
-@pytest.mark.parametrize("n", cc.CONV_WGMMA_N)
+@pytest.mark.parametrize("n", checks.CONV_WGMMA_N)
 def test_conv_tf32_accumulation_depth(device, n):
     """Why the f32 conv adds each chunk's products to its running sums in
     f32: over 4,608 terms (a y of the 512-channel stage), products summed in
     the tensor cores one chunk (72 terms) at a time land within Y_OF_MAX / 4
     of max |d| from f64; all of them summed there land farther (3.2-3.5e-5
     on an H100, past Y_OF_MAX)."""
-    errs = cc.conv_tf32_accumulation(torch.Generator(device=device).manual_seed(2), n)
-    kernel = cc.CONV_TF32_CHUNK * cc.CONV_TF32_FLUSH
-    assert errs[kernel] <= cc.Y_OF_MAX / 4, errs
-    assert errs[0] > cc.Y_OF_MAX, errs
+    errs = checks.conv_tf32_accumulation(torch.Generator(device=device).manual_seed(2), n)
+    kernel = checks.CONV_TF32_CHUNK * checks.CONV_TF32_FLUSH
+    assert errs[kernel] <= checks.Y_OF_MAX / 4, errs
+    assert errs[0] > checks.Y_OF_MAX, errs
 
 
 def test_tf32_accumulation_depth(device):
@@ -253,19 +257,19 @@ def test_tf32_accumulation_depth(device):
     DW_OF_MAX / 4 of max |d| from f64, the kernel's 64 among them; all
     4,096 summed there land farther than the kernel's depth (1.4-3.2e-5 on
     an H100, past DW_OF_MAX)."""
-    errs = cc.tf32_accumulation(torch.Generator(device=device).manual_seed(1))
-    kernel_depth = 8 * cc.TF32_FLUSH_SLICES
-    assert all(errs[k] <= cc.DW_OF_MAX / 4 for k in (8, 16, 32, 64)), errs
+    errs = checks.tf32_accumulation(torch.Generator(device=device).manual_seed(1))
+    kernel_depth = 8 * checks.TF32_FLUSH_SLICES
+    assert all(errs[k] <= checks.DW_OF_MAX / 4 for k in (8, 16, 32, 64)), errs
     assert errs[0] > errs[kernel_depth], errs
 
 
 def test_wgmma_selftest_rejects_rows_past_the_window(device):
     a = torch.zeros((64, 16), dtype=torch.bfloat16, device=device)
-    b = torch.zeros((cc.WGMMA_B_ROWS, 32), dtype=torch.bfloat16, device=device)
+    b = torch.zeros((checks.WGMMA_B_ROWS, 32), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError, match="row"):
-        cc.wgmma_selftest(a, b, cc.WGMMA_B_ROWS - 15)
+        checks.wgmma_selftest(a, b, checks.WGMMA_B_ROWS - 15)
     with pytest.raises(TypeError):
-        cc.wgmma_selftest(a.float(), b.float(), 0)
+        checks.wgmma_selftest(a.float(), b.float(), 0)
 
 
 @pytest.mark.parametrize("case, width", [((4, 8, 8, 24, 80), 4), ((3, 5, 10, 16, 40), 1),
@@ -276,10 +280,10 @@ def test_conv_bn_stats_f32_copy_paths(device, case, width):
     floats (H*W = 50, 49, an odd ragged plane); y holds against cuDNN and
     f64 on every path, and the statistics against their rounding bound."""
     torch.backends.cudnn.allow_tf32 = False
-    x, w, dy = cc.check_inputs(case, torch.float32,
-                               torch.Generator(device=device).manual_seed(10))
+    x, w, dy = checks.conv3x3_check_inputs(case, torch.float32,
+                                           torch.Generator(device=device).manual_seed(10))
     assert cc.conv_bn_stats_copy_width(x) == width
-    cc.check_against_plain(x, w, dy)
+    checks.check_against_plain(x, w, dy)
 
 
 @pytest.mark.parametrize("offset, width", [(2, 1), (1, 1)])
@@ -289,21 +293,21 @@ def test_conv_bn_stats_f32_misaligned_pointers(device, offset, width):
     ss are the same bits as from aligned x, and hold against the plain
     version."""
     torch.backends.cudnn.allow_tf32 = False
-    x, w, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.float32,
-                               torch.Generator(device=device).manual_seed(11))
+    x, w, dy = checks.conv3x3_check_inputs((4, 8, 8, 24, 80), torch.float32,
+                                           torch.Generator(device=device).manual_seed(11))
     xs = _shifted(x, offset)
     assert cc.conv_bn_stats_copy_width(xs) == width
     for a, b in zip(cc._launch_conv_bn_stats(xs, w), cc._launch_conv_bn_stats(x, w)):
         assert torch.equal(a, b)
-    cc.check_against_plain(xs, w, dy)
+    checks.check_against_plain(xs, w, dy)
 
 
 @pytest.mark.parametrize("case", [(4, 7, 7, 40, 72), (3, 5, 10, 16, 40), (2, 28, 28, 128, 136)])
 def test_conv_bn_stats_f32_is_deterministic(device, case):
     """Two launches give the same bits of y, s and ss on the repack (H*W =
     49 and 50) and with F past one block."""
-    x, w, _ = cc.check_inputs(case, torch.float32,
-                              torch.Generator(device=device).manual_seed(12))
+    x, w, _ = checks.conv3x3_check_inputs(case, torch.float32,
+                                          torch.Generator(device=device).manual_seed(12))
     first, again = cc._launch_conv_bn_stats(x, w), cc._launch_conv_bn_stats(x, w)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
@@ -314,9 +318,9 @@ def test_conv_bn_stats_copy_widths(device):
     paths: tensor copies of the planes (8 elements: H*W % 8 == 0), else the
     repack (1): H*W = 196 and 49."""
     widths = []
-    for case in cc.ALIGN_CASES:
-        x, _, _ = cc.check_inputs(case, torch.bfloat16,
-                                  torch.Generator(device=device).manual_seed(0))
+    for case in checks.ALIGN_CASES:
+        x, _, _ = checks.conv3x3_check_inputs(case, torch.bfloat16,
+                                              torch.Generator(device=device).manual_seed(0))
         widths.append(cc.conv_bn_stats_copy_width(x))
     assert widths == [8, 1, 1]
 
@@ -327,21 +331,21 @@ def test_conv_bn_stats_bf16_misaligned_pointers(device, offset, width):
     where H*W % 8 == 0 (a tensor copy needs 16-byte planes); y, s and ss are
     the same bits as from aligned x, and hold against the plain version."""
     torch.backends.cudnn.allow_tf32 = False
-    x, w, dy = cc.check_inputs((4, 8, 8, 24, 80), torch.bfloat16,
-                               torch.Generator(device=device).manual_seed(9))
+    x, w, dy = checks.conv3x3_check_inputs((4, 8, 8, 24, 80), torch.bfloat16,
+                                           torch.Generator(device=device).manual_seed(9))
     xs = _shifted(x, offset)
     assert cc.conv_bn_stats_copy_width(xs) == width
     for a, b in zip(cc._launch_conv_bn_stats(xs, w), cc._launch_conv_bn_stats(x, w)):
         assert torch.equal(a, b)
-    cc.check_against_plain(xs, w, dy)
+    checks.check_against_plain(xs, w, dy)
 
 
 @pytest.mark.parametrize("autocast", [False, True])
 def test_conv_autograd_launches_each_kernel_once(device, autocast):
     """One forward + backward through the op, in f32 and under bf16
     autocast: one launch of each kernel, on operands of that dtype."""
-    x, w, _ = cc.check_inputs((2, 14, 14, 32, 64), torch.float32,
-                              torch.Generator(device=device).manual_seed(8))
+    x, w, _ = checks.conv3x3_check_inputs((2, 14, 14, 32, 64), torch.float32,
+                                          torch.Generator(device=device).manual_seed(8))
     xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
     before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
     with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
@@ -357,8 +361,8 @@ def test_conv_autograd_bf16_through_the_tensor_core_kernel(device):
     """Under bf16 autocast one backward launches the filter-gradient kernel
     once, on bf16 operands; w's gradient is the kernel's dw on the op's own
     bf16 x and dy, rounded to the bf16 weight the op saw."""
-    x, w, _ = cc.check_inputs((4, 14, 14, 32, 48), torch.float32,
-                              torch.Generator(device=device).manual_seed(4))
+    x, w, _ = checks.conv3x3_check_inputs((4, 14, 14, 32, 48), torch.float32,
+                                          torch.Generator(device=device).manual_seed(4))
     xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
     g = torch.randn((4, 48, 14, 14), device=device,
                     generator=torch.Generator(device=device).manual_seed(5))
@@ -378,8 +382,8 @@ def test_conv_autograd_through_kernels(device):
     """One launch of each kernel per forward + backward; gradients equal
     the plain op's within the kernels' own tolerances."""
     torch.backends.cudnn.allow_tf32 = False
-    x, w, _ = cc.check_inputs((4, 14, 14, 32, 48), torch.float32,
-                              torch.Generator(device=device).manual_seed(2))
+    x, w, _ = checks.conv3x3_check_inputs((4, 14, 14, 32, 48), torch.float32,
+                                          torch.Generator(device=device).manual_seed(2))
     grads, launches = [], []
     for op in (cc.conv3x3_bn_stats, cc.plain_conv3x3_bn_stats):
         xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -469,8 +473,8 @@ def test_serving_fn_launches_the_conv_kernel(device, tmp_path):
 
 
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(device):
-    x, w, dy = cc.check_inputs((2, 5, 5, 4, 6), torch.float32,
-                               torch.Generator(device=device).manual_seed(0))
+    x, w, dy = checks.conv3x3_check_inputs((2, 5, 5, 4, 6), torch.float32,
+                                           torch.Generator(device=device).manual_seed(0))
     with pytest.raises(TypeError):
         cc._launch_conv_bn_stats(x.double(), w.double())
     with pytest.raises(TypeError):
@@ -497,8 +501,8 @@ def test_opcheck_on_the_card(device, dtype):
     z, t, g = _inputs(device, (37, 100), dtype)
     torch.library.opcheck(tc.cosine_loss_fwd, (z.clone().requires_grad_(), t))
     torch.library.opcheck(tc.cosine_loss_bwd, (z, t, g))
-    x, w, dy = cc.check_inputs((2, 14, 14, 32, 64), dtype,
-                               torch.Generator(device=device).manual_seed(11))
+    x, w, dy = checks.conv3x3_check_inputs((2, 14, 14, 32, 64), dtype,
+                                           torch.Generator(device=device).manual_seed(11))
     torch.library.opcheck(cc.conv3x3_bn_stats_op,
                           (x.clone().requires_grad_(), w.clone().requires_grad_()))
     torch.library.opcheck(cc.conv3x3_filter_grad, (x, dy))
@@ -514,8 +518,8 @@ def test_custom_ops_launch_the_kernels_once_each(device):
     assert (tc.launches_fwd - before[0], tc.launches_bwd - before[1]) == (1, 1)
     assert torch.equal(loss, tc._launch_forward(z, t))
     assert torch.equal(dz, tc._launch_backward(z, t, g))
-    x, w, dy = cc.check_inputs((4, 14, 14, 32, 48), torch.float32,
-                               torch.Generator(device=device).manual_seed(12))
+    x, w, dy = checks.conv3x3_check_inputs((4, 14, 14, 32, 48), torch.float32,
+                                           torch.Generator(device=device).manual_seed(12))
     before = (cc.launches_conv_bn_stats, cc.launches_filter_grad)
     outs, dw = OPS.conv3x3_bn_stats(x, w), OPS.conv3x3_filter_grad(x, dy)
     torch.cuda.synchronize()
@@ -855,7 +859,7 @@ def test_learner_cli_on_every_card_matches_one_card(device, tmp_path):
 # -- spatial partitioning: halo rows, and --spatial over NCCL -----------------
 
 
-@pytest.mark.parametrize("case", cc.HALO_CASES)
+@pytest.mark.parametrize("case", checks.HALO_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_halo_kernels_match_plain_and_the_whole_image(device, case, dtype):
     """Both kernels on each row block of the 448-px recipe's stage shapes at
@@ -865,10 +869,11 @@ def test_halo_kernels_match_plain_and_the_whole_image(device, case, dtype):
     (``check_halo_shards``' bounds)."""
     torch.backends.cudnn.allow_tf32 = False
     before = (cc.launches_conv_bn_stats_halo, cc.launches_filter_grad_halo)
-    x, w, dy = cc.check_inputs(case[:5], dtype, torch.Generator(device=device).manual_seed(0))
-    got = cc.check_halo_shards(x, w, dy, case[5])
+    x, w, dy = checks.conv3x3_check_inputs(case[:5], dtype,
+                                           torch.Generator(device=device).manual_seed(0))
+    got = checks.check_halo_shards(x, w, dy, case[5])
     assert got["y_vs_whole_bitwise"]
-    blocks = len(cc.row_shards(x, case[5]))
+    blocks = len(checks.row_shards(x, case[5]))
     assert (cc.launches_conv_bn_stats_halo - before[0],
             cc.launches_filter_grad_halo - before[1]) == (blocks, blocks)
 
@@ -928,18 +933,18 @@ def gen(device):
     return torch.Generator(device=device).manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [shape for shape, _ in c1.RESNET50_SHAPES])
+@pytest.mark.parametrize("shape", [shape for shape, _ in checks.RESNET50_1X1_SHAPES])
 def test_conv1x1_filter_grad_at_resnet50_shapes(device, gen, shape):
     """dw within ``DW_OF_MAX`` of max |dw| of an f64 matrix product, and
     bitwise the same over two launches, at batch 128."""
     c, f, ho, stride = shape
-    x, dy = c1.check_inputs(128, c, f, ho * stride, ho * stride, stride, gen)
-    c1.check_against_f64(x, dy, stride)
+    x, dy = checks.conv1x1_check_inputs(128, c, f, ho * stride, ho * stride, stride, gen)
+    checks.conv1x1_check_against_f64(x, dy, stride)
 
 
-@pytest.mark.parametrize("case", c1.RAGGED_CASES)
+@pytest.mark.parametrize("case", checks.CONV1X1_RAGGED_CASES)
 def test_conv1x1_filter_grad_ragged(device, gen, case):
-    c1.check_against_f64(*c1.check_inputs(*case, gen), case[-1])
+    checks.conv1x1_check_against_f64(*checks.conv1x1_check_inputs(*case, gen), case[-1])
 
 
 def test_conv1x1_filter_grad_misaligned_operand(device, gen):
@@ -947,7 +952,7 @@ def test_conv1x1_filter_grad_misaligned_operand(device, gen):
     x = torch.randn(1 + 2 * 64 * 8 * 8, generator=gen, device=device)[1:].view(2, 64, 8, 8)
     dy = torch.randn(2, 128, 8, 8, generator=gen, device=device)
     assert "threads' loads" in c1.instance(x, dy, 1)
-    c1.check_against_f64(x, dy, 1)
+    checks.conv1x1_check_against_f64(x, dy, 1)
 
 
 def test_conv1x1_filter_grad_launches_36_a_resnet50_step(device, gen):
@@ -971,7 +976,7 @@ def test_conv1x1_filter_grad_launches_36_a_resnet50_step(device, gen):
 
 
 def test_conv1x1_op_and_its_wrapper_on_the_card(device, gen):
-    x, dy = c1.check_inputs(2, 64, 128, 8, 8, 2, gen)
+    x, dy = checks.conv1x1_check_inputs(2, 64, 128, 8, 8, 2, gen)
     torch.library.opcheck(c1.conv1x1_filter_grad, (x, dy, 2))
     with pytest.raises(TypeError):
         c1._launch_filter_grad(x.double(), dy.double(), 2)
@@ -984,18 +989,19 @@ def test_conv1x1_op_and_its_wrapper_on_the_card(device, gen):
 # -- NASNet-A's f32 depthwise convs --------------------------------------------
 
 
-@pytest.mark.parametrize("case", dwc.RAGGED_CASES)
+@pytest.mark.parametrize("case", checks.DEPTHWISE_RAGGED_CASES)
 def test_depthwise_kernels_ragged(device, gen, case):
     """y, dx and dw within ``OF_MAX`` of max |output| of f64, dw bitwise the
     same over two launches."""
-    dwc.check_against_f64(*dwc.check_inputs(*case, gen), case[-1])
+    checks.depthwise_check_against_f64(*checks.depthwise_check_inputs(*case, gen), case[-1])
 
 
-@pytest.mark.parametrize("shape", [shape for shape, _ in dwc.NASNET_SHAPES])
+@pytest.mark.parametrize("shape", [shape for shape, _ in checks.NASNET_SHAPES])
 def test_depthwise_kernels_at_nasnet_shapes(device, gen, shape):
     """NASNet-A Large's 23 depthwise shapes at 224 px, batch 32."""
     c, k, stride, h = shape
-    dwc.check_against_f64(*dwc.check_inputs(32, c, h, h, k, stride, gen), stride)
+    checks.depthwise_check_against_f64(
+        *checks.depthwise_check_inputs(32, c, h, h, k, stride, gen), stride)
 
 
 def test_depthwise_misaligned_operands(device, gen):
@@ -1004,7 +1010,8 @@ def test_depthwise_misaligned_operands(device, gen):
     ho = dwc.out_size(h, s)
     x = torch.randn(1 + n * c * h * h, generator=gen, device=device)[1:].view(n, c, h, h)
     dy = torch.randn(1 + n * c * ho * ho, generator=gen, device=device)[1:].view(n, c, ho, ho)
-    dwc.check_against_f64(x, torch.randn(c, 1, k, k, generator=gen, device=device), dy, s)
+    checks.depthwise_check_against_f64(
+        x, torch.randn(c, 1, k, k, generator=gen, device=device), dy, s)
 
 
 def test_depthwise_launches_220_of_each_a_nasnet_step(device, gen):
@@ -1036,7 +1043,7 @@ def test_depthwise_launches_220_of_each_a_nasnet_step(device, gen):
 
 
 def test_depthwise_ops_and_wrappers_on_the_card(device, gen):
-    x, wt, dy = dwc.check_inputs(2, 3, 7, 6, 5, 2, gen)
+    x, wt, dy = checks.depthwise_check_inputs(2, 3, 7, 6, 5, 2, gen)
     torch.library.opcheck(dwc.depthwise_conv_forward, (x, wt, 2))
     torch.library.opcheck(dwc.depthwise_conv_input_grad, (dy, wt, 7, 6, 2))
     torch.library.opcheck(dwc.depthwise_conv_grad_weight, (x, dy, 5, 2))

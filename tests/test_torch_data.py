@@ -1,5 +1,7 @@
 """The port's datasets and augmentation against the JAX package's."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,8 @@
 package's: the same files, labels, classes, statistics and settings for the
 same directory, parser by parser and registry name by registry name."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import os
 
 import numpy as np

@@ -12,6 +12,8 @@ The CUDA kernels are held against f64 on the card in ``test_torch_cuda.py``
 and ``chip_smoke.py`` (phase 4c).
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import re
 
 import flax.linen as fnn

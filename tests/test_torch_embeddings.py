@@ -6,6 +6,8 @@ the solvers and the two CLIs agree to 1e-12 (LAPACK on the same matrices,
 so in practice exactly), and each package reads what the other writes.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import pickle
 
 import numpy as np

@@ -7,6 +7,8 @@ rn18 at 32 px puts the conv + statistics op in the graph (one node per
 block's ``conv_b``); the `simple` model is the JAX tests' own case.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import json
 
 import jax

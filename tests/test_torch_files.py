@@ -4,6 +4,8 @@ Pillow), the prefetch thread's stop and error paths, and the slice as a
 whole: one train step of ``learn_image_embeddings`` on a CUB-layout
 directory from the same weights, and the port's CLI end to end on it."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import threading
 import time
 

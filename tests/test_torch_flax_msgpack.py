@@ -5,6 +5,8 @@ leaves as ``torch.bfloat16`` tensors), for float32, bfloat16, integer and
 scalar leaves, nested maps, lists, and a chunked leaf; the port imports
 with JAX, flax and msgpack blocked."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import os
 import subprocess
 import sys

@@ -5,6 +5,8 @@ and a rematerialized step equal to a plain one, bitwise on the CPU, with
 running statistics that move once a step, as the JAX ``remat=True``
 model's do."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import copy
 
 import jax

@@ -7,6 +7,8 @@ give equal results.  Everything is exact integer or f64 arithmetic in the
 same order, so the tolerance is 0 (equality), except where stated.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import numpy as np
 import pytest
 

@@ -5,6 +5,8 @@ and mAP, the ranking on the CPU), ``MetricsLogger``'s JSONL and TensorBoard
 events; and ``compute_class_embedding --device``, which refuses to run
 without a GPU (its run on the card is a ``cuda`` test)."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import json
 import pickle
 

@@ -1,5 +1,7 @@
 """The JAX package's checkpoints in the port: its model dumps and weight
 dumps, written by ``semantic_embeddings_tpu.train.state``, are told apart
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 from the port's files by their first bytes, rebuild into port models whose
 forward matches the JAX forward, load by name exactly as the JAX package's
 ``load_weights_by_name`` loads them, and start ``--finetune``,

@@ -3,6 +3,8 @@ layer-order table equals the JAX table; on the same Keras-layout files
 (written from a seed) the port's importer maps every weight as the JAX
 importer does, bit for bit, for each of the 15 exportable architectures;
 the two ``import_keras_weights`` CLIs give the same weights; export ->
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import is bitwise, and the two exporters write the same h5.  Full-size
 architectures are built on the meta device (shapes only)."""
 

@@ -6,6 +6,8 @@ a small size: ``learn_classifier`` (its dump rebuilt, evaluated, exported),
 as it loaded it.  The steps themselves are held against the JAX package
 in tests/test_torch_learners.py."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

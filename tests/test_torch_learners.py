@@ -12,6 +12,8 @@ updates; three steps through a small network compound that to ~1e-5
 relative: rtol 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,8 @@
 """The port's layers and models against the JAX package's, from the same
 weights (through ``semantic_embeddings_torch.convert``) and the same inputs."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,8 @@ float64 gradients (tolerances in ``_torch_zoo_common``); and the cell
 wiring that only shows in the structure (which cells adjust their p input,
 and how)."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

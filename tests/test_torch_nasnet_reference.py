@@ -6,6 +6,8 @@ as the port's counter does, and imports nothing of the port or of JAX; the
 depthwise readers read only whole passes; the port's forward opens its
 spans inside a profiler session."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import json
 import math
 import subprocess

@@ -3,6 +3,8 @@ batches and success flags for the same files, targets and seeds (both are
 built from one source with the same g++ flags on this host); a failed build
 raises, and ``--decoder auto`` then decodes with Pillow."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import os
 import shutil
 

@@ -7,6 +7,8 @@ kernel bodies themselves, run in interpret mode with the BlockSpecs of
 against the plain versions on the card in ``test_torch_cuda.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,8 @@ the updates to ~1e-5 relative; rtol 1e-4, as ``test_torch_train.py``.
 Retrieval and serving run one process over a list of devices, here CPUs.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import pickle
 
 import jax

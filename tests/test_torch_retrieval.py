@@ -8,6 +8,8 @@ rank: the rankings, ties included, must then be identical, and the metric
 scalars agree to f32 rounding of the cumulative sums (1e-6).
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

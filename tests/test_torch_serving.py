@@ -3,6 +3,8 @@ package's tests hold its engine), the HTTP frontend and client, and the
 serve CLI end to end on the CPU, with a port model from converted JAX
 weights held against the JAX model's output."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import io
 import json
 import os

@@ -22,6 +22,8 @@ Tolerances, as stated in each test:
   a halo off by a row or a gradient off by a factor of S stands out.
 """
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import pickle
 
 import jax

@@ -7,6 +7,8 @@ record their exchange; ``fit --profile_dir``'s trace names the spans.  The
 against the steps' time on the card.  torch only (no JAX): the ``cuda``
 tests run with ``--noconftest`` on the card."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import json
 from pathlib import Path
 
@@ -128,7 +130,6 @@ def test_the_first_call_of_each_step_function_is_a_setup_span():
 def _exchange_rank(out):
     """A rank of a gloo group: one step, then one under a CPU session; its
     spans go to ``out/rank{r}.json``."""
-    torch.set_num_threads(1)
     parallel.initialize_distributed("cpu")
     state, step, batches, rng = _tiny(shard=True)
     step(state, batches[0], 0.1, rng)

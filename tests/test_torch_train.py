@@ -1,6 +1,8 @@
 """The port's losses, metrics, optimizer, schedules and train step against
 the JAX package's, on the same numpy inputs and the same weights."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

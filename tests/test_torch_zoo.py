@@ -3,6 +3,8 @@ DenseNetFCN) against the JAX package's, at small sizes, from the same
 weights and inputs: eval and train forwards, the new running statistics and
 float64 gradients (tolerances in ``_torch_zoo_common``)."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

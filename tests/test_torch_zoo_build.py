@@ -5,6 +5,8 @@ input size, and the same L2 penalty on carried-over weights; and the layers
 the new families added (initializers, grouped and strided SAME convs, SAME
 pools, the zero padding of NASNet's reduction cells)."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ with ``--cls_base top`` (then its dump through
 (equal to a run without), and checkpoints of any family rebuilt with their
 input channels."""
 
+import _torch_threads  # noqa: F401  (first: the worker's share of the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
